@@ -1,0 +1,35 @@
+"""Unified Top-k query engine of the port: QuerySpec + Policy registry +
+compiled NetworkPlan, with the FD sweep on a torch device.
+
+    from repro_torch.engine import SimEngine, QuerySpec
+
+    engine = SimEngine(topology)            # on "cuda"; device="cpu" too
+    res = engine.run(QuerySpec(origins=(0, 7), n_trials=4), "fd-dynamic")
+    res.metrics.summary()                   # per-entry BatchMetrics
+
+For sustained concurrent load, ``QueryServer`` hosts warm engines
+behind a bounded queue and a dynamic batcher that coalesces compatible
+requests onto one sweep via ``Engine.run_many``:
+
+    with QueryServer(SimEngine(topology)) as server:
+        handle = server.submit(QuerySpec(origins=(0,)), "fd-dynamic")
+        res = handle.result()
+"""
+from repro_torch.engine.api import (Engine, Policy,  # noqa: F401
+                                    QuerySpec, TopKResult,
+                                    available_policies, get_policy,
+                                    policy_from_legacy, register_policy)
+from repro_torch.engine.plan import NetworkPlan  # noqa: F401
+from repro_torch.engine.serve import (LatencyStats,  # noqa: F401
+                                      PhaseStats, QueryHandle, QueryServer,
+                                      RequestTimeout, ServerClosed,
+                                      ServerConfig, ServerError,
+                                      ServerMetrics, ServerOverloaded)
+from repro_torch.engine.sim import SimEngine  # noqa: F401
+
+__all__ = ["QuerySpec", "Policy", "TopKResult", "NetworkPlan", "Engine",
+           "SimEngine", "QueryServer", "QueryHandle", "ServerConfig",
+           "ServerError", "ServerOverloaded", "RequestTimeout",
+           "ServerClosed", "ServerMetrics", "LatencyStats", "PhaseStats",
+           "available_policies", "get_policy", "policy_from_legacy",
+           "register_policy"]

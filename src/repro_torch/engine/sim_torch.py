@@ -1,0 +1,352 @@
+"""The FD forward and merge-and-backward sweep on a torch device.
+
+The port of the reference package's jitted sweep
+(``repro/engine/sim_jax.py``: ``_fd_sweep_impl``, ``_fold_lists``,
+``_retire``, ``_fold_max``, ``_device_slices``, ``run_entries_jax``) for
+FD without churn, in eager PyTorch:
+
+  * the per-depth forward flood — query arrival times down the BFS tree
+    (the ``arrivals`` kernel) plus the Strategy-1 "who-sent-first" edge
+    reduction;
+  * the bottom-up k-list merge — the plan's static fold schedule
+    (:class:`~repro_torch.engine.plan.DepthSlices`) executes only real
+    pairwise merges, each one a call of the ``merge`` kernel, and each
+    level's send times come from the ``wait`` kernel (Appendix A).
+
+On a CUDA device every one of those calls launches a hand-written CUDA
+kernel (``repro_torch.kernels``); on the CPU the same calls run the
+kernels' plain PyTorch versions.  Gathers, concatenations, the max-fold
+of child arrivals and the Strategy-1 count stay plain tensor code, as
+they were plain XLA in the reference.
+
+Everything stochastic is precomputed in numpy by the shared
+``_precompute_draws`` (the reference's RNG streams, in its order), and
+the urgent-list / retrieval epilogue is the shared numpy code, so in
+float64 this sweep gives the reference's bits in every RNG mode.  The
+merge follows ``merge_ref``'s tie rule (list ``a`` first, then the lower
+position) everywhere; on distinct scores — what f64 uniform draws give —
+every merge rule selects the same lists.
+
+Entry rows are independent and PyTorch runs eagerly, so there is no
+power-of-two padding of entry groups (the reference pads only to bound
+its jit cache).
+"""
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.engine.plan import DepthSlices, NetworkPlan
+from repro_torch.kernels.merge.ops import merge_scorelists
+from repro_torch.kernels.sweep.ops import level_arrivals, wait_propagate
+from repro_torch.p2psim.metrics import ENTRY_BYTES_PAPER
+from repro_torch.p2psim.simulate import (SimParams, _accept_urgent_origin,
+                                         _empty_out, _entry_latencies,
+                                         _precompute_draws,
+                                         _retrieval_exact,
+                                         _retrieval_shared,
+                                         _true_topk_by_origin, wait_time)
+
+NEG_INF = float("-inf")
+
+
+def _next_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def _retire(pools, ret, ret_perm, valid=None):
+    """Gather each finished segment's slot, in parent-ascending order.
+
+    ``valid``: slot mask over the ROUND-0 pool.  Only round-0
+    retirements (single-slot segments) can surface a never-merged input
+    slot, so that is the only place the mask applies — every later
+    retirement is a merge output, already mask-resolved.
+    """
+    parts = []
+    for r, idx in enumerate(ret):
+        if idx is None:
+            continue
+        seg = pools[r][:, idx]
+        if valid is not None and r == 0:
+            m = valid[:, idx]
+            seg = torch.where(m[..., None] if seg.dim() == 3 else m,
+                              seg, NEG_INF)
+        parts.append(seg)
+    return torch.cat(parts, dim=1)[:, ret_perm]
+
+
+def _fold_lists(cv, co, sched, valid=None):
+    """Run the static fold schedule ``sched = (rounds, ret, ret_perm)``
+    over the child k-lists; returns each parent's merged top-k, in
+    parent-ascending order.
+
+    ``valid``: per-slot on-time mask over round 0's slots.  It is
+    THREADED through the fold — merge inputs mask in the kernel, merge
+    outputs are always valid, carried slots inherit — so no masked copy
+    of the full child array is ever materialized.
+    """
+    rounds, ret, ret_perm = sched
+    pools_v, pools_o = [cv], [co]
+    vm = valid
+    for mi_a, mi_b, pi in rounds:
+        ma = mb = None
+        if vm is not None:
+            ma, mb = vm[:, mi_a], vm[:, mi_b]
+        mv, mo = merge_scorelists(cv[:, mi_a], co[:, mi_a],
+                                  cv[:, mi_b], co[:, mi_b],
+                                  valid_a=ma, valid_b=mb)
+        if pi.shape[0]:
+            mv = torch.cat([mv, cv[:, pi]], dim=1)
+            mo = torch.cat([mo, co[:, pi]], dim=1)
+            if vm is not None:
+                vm = torch.cat(
+                    [torch.ones((mv.shape[0], mi_a.shape[0]),
+                                dtype=torch.bool, device=mv.device),
+                     vm[:, pi]], dim=1)
+        elif vm is not None:
+            vm = torch.ones(mv.shape[:2], dtype=torch.bool,
+                            device=mv.device)
+        cv, co = mv, mo
+        pools_v.append(mv)
+        pools_o.append(mo)
+    return (_retire(pools_v, ret, ret_perm, valid),
+            _retire(pools_o, ret, ret_perm))
+
+
+def _fold_max(a, lv):
+    """Child-slot schedule, max-reduce: each parent's latest child
+    arrival."""
+    pools = [a]
+    for mi_a, mi_b, pi in lv["rounds"]:
+        ma = torch.maximum(a[:, mi_a], a[:, mi_b])
+        if pi.shape[0]:
+            ma = torch.cat([ma, a[:, pi]], dim=1)
+        a = ma
+        pools.append(ma)
+    return _retire(pools, lv["ret"], lv["ret_perm"])
+
+
+def _fd_sweep(scores, t_exec, up_term, dn_term, wt, tqf, lam, levels,
+              els, *, k: int, with_st1: bool):
+    """Forward + merge-and-backward sweeps of one origin's tree.
+
+    Per-level functional form: level d's tensors are produced from level
+    d±1's by static gathers — nothing is scattered into a global buffer.
+    Bit-parity contract (f64): every float expression groups exactly as
+    the reference sweep's; k-lists are padded to K = 2^ceil(log2 k) with
+    -inf tails that never surface in the top k.
+
+    Returns per-level send times, merged values (E, L, k) and owners,
+    and the Strategy-1 skip count per entry (None for FD-Basic).
+    """
+    E = t_exec.shape[0]
+    dt, dev = t_exec.dtype, t_exec.device
+    K = _next_pow2(k)
+    dmax = len(levels) - 1
+
+    skip = None
+    if with_st1:
+        els_src, els_dst, cond = els
+        send_at = tqf[None, :] + lam
+        skip = ((send_at[:, els_dst] < send_at[:, els_src])
+                & cond[None, :]).sum(dim=1)
+
+    t_qs = [torch.zeros((E, 1), dtype=dt, device=dev)]
+    for d in range(1, dmax + 1):
+        lv = levels[d]
+        t_qs.append(level_arrivals(t_qs[d - 1], dn_term[:, lv["vv"]],
+                                   lv["par_pos"]))
+
+    send = [None] * (dmax + 1)
+    m_v = [None] * (dmax + 1)
+    m_o = [None] * (dmax + 1)
+    for d in range(dmax, -1, -1):
+        lv = levels[d]
+        vv = lv["vv"]
+        L = vv.shape[0]
+        own_ready = t_qs[d] + t_exec[:, vv]
+        deadline = t_qs[d] + wt[vv][None, :]
+        own_v = scores[:, vv]
+        if K > k:
+            own_v = torch.cat(
+                [own_v, torch.full((E, L, K - k), NEG_INF, dtype=dt,
+                                   device=dev)], dim=2)
+        own_o = vv.to(torch.int32)[None, :, None].expand(E, L, K)
+        a0 = None
+        if "cnode" not in lv:                    # all leaves
+            all_in = torch.zeros((E, L), dtype=dt, device=dev)
+        else:
+            a0 = send[d + 1][:, lv["c_in_next"]] + up_term[:, lv["cnode"]]
+            # the parent's send time depends on all_in, a pure max over
+            # ALL child arrivals
+            n_par = lv["ret_perm"].shape[0]
+            am = _fold_max(a0, lv)
+            all_in = torch.cat(
+                [am, torch.zeros((E, L - n_par), dtype=dt, device=dev)],
+                dim=1)[:, lv["asm_perm"]]
+        s = wait_propagate(own_ready, all_in, deadline)
+        if a0 is None:
+            mv, mo = own_v, own_o
+        else:
+            # on-time = arrived by the parent's send time
+            ont = a0 <= s[:, lv["cpar_pos"]]
+            child_v, child_o = _fold_lists(
+                m_v[d + 1][:, lv["c_in_next"]],
+                m_o[d + 1][:, lv["c_in_next"]],
+                (lv["rounds"], lv["ret"], lv["ret_perm"]), valid=ont)
+            pv, po = merge_scorelists(own_v[:, lv["par_sel"]],
+                                      own_o[:, lv["par_sel"]],
+                                      child_v, child_o)
+            mv = torch.cat(
+                [pv, own_v[:, lv["leaf_sel"]]], dim=1)[:, lv["asm_perm"]]
+            mo = torch.cat(
+                [po, own_o[:, lv["leaf_sel"]]], dim=1)[:, lv["asm_perm"]]
+        send[d] = s
+        m_v[d], m_o[d] = mv, mo
+    return (send, [v[:, :, :k] for v in m_v], [o[:, :, :k] for o in m_o],
+            skip)
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``, dtype kept (int32 plan
+    indices stay int32)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _conv_slice_field(f, v, device):
+    if f == "rounds":
+        return tuple(tuple(_to_device(x, device) for x in rnd)
+                     for rnd in v)
+    if f == "ret":
+        return tuple(None if idx is None else _to_device(idx, device)
+                     for idx in v)
+    return _to_device(v, device)
+
+
+def _device_slices(sl: DepthSlices, device: torch.device):
+    """``sl``'s level tables and Strategy-1 edge arrays as tensors on
+    ``device``, cached on the instance per device (one upload per plan
+    and device)."""
+    cache = sl.__dict__.setdefault("_device", {})
+    key = str(device)
+    if key not in cache:
+        levels = tuple({f: _conv_slice_field(f, v, device)
+                        for f, v in lv.items()} for lv in sl.levels)
+        els = (_to_device(sl.els_src, device),
+               _to_device(sl.els_dst, device),
+               _to_device(sl.cond, device))
+        cache[key] = (levels, els)
+    return cache[key]
+
+
+def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
+                      ent_origin: np.ndarray, seeds, n: int, p: SimParams,
+                      dynamic: bool, independent: bool,
+                      device: torch.device, replicas=None) -> dict:
+    """FD without churn over a flattened (E,) entry batch on ``device``.
+
+    The counterpart of the reference's ``run_entries_jax`` for
+    ``algorithm="fd"`` and an infinite lifetime: the same per-entry
+    output dict (metric arrays, the origin's merged ``values`` /
+    ``owners``), plus ``compile_s`` — the wall time of the depth-slice
+    compiles and uploads this call had to do (0.0 on a warm plan).
+    """
+    E = len(seeds)
+    S = len(sts)
+    k = p.k
+    list_bytes = k * ENTRY_BYTES_PAPER
+    ent_of_st = [np.flatnonzero(ent_st == s) for s in range(S)]
+    par_lat, origin_lat = _entry_latencies(sts, ent_st, p)
+    draws = _precompute_draws(ent_origin, seeds, n, p, "fd",
+                              sts[0].fw_strategy, math.inf, independent,
+                              par_lat, origin_lat)
+    out = _empty_out(E, k)
+    out["compile_s"] = 0.0
+
+    send_t = np.full((E, n), np.inf)
+    mvals = np.empty((E, n, k))
+    mown = np.full((E, n, k), -1, np.int32)
+    for si, st in enumerate(sts):
+        es = ent_of_st[si]
+        full = len(es) == E          # then es == arange(E): no gather
+
+        def _take(a):
+            return _to_device(a if full else a[es], device)
+
+        t0 = time.perf_counter()
+        n_slices = len(plan._slices)
+        sl = plan.depth_slices(st)
+        fresh = (len(plan._slices) > n_slices
+                 or str(device) not in sl.__dict__.get("_device", {}))
+        levels, els = _device_slices(sl, device)
+        if fresh:
+            out["compile_s"] += time.perf_counter() - t0
+        with_st1 = st.fw_strategy != "basic"
+        tqf = lam = None
+        if with_st1:
+            tqf = _to_device(np.where(st.depth >= 0,
+                                      st.depth * p.t_qsnd_s, np.inf),
+                             device)
+            lam = _take(draws.lam)
+        send_d, mv_d, mo_d, skip = _fd_sweep(
+            _take(draws.scores), _take(draws.t_exec),
+            _take(draws.up_term), _take(draws.dn_term),
+            _to_device(wait_time(st.ttl_rem, p), device), tqf, lam,
+            levels, els, k=k, with_st1=with_st1)
+        for d, lv in enumerate(sl.levels):
+            rows = np.ix_(es, lv["vv"])
+            send_t[rows] = send_d[d].cpu().numpy()
+            mvals[rows] = mv_d[d].cpu().numpy()
+            mown[rows] = mo_d[d].cpu().numpy()
+        out["m_fw"][es] = (st.fw_static + sl.n_els
+                           - skip.cpu().numpy().astype(np.int64)
+                           if with_st1 else st.m_basic)
+
+    # without churn every reached peer but the origin sends its list once
+    n_reached_arr = np.array([len(st.idx) for st in sts], np.int64)
+    out["m_bw"] += n_reached_arr[ent_st] - 1
+    out["b_bw"] += (n_reached_arr[ent_st] - 1) * list_bytes
+
+    # ---- urgent lists (§4.1): late-arrival post-pass --------------------
+    urgent: list = [[] for _ in range(E)]
+    if dynamic:
+        hop_term = p.latency_mean_s + list_bytes / p.bw_mean_Bps
+        for si, st in enumerate(sts):
+            es = ent_of_st[si]
+            ch = st.kid_sorted
+            if len(ch) == 0:
+                continue
+            pr = st.parent[ch]
+            a = send_t[np.ix_(es, ch)] + draws.up_term[np.ix_(es, ch)]
+            late = a > send_t[np.ix_(es, pr)]
+            if not late.any():
+                continue
+            d_par = st.depth[pr]
+            ei, ci = np.nonzero(late)
+            etas = a[ei, ci] + d_par[ci] * hop_term
+            for e_, c_, eta in zip(es[ei], ch[ci], etas):
+                urgent[int(e_)].append((eta, int(c_)))
+            out["m_bw"][es] += (late * d_par[None, :]).sum(axis=1)
+            out["b_bw"][es] += (late
+                                * (d_par[None, :] * list_bytes)).sum(axis=1)
+
+    top_true_all = _true_topk_by_origin(draws.scores, sts, ent_of_st, k)
+    t_merge_done = send_t[np.arange(E), ent_origin] + p.merge_s
+    _accept_urgent_origin(urgent, ent_origin, t_merge_done, mvals, mown,
+                          None, k)
+    ar = np.arange(E)
+    out["values"] = mvals[ar, ent_origin]
+    out["owners"] = mown[ar, ent_origin].astype(np.int64)
+    if draws.exact:
+        _retrieval_exact(out, draws, ent_origin, t_merge_done, mvals,
+                         mown, top_true_all, p, replicas)
+    else:
+        _retrieval_shared(out, draws, ent_origin, t_merge_done, mvals,
+                          mown, top_true_all, p, replicas)
+    return out

@@ -1,0 +1,674 @@
+"""Host side of the static FD sweep: parameters, draws, per-origin
+statics and the shared epilogue.
+
+A copy of the pieces of the reference package's ``p2psim.simulate``
+that the static FD path reads, kept verbatim so the two packages share
+one RNG-draw contract: every stochastic input of a query is drawn here
+in numpy, in the scalar reference's exact order (``_precompute_draws``),
+so the port's device sweep and the reference's sweeps see the same bits
+and parity is a statement about sweep math alone.
+
+  * ``SimParams`` (Table 1 of the paper) and the Appendix-A wait budget;
+  * the link, score and churn draws (``EntryDraws``);
+  * ``_OriginStatic`` — one origin's BFS tree, levels, child CSR and
+    forward-phase edge masks;
+  * the epilogue the sweep hands over to: urgent-list acceptance at
+    the origin (§4.1), ground-truth top-k, and the retrieval phase with
+    optional replica placement.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.p2psim.graph import Topology, bfs_tree_csr
+from repro_torch.p2psim.metrics import ENTRY_BYTES_PAPER, QUERY_BYTES
+
+
+@dataclasses.dataclass
+class SimParams:
+    """Table 1 of the paper."""
+    k: int = 20
+    ttl: int = 0                    # 0 -> auto (reach everyone)
+    latency_mean_s: float = 0.200   # N(200 ms, var 100 ms^2)
+    latency_var: float = 0.100 ** 2
+    bw_mean_Bps: float = 56_000.0 / 8.0      # 56 kbps
+    bw_var: float = (32_000.0 / 8.0) ** 2
+    tuples_lo: int = 1000
+    tuples_hi: int = 20000
+    item_mean_B: float = 1024.0     # result data item ~ N(1 KB, ...)
+    item_std_B: float = 256.0
+    exec_s_per_tuple: float = 2e-5  # T_exec(Q) ~ 0.02..0.4 s
+    merge_s: float = 0.002          # T_Merge(k)
+    lam_max_s: float = 0.05         # Strategy-1 random wait λ
+    request_B: int = 50
+    # Appendix-A wait-time cost parameters (MAX estimates)
+    t_qsnd_s: float = 0.5
+    t_exec_max_s: float = 0.5
+    t_slsnd_s: float = 0.5
+    seed: int = 0
+    # "iid"  — per-link latency ~ N(latency_mean_s, latency_var), the
+    #          paper's Table-1 draw (default; RNG streams unchanged);
+    # "edge" — per-edge latency from the topology's plane embedding
+    #          (BRITE's distance-proportional delay, see
+    #          Topology.pair_latency); needs a coordinate-carrying
+    #          generator.  Bandwidths stay
+    #          i.i.d. draws in both models.
+    latency_model: str = "iid"
+    # Replication (survey-motivated churn mitigation): every peer's
+    # top-k items live on `replication_factor` additional peers, chosen
+    # by the registered `replication_placement` policy ("random" /
+    # "neighbor" — see register_placement).  At the FD retrieval phase a
+    # dead owner's items are fetched from its first alive replica; an
+    # item is lost only when the owner AND all its replicas are gone.
+    # The placement table is a deterministic property of the overlay
+    # (fixed internal seed, NOT the query stream), so `=0` leaves every
+    # drawn bit unchanged and the CN baselines are unaffected.
+    replication_factor: int = 0
+    replication_placement: str = "random"
+
+
+def wait_time(ttl_rem: np.ndarray, p: SimParams) -> np.ndarray:
+    """Appendix A formula (2)."""
+    t = ttl_rem.astype(np.float64)
+    return (t * p.t_qsnd_s + p.t_exec_max_s + t * p.t_slsnd_s
+            + np.maximum(t - 1.0, 0.0) * p.merge_s)
+
+
+def _draw_link(rng, p: SimParams, size):
+    lat = np.maximum(rng.normal(p.latency_mean_s,
+                                math.sqrt(p.latency_var), size), 1e-3)
+    bw = np.maximum(rng.normal(p.bw_mean_Bps, math.sqrt(p.bw_var), size),
+                    1_000.0)
+    return lat, bw
+
+
+def _draw_bw(rng, p: SimParams, size):
+    """Bandwidth-only draw — the ``latency_model="edge"`` link draw.
+
+    The latency half of ``_draw_link`` is deterministic (the embedding
+    distance), so the stream advances by the bandwidth normals ONLY;
+    every backend uses this same helper, which is what keeps the edge
+    model's streams aligned across reference / numpy / jax.
+    """
+    return np.maximum(rng.normal(p.bw_mean_Bps, math.sqrt(p.bw_var), size),
+                      1_000.0)
+
+
+# --------------------------------------------------------------------------
+# replication: placement registry + retrieval-fallback model
+# --------------------------------------------------------------------------
+
+# placement(indptr, indices, r, rng) -> (n, r) replica peer ids (-1 pad)
+_PLACEMENTS: dict = {}
+
+# the placement table is a property of the NETWORK, not of any query:
+# it is drawn from this fixed internal stream so every backend — and
+# every per-entry seed — sees the same table, and the query RNG streams
+# never move
+_PLACEMENT_STREAM = 0x5EED_0FAB
+
+
+def register_placement(name: str, fn) -> None:
+    """Register a replica placement policy under ``name``."""
+    _PLACEMENTS[name] = fn
+
+
+def get_placement(name: str):
+    """Look up a registered replica placement policy by name."""
+    try:
+        return _PLACEMENTS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown replication placement {name!r}; registered: "
+            f"{available_placements()}") from None
+
+
+def available_placements() -> tuple:
+    """Registered placement-policy names, sorted."""
+    return tuple(sorted(_PLACEMENTS))
+
+
+def _place_random(indptr, indices, r: int, rng) -> np.ndarray:
+    """r uniform peers per owner (excluding the owner itself)."""
+    n = len(indptr) - 1
+    if n <= 1:
+        return np.full((n, r), -1, np.int64)
+    tab = np.empty((n, r), np.int64)
+    for j in range(r):
+        cand = rng.integers(0, n - 1, n)
+        cand += cand >= np.arange(n)         # skip the owner's own id
+        tab[:, j] = cand
+    return tab
+
+
+def _place_neighbor(indptr, indices, r: int, rng) -> np.ndarray:
+    """r uniform NEIGHBORS per owner (isolated owners get no replicas)."""
+    n = len(indptr) - 1
+    deg = np.diff(indptr)
+    tab = np.full((n, r), -1, np.int64)
+    for j in range(r):
+        raw = rng.integers(0, 1 << 62, n)
+        sel = raw % np.maximum(deg, 1)
+        tab[:, j] = np.where(deg > 0, indices[indptr[:-1] + sel], -1)
+    return tab
+
+
+register_placement("random", _place_random)
+register_placement("neighbor", _place_neighbor)
+
+
+def build_replica_table(indptr, indices, r: int,
+                        placement: str) -> np.ndarray:
+    """(n, r) replica peer ids per owner (-1 = unfilled slot).
+
+    Deterministic in (overlay CSR, r, placement) — the scalar
+    reference and the batched engines compute it from the same CSR
+    arrays, so replication never enters the cross-backend parity story
+    as anything but shared input data.
+    """
+    rng = np.random.default_rng(_PLACEMENT_STREAM + r)
+    return get_placement(placement)(indptr, indices, r, rng)
+
+
+def _serving_peers(owners: np.ndarray, replicas, death_row: np.ndarray,
+                   t: float) -> np.ndarray:
+    """Per owner: the peer that serves its items at time ``t`` — the
+    owner itself when alive, else its first alive replica, else -1
+    (items lost).  ``replicas`` is the (n, r) table or None."""
+    served = np.where(death_row[owners] > t, owners, -1)
+    if replicas is not None and replicas.shape[1] and len(owners):
+        need = served < 0
+        if need.any():
+            reps = replicas[owners[need]]                   # (m, r)
+            ok = (reps >= 0) & (death_row[np.maximum(reps, 0)] > t)
+            has = ok.any(axis=1)
+            first = reps[np.arange(len(reps)), ok.argmax(axis=1)]
+            served[need] = np.where(has, first, -1)
+    return served
+
+
+# --------------------------------------------------------------------------
+# batched draws and per-origin statics
+# --------------------------------------------------------------------------
+def _draw_link_batch(rngs, p: SimParams, size):
+    pairs = [_draw_link(r, p, size) for r in rngs]
+    return (np.stack([a for a, _ in pairs]),
+            np.stack([b for _, b in pairs]))
+
+
+def _draw_bw_batch(rngs, p: SimParams, size):
+    return np.stack([_draw_bw(r, p, size) for r in rngs])
+
+
+def _local_topk_scores_batch(n_tuples: np.ndarray, u: np.ndarray,
+                             k: int) -> np.ndarray:
+    """Batched ``local_topk_scores`` with pre-drawn uniforms u (T, n, k).
+
+    Same per-element expressions as the scalar version — bit-for-bit."""
+    T, n = n_tuples.shape
+    out = np.empty((T, n, k))
+    cur = np.ones((T, n))
+    remaining = n_tuples.astype(np.float64)
+    for j in range(k):
+        cur = cur * u[:, :, j] ** (1.0 / np.maximum(remaining, 1.0))
+        out[:, :, j] = cur
+        remaining -= 1.0
+    return out
+
+
+def _local_topk_scores_batch_fast(n_tuples: np.ndarray, u: np.ndarray,
+                                  k: int) -> np.ndarray:
+    """Log-space form of the same order statistics: exp(Σ log(u_i)/rem_i).
+
+    ~3× cheaper than the k pow passes; identical distribution but
+    last-ulp different values — only used when entry-wise bit-parity
+    with ``run_query`` is not required (shared-stream, E > 1)."""
+    rem = np.maximum(n_tuples[..., None].astype(np.float64)
+                     - np.arange(k), 1.0)
+    out = np.log(u, out=u)                       # clobbers u (not reused)
+    out /= rem
+    np.cumsum(out, axis=2, out=out)
+    return np.exp(out, out=out)
+
+
+@dataclasses.dataclass
+class EntryDraws:
+    """Every per-entry RNG draw, in ``run_query_reference``'s exact order.
+
+    Factored out of the numpy sweep so EVERY SimEngine backend consumes
+    the same numpy-drawn arrays — backends may lower the sweeps to
+    different hardware (see ``repro_torch.engine.sim_torch``), but the
+    stochastic inputs are bit-for-bit identical, which is what makes
+    cross-backend parity a pure statement about the sweep math.
+
+    ``rngs`` is left positioned exactly after the last pre-retrieval
+    draw, so the exact retrieval path can continue each entry's stream
+    where the scalar reference would.
+    """
+    exact: bool
+    rngs: list                            # per-entry generators (or [g]*E)
+    n_tuples: np.ndarray                  # (E, n) int
+    scores: np.ndarray                    # (E, n, k) descending
+    t_exec: np.ndarray                    # (E, n)
+    up_term: np.ndarray                   # (E, n) lat + L_k / bw, v->parent
+    dn_term: np.ndarray                   # (E, n) lat + Q / bw,  parent->v
+    death: np.ndarray                     # (E, n); inf without churn
+    item_sizes: Optional[np.ndarray]      # (E, n, k); None on fd fast path
+    lam: Optional[np.ndarray]             # (E, n) st1/st1+2 random wait
+    lat_o: Optional[np.ndarray]           # (E, n) cn/cn* originator links
+    bw_o: Optional[np.ndarray]
+    # latency_model="edge" only: (E, n) embedding latency origin -> v,
+    # consumed by the retrieval epilogues in place of the iid lat draw
+    origin_lat: Optional[np.ndarray] = None
+
+
+def _precompute_draws(ent_origin: np.ndarray, seeds, n: int, p: SimParams,
+                      algorithm: str, fw_strategy: str,
+                      lifetime_mean_s: float, independent: bool,
+                      par_lat: Optional[np.ndarray] = None,
+                      origin_lat: Optional[np.ndarray] = None
+                      ) -> EntryDraws:
+    """All pre-retrieval draws for a flattened (E,) entry batch.
+
+    The order is ``run_query_reference``'s: n_tuples, score uniforms,
+    upward link, downward link, churn deaths, item sizes, then the
+    per-algorithm extras (cn originator links / st1 wait lambdas).
+
+    The churn draws live here too: ``death`` (exponential residual
+    lifetimes, origin clamped immortal) is the ONE stochastic input the
+    whole §4 machinery — peer removal, urgent forwarding, dead-parent
+    rerouting — hinges on, so every backend consumes the same numpy
+    deaths and churn parity reduces to sweep math.  Rerouting itself is
+    deterministic in the paper's model (children go to the grandparent),
+    so no further draws are needed.
+
+    ``par_lat`` / ``origin_lat`` (both (E, n)) switch the link draws to
+    the ``latency_model="edge"`` regime: latencies are the given
+    embedding-derived values (tree-edge and origin-pair respectively)
+    and only bandwidths are drawn — with ``_draw_bw``, the exact stream
+    the scalar reference consumes in that mode.  Both backends receive
+    the resulting ``up_term`` / ``dn_term`` / ``lat_o`` unchanged, so
+    the latency model never breaks cross-backend bit parity.
+    """
+    E = len(seeds)
+    k = p.k
+    list_bytes = k * ENTRY_BYTES_PAPER
+    if independent:
+        rngs = [np.random.default_rng(s) for s in seeds]
+        n_tuples = np.stack([r.integers(p.tuples_lo, p.tuples_hi + 1, n)
+                             for r in rngs])
+        u = np.stack([r.random((n, k)) for r in rngs])
+    else:
+        g = np.random.default_rng(int(seeds[0]))
+        rngs = [g] * E
+        n_tuples = g.integers(p.tuples_lo, p.tuples_hi + 1, (E, n))
+        u = g.random((E, n, k))
+    exact = independent or E == 1
+    scores = (_local_topk_scores_batch(n_tuples, u, k) if exact
+              else _local_topk_scores_batch_fast(n_tuples, u, k))
+    t_exec = n_tuples * p.exec_s_per_tuple
+    if par_lat is not None:
+        if independent:
+            bw_up = _draw_bw_batch(rngs, p, n)
+            bw_dn = _draw_bw_batch(rngs, p, n)
+        else:
+            bw_up = _draw_bw(g, p, (E, n))
+            bw_dn = _draw_bw(g, p, (E, n))
+        lat_up = lat_dn = par_lat
+    elif independent:
+        lat_up, bw_up = _draw_link_batch(rngs, p, n)
+        lat_dn, bw_dn = _draw_link_batch(rngs, p, n)
+    else:
+        lat_up, bw_up = _draw_link(g, p, (E, n))
+        lat_dn, bw_dn = _draw_link(g, p, (E, n))
+    if math.isinf(lifetime_mean_s):
+        death = np.full((E, n), np.inf)
+    else:
+        if independent:
+            death = np.stack([r.exponential(lifetime_mean_s, n)
+                              for r in rngs])
+        else:
+            death = g.exponential(lifetime_mean_s, (E, n))
+        death[np.arange(E), ent_origin] = np.inf
+    # FD never reads the item-size values — only their stream position
+    # matters, and only for entry-wise parity (independent / E == 1)
+    item_sizes = None
+    if algorithm != "fd" or exact:
+        if independent:
+            item_sizes = np.stack([np.maximum(
+                r.normal(p.item_mean_B, p.item_std_B, (n, k)), 64.0)
+                for r in rngs])
+        else:
+            item_sizes = np.maximum(
+                g.normal(p.item_mean_B, p.item_std_B, (E, n, k)), 64.0)
+    lam = lat_o = bw_o = None
+    if algorithm in ("cn", "cn_star"):
+        if origin_lat is not None:
+            lat_o = origin_lat
+            bw_o = (_draw_bw_batch(rngs, p, n) if independent
+                    else _draw_bw(g, p, (E, n)))
+        elif independent:
+            lat_o, bw_o = _draw_link_batch(rngs, p, n)
+        else:
+            lat_o, bw_o = _draw_link(g, p, (E, n))
+    elif fw_strategy != "basic":
+        if independent:
+            lam = np.stack([r.random(n) for r in rngs]) * p.lam_max_s
+        else:
+            lam = g.random((E, n)) * p.lam_max_s
+    return EntryDraws(
+        exact=exact, rngs=rngs, n_tuples=n_tuples, scores=scores,
+        t_exec=t_exec, up_term=lat_up + list_bytes / bw_up,
+        dn_term=lat_dn + QUERY_BYTES / bw_dn, death=death,
+        item_sizes=item_sizes, lam=lam, lat_o=lat_o, bw_o=bw_o,
+        origin_lat=origin_lat)
+
+
+class _OriginStatic:
+    """Trial-independent per-origin state (shared by all trials).
+
+    ``edge_lat`` — the plan's CSR-aligned per-edge latency array
+    (present when the topology carries coordinates): gathered here into
+    ``par_lat`` (each node's tree-edge latency, the deterministic half
+    of the ``latency_model="edge"`` link draws) and complemented by
+    ``origin_lat`` (embedding latency origin -> v for the direct
+    retrieval / CN originator links).
+    """
+
+    def __init__(self, top: Topology, indptr, indices, e_src, e_dst,
+                 edge_keys, degrees, origin: int, ttl: int,
+                 fw_strategy: str, bfs=None, edge_lat=None):
+        n = top.n
+        if bfs is not None:           # precomputed by the multi-origin BFS
+            parent, depth, reached = bfs[:3]
+            rank = bfs[3] if len(bfs) > 3 else None
+            self.ttl = int(depth.max()) if ttl == 0 else ttl
+        elif ttl == 0:
+            # auto TTL = eccentricity: the full-depth BFS *is* the
+            # TTL-limited BFS at that TTL, so reuse it
+            parent, depth, reached, rank = bfs_tree_csr(
+                indptr, indices, origin, n, return_rank=True)
+            self.ttl = int(depth.max())
+        else:
+            self.ttl = ttl
+            parent, depth, reached, rank = bfs_tree_csr(
+                indptr, indices, origin, self.ttl, return_rank=True)
+        self.parent, self.depth, self.reached = parent, depth, reached
+        # within-level discovery ranks: the first-touch certificate the
+        # live-overlay tree patch compares claims with (None only when a
+        # caller passed a rank-less bfs tuple; such statics fall back to
+        # the full BFS on every sync)
+        self.rank = rank
+        self.origin = origin
+        self.idx = np.flatnonzero(reached)
+        self.ttl_rem = np.maximum(self.ttl - depth, 0)
+        dmax = int(depth.max())
+        self.levels = [np.flatnonzero(depth == d) for d in range(dmax + 1)]
+        # children CSR: grouped by parent, ascending within each parent —
+        # the order run_query builds its per-node lists in
+        childs = self.idx[parent[self.idx] >= 0]
+        par = parent[childs]
+        ordk = np.argsort(par, kind="stable")
+        self.kid_sorted = childs[ordk]
+        self.kid_ptr = np.searchsorted(par[ordk], np.arange(n + 1))
+        self.fw_strategy = fw_strategy
+        self.refresh_edges(top, e_src, e_dst, edge_keys, degrees, edge_lat)
+
+    def refresh_edges(self, top: Topology, e_src, e_dst, edge_keys,
+                      degrees, edge_lat) -> None:
+        """(Re)derive everything that reads the GLOBAL edge arrays.
+
+        The BFS tree (``parent`` / ``depth`` / ``reached`` / levels /
+        child CSR) only sees edges on the tree, but the forward-phase
+        masks, message counts, and latency gathers see every edge —
+        ``NetworkPlan.sync`` calls this after an edge delta that left
+        this origin's BFS tree unchanged, instead of rebuilding the
+        whole static."""
+        n = top.n
+        parent, depth, reached = self.parent, self.depth, self.reached
+        origin = self.origin
+        self.n_edges_pq = int(((e_src < e_dst) & reached[e_src]
+                               & reached[e_dst]).sum())
+        self.avg_degree = float(np.mean(degrees[self.idx]))
+
+        # ---- per-edge latency gathers (latency_model="edge") -----------
+        if edge_lat is not None:
+            self.par_lat = np.full(n, top.lat_base_s)
+            ch = self.idx[parent[self.idx] >= 0]
+            pos = np.searchsorted(edge_keys, ch * n + parent[ch])
+            self.par_lat[ch] = edge_lat[pos]
+            self.origin_lat = top.pair_latency(origin, np.arange(n))
+        else:
+            self.par_lat = self.origin_lat = None
+
+        # ---- forward-phase static masks --------------------------------
+        mask_u = reached & (self.ttl_rem > 0)
+        self.m_basic = int(degrees[mask_u].sum() - mask_u.sum()
+                           + int(mask_u[origin]))
+        fw_strategy = self.fw_strategy
+        if fw_strategy == "basic":
+            return
+        pu_e = parent[e_src]
+        active = reached[e_src] & (self.ttl_rem[e_src] > 0) & (e_dst != pu_e)
+        unreach = active & ~reached[e_dst]
+        rest = active & reached[e_dst]
+        if fw_strategy == "st1+2" and len(edge_keys):
+            # Strategy 2 skip: v already reached by parent(u)'s send —
+            # membership test (parent(u), v) ∈ E via the sorted key array
+            m2 = rest & (pu_e >= 0)
+            key = pu_e * n + e_dst
+            pos = np.minimum(np.searchsorted(edge_keys, key[m2]),
+                             len(edge_keys) - 1)
+            member = np.zeros(len(e_src), bool)
+            member[m2] = edge_keys[pos] == key[m2]
+            rest = rest & ~member
+        tree = rest & (parent[e_dst] == e_src)
+        self.fw_static = int(unreach.sum() + tree.sum())
+        els = np.flatnonzero(rest & ~tree)
+        self.fw_els_src = e_src[els]
+        self.fw_els_dst = e_dst[els]
+        self.fw_cond = ((parent[self.fw_els_src] == self.fw_els_dst)
+                        | (depth[self.fw_els_dst]
+                           <= depth[self.fw_els_src]))
+
+    def _classify_edges(self, pos, e_src, e_dst, edge_keys, base,
+                        parent, depth, reached, ttl_rem):
+        """refresh_edges' per-edge pipeline on a POSITION SUBSET.
+
+        Returns (u, v, unreach, tree, els) booleans per position —
+        exactly what the full pass would compute for those edges, so a
+        delta patch can subtract old and add new contributions without
+        touching the rest."""
+        u = e_src[pos].astype(np.int64)
+        v = e_dst[pos].astype(np.int64)
+        pu = parent[u]
+        active = reached[u] & (ttl_rem[u] > 0) & (v != pu)
+        unreach = active & ~reached[v]
+        rest = active & reached[v]
+        if self.fw_strategy == "st1+2" and len(edge_keys):
+            m2 = rest & (pu >= 0)
+            key = pu * base + v
+            p_ = np.minimum(np.searchsorted(edge_keys, key[m2]),
+                            len(edge_keys) - 1)
+            member = np.zeros(len(u), bool)
+            member[m2] = edge_keys[p_] == key[m2]
+            rest = rest & ~member
+        tree = rest & (parent[v] == u)
+        return u, v, unreach, tree, rest & ~tree
+
+
+# --------------------------------------------------------------------------
+# the shared epilogue
+# --------------------------------------------------------------------------
+def _entry_latencies(sts, ent_st: np.ndarray, p: SimParams):
+    """(par_lat, origin_lat) as (E, n) entry-expanded arrays, or (None,
+    None) in the default iid model (backend-shared helper)."""
+    if p.latency_model != "edge":
+        return None, None
+    if sts[0].par_lat is None:
+        raise ValueError(
+            "latency_model='edge' needs node coordinates; this "
+            "topology has none (use a coordinate-carrying "
+            "generator)")
+    return (np.stack([st.par_lat for st in sts])[ent_st],
+            np.stack([st.origin_lat for st in sts])[ent_st])
+
+
+def _topk_remerge(mvals_row, mown_row, extra_v, extra_o, k):
+    """Exact: top-k(top-k(A) ∪ B) == top-k(A ∪ B) for distinct values."""
+    allm = np.concatenate([mvals_row] + extra_v)
+    allo = np.concatenate([mown_row] + extra_o)
+    sel = np.argsort(allm)[::-1][:k]
+    return allm[sel], allo[sel]
+
+
+def _empty_out(E: int, k: Optional[int] = None) -> dict:
+    out = {f: np.zeros(E, np.int64)
+           for f in ("m_fw", "m_bw", "m_rt", "b_bw", "b_rt")}
+    out["response_time_s"] = np.zeros(E)
+    out["accuracy"] = np.zeros(E)
+    if k is not None:
+        # the origin's merged k-list (descending values + owning peers)
+        # — what the precision tolerance contract compares across runs
+        out["values"] = np.full((E, k), -np.inf)
+        out["owners"] = np.full((E, k), -1, np.int64)
+    return out
+
+
+def _true_topk_by_origin(scores: np.ndarray, sts, ent_of_st,
+                         k: int) -> np.ndarray:
+    """(E, k) true top-k of each entry's reach set, grouped by origin."""
+    E = scores.shape[0]
+    top_true_all = np.empty((E, k))
+    for s, st in enumerate(sts):
+        es = ent_of_st[s]
+        block = scores[np.ix_(es, st.idx)].reshape(len(es), -1)
+        part = np.partition(block, -k, axis=1)[:, -k:]
+        top_true_all[es] = np.sort(part, axis=1)[:, ::-1]
+    return top_true_all
+
+
+def _accept_urgent_origin(urgent, ent_origin: np.ndarray,
+                          t_merge_done: np.ndarray, mvals: np.ndarray,
+                          mown: np.ndarray, valid: Optional[np.ndarray],
+                          k: int) -> None:
+    """Fold urgent lists arriving before retrieval into the origin's
+    merge (``valid`` is None when churn is off — everyone is alive)."""
+    for e in range(len(ent_origin)):
+        if not urgent[e]:
+            continue
+        origin = int(ent_origin[e])
+        ok = [c for (eta, c) in urgent[e]
+              if eta <= t_merge_done[e]
+              and (valid is None or valid[e, c])]
+        if ok and (valid is None or valid[e, origin]):
+            mvals[e, origin], mown[e, origin] = _topk_remerge(
+                mvals[e, origin], mown[e, origin],
+                [mvals[e, c] for c in ok], [mown[e, c] for c in ok], k)
+
+
+def _retrieval_exact(out: dict, draws: EntryDraws, ent_origin: np.ndarray,
+                     t_merge_done: np.ndarray, mvals: np.ndarray,
+                     mown: np.ndarray, top_true_all: np.ndarray,
+                     p: SimParams, replicas=None) -> None:
+    """run_query's per-entry retrieval, verbatim (bit-for-bit parity).
+
+    ``replicas`` — the plan's (n, r) placement table (None = replication
+    off): a dead owner's items are served by its first alive replica,
+    exactly the scalar reference's fallback."""
+    k = p.k
+    death, rngs = draws.death, draws.rngs
+    for e in range(len(ent_origin)):
+        origin = int(ent_origin[e])
+        final_owners = np.unique(mown[e, origin])
+        served = _serving_peers(final_owners, replicas, death[e],
+                                t_merge_done[e])
+        srv = served >= 0
+        out["m_rt"][e] = 2 * int(srv.sum())
+        if draws.origin_lat is None:
+            lat_o, bw_o = _draw_link(rngs[e], p, len(final_owners))
+        else:
+            lat_o = draws.origin_lat[
+                e, np.where(srv, served, final_owners)]
+            bw_o = _draw_bw(rngs[e], p, len(final_owners))
+        per_owner_counts = np.array(
+            [(mown[e, origin] == o).sum() for o in final_owners])
+        fetch_bytes = per_owner_counts * p.item_mean_B
+        out["b_rt"][e] = int(srv.sum() * p.request_B
+                             + fetch_bytes[srv].sum())
+        t_fetch = (2 * lat_o + (p.request_B + fetch_bytes) / bw_o)
+        t_fetch = t_fetch[srv]
+        out["response_time_s"][e] = float(
+            t_merge_done[e] + (t_fetch.max() if len(t_fetch) else 0.0))
+
+        got = mvals[e, origin]              # sorted descending
+        inter = np.intersect1d(top_true_all[e], got).size
+        lost_owned = np.isin(mown[e, origin], final_owners[~srv])
+        inter = max(0, inter - int(np.isin(
+            mvals[e, origin][lost_owned], top_true_all[e]).sum()))
+        out["accuracy"][e] = inter / k
+
+
+def _retrieval_shared(out: dict, draws: EntryDraws,
+                      ent_origin: np.ndarray, t_merge_done: np.ndarray,
+                      mvals: np.ndarray, mown: np.ndarray,
+                      top_true_all: np.ndarray, p: SimParams,
+                      replicas=None) -> None:
+    """Shared-stream fast path: the same retrieval model, vectorized over
+    all entries at once (draw assignment to owners differs but is
+    i.i.d. — distributionally identical to the scalar path).
+
+    ``replicas`` — (n, r) placement table (None = replication off): a
+    dead owner's items are served by its first alive replica.  With
+    ``replicas=None`` every expression below reduces bit-for-bit to the
+    replication-free code (``served == mo`` wherever it is read)."""
+    E = len(ent_origin)
+    k = p.k
+    death = draws.death
+    ar = np.arange(E)
+    mo = mown[ar, ent_origin]                                # (E, k)
+    gv = mvals[ar, ent_origin]                               # (E, k)
+    dth = death[ar[:, None], mo]                             # (E, k)
+    alive_elem = dth > t_merge_done[:, None]
+    if replicas is None or replicas.shape[1] == 0:
+        served = np.where(alive_elem, mo, -1)
+    else:
+        rep = replicas[np.maximum(mo, 0)]                    # (E, k, r)
+        rep_ok = (rep >= 0) & (death[ar[:, None, None],
+                                     np.maximum(rep, 0)]
+                               > t_merge_done[:, None, None])
+        first = np.take_along_axis(
+            rep, rep_ok.argmax(axis=2)[..., None], axis=2)[..., 0]
+        served = np.where(alive_elem, mo,
+                          np.where(rep_ok.any(axis=2) & (mo >= 0),
+                                   first, -1))
+    srv_elem = served >= 0
+    eqm = mo[:, :, None] == mo[:, None, :]                   # (E, k, k)
+    count_elem = eqm.sum(axis=2)                 # owner multiplicity
+    firstocc = ~(eqm & np.tri(k, k, -1, dtype=bool)[None]).any(axis=2)
+    srv_owner_cnt = (firstocc & srv_elem).sum(axis=1)
+    out["m_rt"][:] = 2 * srv_owner_cnt
+    # Σ_over-served-owners count_o · item_mean == #elements with a
+    # serving peer · item_mean (exact: every term is an integer multiple)
+    fetch_total = srv_elem.sum(axis=1) * p.item_mean_B
+    out["b_rt"][:] = (srv_owner_cnt * p.request_B
+                      + fetch_total).astype(np.int64)
+    if draws.origin_lat is None:
+        lat_o, bw_o = _draw_link(draws.rngs[0], p, (E, k))  # per owner slot
+    else:            # edge model: serving-peer latency deterministic
+        lat_o = draws.origin_lat[ar[:, None],
+                                 np.where(srv_elem, served, mo)]
+        bw_o = _draw_bw(draws.rngs[0], p, (E, k))
+    t_f = 2 * lat_o + (p.request_B + count_elem * p.item_mean_B) / bw_o
+    t_max = np.where(firstocc & srv_elem, t_f, -np.inf).max(axis=1)
+    out["response_time_s"][:] = t_merge_done + np.where(
+        np.isfinite(t_max), t_max, 0.0)
+
+    match = (gv[:, :, None] == top_true_all[:, None, :]).any(axis=2)
+    inter = match.sum(axis=1)
+    corr = (match & ~srv_elem).sum(axis=1)
+    out["accuracy"][:] = np.maximum(0, inter - corr) / k

@@ -1,0 +1,61 @@
+"""The port stands alone: no JAX and nothing of the reference package.
+
+Importing every module of ``repro_torch`` in a fresh interpreter leaves
+``jax`` and ``repro`` out of ``sys.modules``; a scan of the sources (and
+of ``chip_smoke.py``) finds no import of either; and ``chip_smoke.py``
+fails, printing no result, where no CUDA device is present.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$|,)", re.MULTILINE)
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    mods = list(_modules())
+    assert "repro_torch.engine.sim_torch" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print('BAD', bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_sources_import_neither_jax_nor_reference():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+            for p in files for m in _FORBIDDEN.finditer(p.read_text())]
+    assert not hits, hits
+    # the scan itself catches what it must
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("from repro.engine import SimEngine")
+    assert not _FORBIDDEN.search("from repro_torch.engine import x")
+
+
+def test_chip_smoke_fails_without_a_cuda_device():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         env=env, capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
