@@ -3,26 +3,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the static FD overlay top-k query served
-by a ``QueryServer`` — through the hand-written CUDA kernels, and fails
-(exit code 1, no result line) when any phase fails:
+Drives the port's two paths — the static FD overlay top-k query served
+by a ``QueryServer``, and the ``DeviceEngine``'s FD collectives over 64
+virtual peers — through the hand-written CUDA kernels, and fails (exit
+code 1, no result line) when any phase fails:
 
   1. build the kernel library from ``src/repro_torch/kernels/csrc``;
-  2. hold each kernel (merge, arrivals, wait and its churn variant)
-     bit-equal to its plain PyTorch version on the card, in f64, f32
-     and bf16 (tolerance: exact — ``torch.equal`` on values and owners);
+  2. hold each kernel (merge, arrivals, wait and its churn variant,
+     top-k) bit-equal to its plain PyTorch version on the card, in f64,
+     f32 and bf16 (top-k: f32, bf16, f16), on inputs with ties, -inf
+     tails, signed zeros and NaNs of both signs where the kernel orders
+     scores (tolerance: exact — equal bits of values and owners);
   3. serve 32 independent-stream ``fd-dynamic`` requests from 8 client
      threads plus one ``fd-basic``, ``fd-st1`` and ``fd-st1+2`` request
      on a 100,000-peer Barabási–Albert overlay (the reference package's
      full-size ``jax_backend`` configuration: m=2, seed 7,
-     ``SimParams(seed=5)``), and check that every kernel's launch
-     counter moved;
+     ``SimParams(seed=5)``), and check that every kernel of that path
+     moved its launch counter;
   4. run a 4-entry spec on the card and on the port's CPU path and
      require equal bits;
-  5. time each kernel at the shapes one sweep of step 3 gives it (CUDA
-     events, median of several runs) beside its plain version, one
-     PyTorch library call where one computes the same function, and
-     its bound (bytes over the card's memory rate).
+  5. drive the ``DeviceEngine`` on ``make_mesh((64,), ("model",))``, the
+     paper's 64-node cluster: 32 queries of N = 64 x 20,000 scores
+     (20,000 = ``SimParams.tuples_hi``, the largest per-peer relation of
+     the simulator's defaults), k = 20, a (N, 16) f32 row table;
+     ``fd-dynamic`` under each schedule (32 stacked requests through
+     ``run_many``, and the row gather), ``cn`` and ``cn-star``; check
+     that the top-k and merge counters moved and that the first 4
+     queries equal the port's CPU path bit for bit;
+  6. time each kernel at the shapes its path gives it (CUDA events,
+     median of several runs) beside its plain version, one PyTorch
+     library call where one computes the same function, and its bound
+     (bytes over the card's memory rate).
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -44,8 +55,18 @@ sys.path.insert(0, str(ROOT / "src"))
 # (the timed calls run in f64; their compares and adds count against it)
 MEM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 34e12
+# the float32 non-tensor rate, for the top-k's compares of f32 keys
+OPS32_PER_S = 67e12
 N_PEERS = 100_000
 E_MAIN = 32
+# the device path: the paper's 64-node cluster, SimParams.tuples_hi
+# scores per peer, SimParams.k, a row width of the reference's gather
+# tests, and the serve path's batch
+DEV_PEERS = 64
+DEV_LOCAL = 20_000
+DEV_K = 20
+DEV_D = 16
+DEV_B = 32
 
 
 class PhaseError(RuntimeError):
@@ -83,23 +104,67 @@ def _cuda_ms(fn, reps=7, warm=2):
     return statistics.median(times)
 
 
+_BITS = {2: "int16", 4: "int32", 8: "int64"}
+
+
+def _same(a, b):
+    """Equal shapes, dtypes and bits (NaNs and signed zeros included)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        bits = getattr(torch, _BITS[a.element_size()])
+        a, b = a.view(bits), b.view(bits)
+    return torch.equal(a, b)
+
+
 def _max_abs_err(a, b):
     """Largest |a - b| over the positions where the bits differ (0.0
-    when equal; inf when a mismatch involves an infinity)."""
+    when equal; inf when a mismatch involves an infinity or a NaN; 0.0
+    when only the sign of a zero or a NaN's payload differs)."""
     import torch
-    if torch.equal(a, b):
+    if _same(a, b):
         return 0.0
-    diff = a.ne(b)
+    diff = a.ne(b) | (a.isnan() ^ b.isnan())
     d = (a[diff].double() - b[diff].double()).abs()
     d = torch.nan_to_num(d, nan=math.inf)
-    return float(d.max())
+    return float(d.max()) if d.numel() else 0.0
 
 
-def _sorted_lists(shape, k, dtype, gen, dev, ties=True):
+# +0.0, -0.0, +inf, -inf, +NaN, -NaN and a NaN with a payload, as the
+# signed integers of their bits
+_SPECIALS = {
+    "torch.float64": [0, -2 ** 63, 0x7FF0000000000000, -4503599627370496,
+                      0x7FF8000000000000, -2251799813685248,
+                      0x7FF8000000000001],
+    "torch.float32": [0, -2 ** 31, 0x7F800000, -8388608, 0x7FC00000,
+                      -4194304, 0x7FC00001],
+    "torch.bfloat16": [0, -32768, 0x7F80, -128, 0x7FC0, -64, 0x7FC1],
+    "torch.float16": [0, -32768, 0x7C00, -1024, 0x7E00, -512, 0x7E01],
+}
+
+
+def _with_specials(v, gen, frac):
+    """``v`` with a fraction ``frac`` of its entries replaced by signed
+    zeros, infinities and NaNs of both signs (set as bits)."""
+    import torch
+    bits = getattr(torch, _BITS[v.element_size()])
+    table = torch.tensor(_SPECIALS[str(v.dtype)], dtype=bits,
+                         device=v.device)
+    pick = torch.randint(0, len(table), v.shape, generator=gen,
+                         device=v.device)
+    hit = torch.rand(v.shape, generator=gen, device=v.device) < frac
+    return torch.where(hit, table[pick], v.view(bits)).view(v.dtype)
+
+
+def _sorted_lists(shape, k, dtype, gen, dev, ties=True, specials=False):
     """Descending (values, owners) k-lists; with ``ties`` the values come
     from a small lattice (many equal scores) and rows get random -inf
-    tails, as the sweep's padded lists have."""
+    tails, as the sweep's padded lists have; with ``specials`` a quarter
+    of the values are signed zeros, infinities and NaNs, and the lists
+    are sorted in the reference's total order (``lax.top_k``'s)."""
     import torch
+    from repro_torch.kernels.order import take_bits, total_order_key
     if ties:
         v = torch.randint(0, k + 2, shape + (k,), generator=gen,
                           device=dev).to(dtype) / (k + 2)
@@ -112,6 +177,11 @@ def _sorted_lists(shape, k, dtype, gen, dev, ties=True):
                               device=dev)
         pos = torch.arange(k, device=dev)
         v = torch.where(pos >= k - n_inf, float("-inf"), v).to(dtype)
+    if specials:
+        v = _with_specials(v, gen, 0.25)
+        order = torch.sort(total_order_key(v), dim=-1, descending=True,
+                           stable=True).indices
+        v = take_bits(v, order)
     o = torch.randint(0, 1 << 30, shape + (k,), generator=gen, device=dev,
                       dtype=torch.int32)
     return v.contiguous(), o
@@ -128,21 +198,66 @@ def _check_merge(gen, dev, errs):
     for k in (1, 7, 20, 32, 64, 256):
         for dt in (torch.float64, torch.float32, torch.bfloat16):
             lead = (3, 37)
-            va, ia = _sorted_lists(lead, k, dt, gen, dev)
-            vb, ib = _sorted_lists(lead, k, dt, gen, dev)
-            ma = torch.rand(lead, generator=gen, device=dev) < 0.7
-            mb = torch.rand(lead, generator=gen, device=dev) < 0.7
-            for masks in ({}, {"valid_a": ma, "valid_b": mb},
-                          {"valid_b": mb}):
-                v1, i1 = merge_cuda(va, ia, vb, ib, **masks)
-                v2, i2 = merge_ref(va, ia, vb, ib, **masks)
-                err = _max_abs_err(v1, v2)
-                errs["merge"] = max(errs["merge"], err)
-                _require(torch.equal(v1, v2) and torch.equal(i1, i2),
-                         f"merge k={k} {dt} masks={sorted(masks)}: kernel "
-                         f"!= plain version (max abs err {err})")
-                n += 1
+            for specials in (False, True):
+                va, ia = _sorted_lists(lead, k, dt, gen, dev,
+                                       specials=specials)
+                vb, ib = _sorted_lists(lead, k, dt, gen, dev,
+                                       specials=specials)
+                ma = torch.rand(lead, generator=gen, device=dev) < 0.7
+                mb = torch.rand(lead, generator=gen, device=dev) < 0.7
+                for masks in ({}, {"valid_a": ma, "valid_b": mb},
+                              {"valid_b": mb}):
+                    v1, i1 = merge_cuda(va, ia, vb, ib, **masks)
+                    v2, i2 = merge_ref(va, ia, vb, ib, **masks)
+                    err = _max_abs_err(v1, v2)
+                    errs["merge"] = max(errs["merge"], err)
+                    _require(_same(v1, v2) and _same(i1, i2),
+                             f"merge k={k} {dt} masks={sorted(masks)} "
+                             f"specials={specials}: kernel != plain "
+                             f"version (max abs err {err})")
+                    n += 1
     return n
+
+
+def _topk_input(rows, n, dtype, gen, dev):
+    """Scores on a lattice (many ties, +0.0 among them), 2% signed
+    zeros, infinities and NaNs, a random -inf tail per row, and row 0
+    all -inf (its -inf entries must keep their real indices)."""
+    import torch
+    v = ((torch.randint(0, 17, (rows, n), generator=gen, device=dev) - 8)
+         .to(torch.float32) / 8).to(dtype)
+    v = _with_specials(v, gen, 0.02)
+    tail = torch.randint(0, n // 4 + 1, (rows, 1), generator=gen,
+                         device=dev)
+    pos = torch.arange(n, device=dev)
+    v = torch.where(pos >= n - tail, float("-inf"), v).to(dtype)
+    v[0] = float("-inf")
+    return v.contiguous()
+
+
+def _check_topk(gen, dev, errs):
+    import torch
+    from repro_torch.kernels.topk import topk_cuda, topk_ref
+    n_checks = 0
+    # 4080 leaves a last tile of fewer than k elements (empty slots in
+    # the candidates); 1,280,000 is the CN shape of the device path
+    for n, rows in ((128, 64), (777, 16), (4080, 4), (4096, 8),
+                    (20_000, 8), (1_280_000, 2)):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            x = _topk_input(rows, n, dt, gen, dev)
+            for k in (1, 8, 20, 64, 256):
+                if k > n:
+                    continue
+                off = 1000 * k
+                v1, i1 = topk_cuda(x, k, index_offset=off)
+                v2, i2 = topk_ref(x, k, index_offset=off)
+                err = _max_abs_err(v1, v2)
+                errs["topk"] = max(errs["topk"], err)
+                _require(_same(v1, v2) and _same(i1, i2),
+                         f"topk n={n} k={k} {dt}: kernel != plain version "
+                         f"(max abs err {err})")
+                n_checks += 1
+    return n_checks
 
 
 def _check_sweep(levels, gen, dev, errs):
@@ -163,7 +278,7 @@ def _check_sweep(levels, gen, dev, errs):
                 a2 = arrivals_ref(tq, dn, lv["par_pos"])
                 errs["arrivals"] = max(errs["arrivals"],
                                        _max_abs_err(a1, a2))
-                _require(torch.equal(a1, a2),
+                _require(_same(a1, a2),
                          f"arrivals level {d} {dt}: kernel != plain")
                 n += 1
             own, all_in, dl, death = (
@@ -172,14 +287,14 @@ def _check_sweep(levels, gen, dev, errs):
             s1 = wait_cuda(own, all_in, dl)
             s2 = wait_ref(own, all_in, dl)
             errs["wait"] = max(errs["wait"], _max_abs_err(s1, s2))
-            _require(torch.equal(s1, s2), f"wait level {d} {dt}: kernel "
+            _require(_same(s1, s2), f"wait level {d} {dt}: kernel "
                      "!= plain")
             c1, snd1 = wait_cuda(own, all_in, dl, death)
             c2, snd2 = wait_ref(own, all_in, dl, death)
             errs["wait_churn"] = max(errs["wait_churn"],
                                      _max_abs_err(snd1, snd2),
                                      _max_abs_err(c1, c2))
-            _require(torch.equal(c1, c2) and torch.equal(snd1, snd2),
+            _require(_same(c1, c2) and _same(snd1, snd2),
                      f"wait (churn variant) level {d} {dt}: kernel != "
                      "plain")
             n += 2
@@ -268,7 +383,105 @@ def _serve(engine, _build):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times at main-path shapes
+# phase 5: the DeviceEngine's FD collectives over 64 virtual peers
+# ---------------------------------------------------------------------------
+
+SCHEDULES = ("halving", "doubling", "ring")
+
+
+def _check_answer(name, res, scores, n):
+    """A k-list of the query: shape, descending, finite, indices in
+    range and pointing at their scores."""
+    import torch
+    v, i = res.values, res.indices
+    _require(v.shape == (DEV_K,) and i.dtype == torch.int32
+             and bool(torch.isfinite(v).all())
+             and bool((v[:-1] >= v[1:]).all())
+             and bool(((i >= 0) & (i < n)).all())
+             and _same(scores[i.long()], v),
+             f"{name}: not the descending top-k of its scores")
+
+
+def _device_path(dev, gen, _build):
+    """Drive the DeviceEngine at full size; return the launches of this
+    path, the scores and the seconds per call."""
+    import torch
+    from repro_torch import DeviceEngine, make_mesh
+    from repro_torch.engine import QuerySpec
+    n = DEV_PEERS * DEV_LOCAL
+    t0 = time.perf_counter()
+    scores = torch.randn((DEV_B, n), generator=gen, device=dev)
+    rows = torch.randn((n, DEV_D), generator=gen, device=dev)
+    mesh = make_mesh((DEV_PEERS,), ("model",))
+    torch.cuda.synchronize()
+    print(f"[device] {DEV_B} queries x N={n} f32 scores "
+          f"({scores.numel() * 4} bytes), rows ({n}, {DEV_D}) f32, "
+          f"{mesh}, k={DEV_K}; made in {time.perf_counter() - t0:.3f} s")
+    spec = QuerySpec(k=DEV_K)
+    reqs = list(scores)                  # 32 one-dimensional requests
+    runs = [(sch, "fd-dynamic", DeviceEngine(mesh, schedule=sch))
+            for sch in SCHEDULES]
+    cn_eng = DeviceEngine(mesh)
+    runs += [("-", "cn", cn_eng), ("-", "cn-star", cn_eng)]
+    out, timings = {}, {}
+    _build.reset_launches()              # count this path alone
+    for sch, pol, eng in runs:
+        for rep in range(2):             # the first call builds the plan
+            res = eng.run_many([spec] * DEV_B, pol, scores=reqs)
+            got = (eng.run(spec, pol, scores=scores, rows=rows)
+                   if pol == "fd-dynamic" else None)
+            timings[f"{pol}/{sch}/run_many#{rep}"] = res[0].run_s
+            if got is not None:
+                timings[f"{pol}/{sch}/gather#{rep}"] = got.run_s
+        out[(sch, pol)] = (res, got)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print("[device] launches " + json.dumps(launches))
+    print("[device] run_s " + json.dumps(timings))
+    for name in ("topk", "merge"):
+        _require(launches[name] > 0, f"kernel {name} never launched on "
+                 "the device path")
+    first = out[("halving", "fd-dynamic")][0]
+    for (sch, pol), (res, got) in out.items():
+        _require(len(res) == DEV_B and all(
+            r.batch_size == DEV_B and r.backend == "device-torch"
+            for r in res), f"{pol}/{sch}: requests were not stacked")
+        for b, r in enumerate(res):
+            _check_answer(f"{pol}/{sch} query {b}", r, scores[b], n)
+            # normal scores do not tie: every algorithm finds the same
+            _require(_same(r.indices, first[b].indices),
+                     f"{pol}/{sch} query {b}: other winners than halving")
+        if got is not None:
+            _require(_same(got.indices, torch.stack(
+                [r.indices for r in res]))
+                and _same(got.rows, rows[got.indices.long()]),
+                f"{pol}/{sch}: gather rows are not the winners' rows")
+
+    # the first 4 queries on the port's CPU path, bit for bit
+    cpu = make_mesh((DEV_PEERS,), ("model",), device="cpu")
+    s4, rows_cpu = scores[:4].cpu(), rows.cpu()
+    t0 = time.perf_counter()
+    for (sch, pol), (res, got) in out.items():
+        eng = DeviceEngine(cpu, schedule="halving" if sch == "-" else sch)
+        ref = eng.run_many([spec] * 4, pol, scores=list(s4))
+        for b in range(4):
+            _require(_same(res[b].values.cpu(), ref[b].values)
+                     and _same(res[b].indices.cpu(), ref[b].indices),
+                     f"{pol}/{sch} query {b}: card != CPU path")
+        if got is not None:
+            g = eng.run(spec, pol, scores=s4, rows=rows_cpu)
+            _require(_same(got.values[:4].cpu(), g.values)
+                     and _same(got.indices[:4].cpu(), g.indices)
+                     and _same(got.rows[:4].cpu(), g.rows),
+                     f"{pol}/{sch} gather: card != CPU path")
+    print(f"[device] 5 algorithms x {DEV_B} queries: answers checked; "
+          f"first 4 queries == CPU path bit for bit (CPU "
+          f"{time.perf_counter() - t0:.3f} s)")
+    return launches, scores, timings
+
+
+# ---------------------------------------------------------------------------
+# phase 6: times at main-path shapes
 # ---------------------------------------------------------------------------
 
 def _level_calls(levels, dev, gen):
@@ -315,7 +528,7 @@ def _times(levels, dev, gen, errs, launches):
         v1, i1 = merge_cuda(va, ia, vb, ib, valid_a=ma, valid_b=mb)
         v2, i2 = merge_ref(va, ia, vb, ib, valid_a=ma, valid_b=mb)
         errs["merge"] = max(errs["merge"], _max_abs_err(v1, v2))
-        _require(torch.equal(v1, v2) and torch.equal(i1, i2),
+        _require(_same(v1, v2) and _same(i1, i2),
                  "merge at main-path shapes: kernel != plain")
     cats = [torch.cat([va, vb], dim=-1) for va, _, vb, _, _, _ in merge]
 
@@ -361,9 +574,11 @@ def _times(levels, dev, gen, errs, launches):
         p2 = _cuda_ms(plain)
         t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
         t_ops = nops / OPS_PER_S * 1e3
+        by_path = {path: n[name] for path, n in launches.items()}
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errs[name], "ms": min(k1, k2),
             "plain_ms": min(p1, p2), "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -379,6 +594,61 @@ def _times(levels, dev, gen, errs, launches):
           f"kernel {wc} ms, plain {wp} ms, bound "
           f"{6 * churn[0].numel() * 8 / MEM_BYTES_PER_S * 1e3} ms")
     return rows
+
+
+def _topk_row(scores, errs, launches):
+    """The top-k at the device path's three shapes: local execution of
+    the 32 queries on 64 peers, CN over the full rows, CN* over the
+    gathered k-lists; each held to its plain version, then timed."""
+    import torch
+    from repro_torch.kernels.topk import topk_cuda, topk_ref
+    lists = topk_cuda(scores.view(DEV_B, DEV_PEERS, DEV_LOCAL), DEV_K)[0]
+    shapes = (("local execution", scores.view(DEV_B * DEV_PEERS, DEV_LOCAL)),
+              ("CN", scores),
+              ("CN*", lists.reshape(DEV_B, DEV_PEERS * DEV_K)))
+    per = []
+    for what, x in shapes:
+        v1, i1 = topk_cuda(x, DEV_K)
+        v2, i2 = topk_ref(x, DEV_K)
+        errs["topk"] = max(errs["topk"], _max_abs_err(v1, v2))
+        _require(_same(v1, v2) and _same(i1, i2),
+                 f"topk at the {what} shape: kernel != plain version")
+        # plain, kernel, kernel, plain: take the lower of each pair
+        p1 = _cuda_ms(lambda: topk_ref(x, DEV_K))
+        k1 = _cuda_ms(lambda: topk_cuda(x, DEV_K))
+        k2 = _cuda_ms(lambda: topk_cuda(x, DEV_K))
+        p2 = _cuda_ms(lambda: topk_ref(x, DEV_K))
+        lib = _cuda_ms(lambda: torch.topk(x, DEV_K, dim=-1))
+        # each score read once, each (value, index) written once
+        nbytes = x.numel() * x.element_size() + x.shape[0] * DEV_K * 8
+        t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+        t_ops = x.numel() / OPS32_PER_S * 1e3    # one compare a score
+        per.append({"what": what, "shape": list(x.shape),
+                    "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations",
+                    "library_ms": lib, "bytes": nbytes})
+        print(f"[times] topk {what} {tuple(x.shape)} f32 k={DEV_K}: "
+              + json.dumps(per[-1]))
+    by_path = {path: n["topk"] for path, n in launches.items()}
+    t_bytes = sum(r["bytes"] for r in per) / MEM_BYTES_PER_S * 1e3
+    t_ops = sum(math.prod(r["shape"]) for r in per) / OPS32_PER_S * 1e3
+    return {
+        "name": "topk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk.cu",
+        "replaces": "src/repro/kernels/topk/topk.py:120",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": errs["topk"],
+        "ms": sum(r["ms"] for r in per),
+        "plain_ms": sum(r["plain_ms"] for r in per),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": sum(r["library_ms"] for r in per),
+        "shapes": per,
+        "shape_note": (f"one call at each device-path shape: local "
+                       f"execution of {DEV_B} queries on {DEV_PEERS} "
+                       f"peers, CN, CN*")}
 
 
 def main() -> int:
@@ -414,13 +684,15 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    errs = {"merge": 0.0, "arrivals": 0.0, "wait": 0.0, "wait_churn": 0.0}
-    n = _check_merge(gen, dev, errs) + _check_sweep(levels, gen, dev, errs)
+    errs = {"merge": 0.0, "arrivals": 0.0, "wait": 0.0, "wait_churn": 0.0,
+            "topk": 0.0}
+    n = (_check_merge(gen, dev, errs) + _check_sweep(levels, gen, dev, errs)
+         + _check_topk(gen, dev, errs))
     torch.cuda.synchronize()
     print(f"[kernels] {n} comparisons bit-equal to the plain versions "
-          f"(f64/f32/bf16); max abs err {errs}")
+          f"(f64/f32/bf16/f16); max abs err {errs}")
 
-    launches, _ = _serve(engine, _build)
+    serve_launches, _ = _serve(engine, _build)
 
     spec = QuerySpec(origins=(0, 1), n_trials=2, rng="independent")
     t0 = time.perf_counter()
@@ -442,7 +714,11 @@ def main() -> int:
     print(f"[parity] 4-entry spec: card == CPU path bit for bit (card "
           f"{t_card:.3f} s, CPU {t_cpu:.3f} s host wall)")
 
+    dev_launches, scores, _ = _device_path(dev, gen, _build)
+
+    launches = {"serve": serve_launches, "device": dev_launches}
     rows = _times(levels, dev, gen, errs, launches)
+    rows.append(_topk_row(scores, errs, launches))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

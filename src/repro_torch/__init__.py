@@ -12,4 +12,19 @@ through the hand-written kernels of :mod:`repro_torch.kernels`.
     engine = SimEngine(barabasi_albert(100_000, m=2, seed=7),
                        SimParams(seed=5))          # device="cuda"
     res = engine.run(QuerySpec(origins=(0,)), "fd-dynamic")
+
+The FD collectives run on a mesh of virtual peers held on one device
+(``DeviceEngine`` over ``make_mesh``), through the hand-written top-k
+and merge kernels (``local_topk`` is the top-k's public entry):
+
+    from repro_torch import DeviceEngine, make_mesh
+    from repro_torch.engine import QuerySpec
+
+    engine = DeviceEngine(make_mesh((64,), ("model",)))   # on "cuda"
+    res = engine.run(QuerySpec(k=20), "fd-dynamic", scores=scores)
 """
+from repro_torch.core.mesh import make_mesh  # noqa: F401
+from repro_torch.engine.device import DeviceEngine  # noqa: F401
+from repro_torch.kernels.topk import local_topk  # noqa: F401
+
+__all__ = ["DeviceEngine", "make_mesh", "local_topk"]

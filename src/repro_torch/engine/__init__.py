@@ -14,11 +14,19 @@ requests onto one sweep via ``Engine.run_many``:
     with QueryServer(SimEngine(topology)) as server:
         handle = server.submit(QuerySpec(origins=(0,)), "fd-dynamic")
         res = handle.result()
+
+``DeviceEngine`` exposes the same surface over the FD collectives of
+``repro_torch.core.fd`` (virtual peers on one device):
+
+    from repro_torch.core.mesh import make_mesh
+    engine = DeviceEngine(make_mesh((64,), ("model",)))   # on "cuda"
+    res = engine.run(QuerySpec(k=20), "fd-dynamic", scores=scores)
 """
 from repro_torch.engine.api import (Engine, Policy,  # noqa: F401
                                     QuerySpec, TopKResult,
                                     available_policies, get_policy,
                                     policy_from_legacy, register_policy)
+from repro_torch.engine.device import DeviceEngine  # noqa: F401
 from repro_torch.engine.plan import NetworkPlan  # noqa: F401
 from repro_torch.engine.serve import (LatencyStats,  # noqa: F401
                                       PhaseStats, QueryHandle, QueryServer,
@@ -28,8 +36,8 @@ from repro_torch.engine.serve import (LatencyStats,  # noqa: F401
 from repro_torch.engine.sim import SimEngine  # noqa: F401
 
 __all__ = ["QuerySpec", "Policy", "TopKResult", "NetworkPlan", "Engine",
-           "SimEngine", "QueryServer", "QueryHandle", "ServerConfig",
-           "ServerError", "ServerOverloaded", "RequestTimeout",
+           "SimEngine", "DeviceEngine", "QueryServer", "QueryHandle",
+           "ServerConfig", "ServerError", "ServerOverloaded", "RequestTimeout",
            "ServerClosed", "ServerMetrics", "LatencyStats", "PhaseStats",
            "available_policies", "get_policy", "policy_from_legacy",
            "register_policy"]

@@ -24,6 +24,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.core.mesh import resolve_device
 from repro_torch.engine.api import Engine, Policy, QuerySpec, TopKResult
 from repro_torch.engine.plan import NetworkPlan
 from repro_torch.engine.sim_torch import run_entries_torch
@@ -46,19 +47,6 @@ def _slice_rows(bm: BatchMetrics, lo: int, n_queries: int,
         getattr(out, f)[:] = getattr(bm, f)[lo:hi, 0].reshape(
             n_queries, n_trials)
     return out
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an engine runs on: ``"cuda"`` unless the caller names
-    another.  With ``device=None`` and no CUDA device this raises — the
-    engine never carries on on the CPU unasked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "SimEngine runs on a CUDA device and none is available; "
-                "pass device='cpu' to run the plain PyTorch path")
-        device = "cuda"
-    return torch.device(device)
 
 
 def _unported(spec: QuerySpec, pol: Policy, p: SimParams) -> Optional[str]:
@@ -99,7 +87,7 @@ class SimEngine(Engine):
     def __init__(self, top: Optional[Union[Topology, NetworkPlan]] = None,
                  params: Optional[SimParams] = None, *, device=None):
         """Build the engine (and compile ``top``'s plan when given)."""
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "SimEngine")
         self.params = params if params is not None else SimParams()
         self.plan: Optional[NetworkPlan] = None
         if top is not None:

@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"merge": 0, "arrivals": 0, "wait": 0,
-                            "wait_churn": 0}
+                            "wait_churn": 0, "topk": 0}
 
 _lock = threading.Lock()
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
@@ -119,15 +119,15 @@ def ensure_built() -> float:
         return time.perf_counter() - t0
 
 
-def function(lib: str, name: str, argtypes):
-    """The C launcher ``name`` of ``lib<lib>.so`` with its signature
-    declared (every launcher returns a ``cudaError_t`` as int)."""
+def function(lib: str, name: str, argtypes, restype=ctypes.c_int):
+    """The C function ``name`` of ``lib<lib>.so`` with its signature
+    declared (a launcher returns a ``cudaError_t`` as int)."""
     if _libs is None:
         ensure_built()
     fn = getattr(_libs[lib], name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn
 
 

@@ -12,10 +12,11 @@
 // memory bandwidth can feed.
 //
 // Design: merge by rank instead of the TPU kernel's bitonic network.
-// Both inputs are sorted descending (the sweep's own lists come from
-// the order-statistics draw padded with -inf tails, and every merge
-// preserves the order), so one thread per input element can compute
-// its output position directly:
+// Both inputs are sorted descending in the total order of Num<T>::key
+// (the sweep's own lists come from the order-statistics draw padded with
+// -inf tails, the collectives' from the top-k kernel, and every merge
+// preserves the order), so one thread per input element can compute its
+// output position directly (comparisons are of keys):
 //   a[j] goes to j + #{b > a[j]},   b[l] goes to l + #{a >= b[l]},
 // each count a binary search over the other row in shared memory, and a
 // thread writes its element only when that position is < k.  This is
@@ -38,26 +39,39 @@ namespace {
 template <typename T>
 struct Num;
 
+// Keys are integers of the value's bits whose order is the IEEE total
+// order that the reference's lax.top_k ranks by (+NaN > +inf > ... >
+// +0.0 > -0.0 > ... > -inf > -NaN): flipping the magnitude bits of a
+// negative value turns sign-magnitude into two's-complement order.  The
+// plain version sorts on the same key (repro_torch/kernels/order.py).
 template <>
 struct Num<double> {
-  using Key = double;
-  __device__ static Key key(double x) { return x; }
+  using Key = long long;
+  __device__ static Key key(double x) {
+    const long long b = __double_as_longlong(x);
+    return b ^ ((b >> 63) & 0x7fffffffffffffffLL);
+  }
   __device__ static double neg_inf() { return -__longlong_as_double(0x7ff0000000000000LL); }
 };
 
 template <>
 struct Num<float> {
-  using Key = float;
-  __device__ static Key key(float x) { return x; }
+  using Key = int;
+  __device__ static Key key(float x) {
+    const int b = __float_as_int(x);
+    return b ^ ((b >> 31) & 0x7fffffff);
+  }
   __device__ static float neg_inf() { return -__int_as_float(0x7f800000); }
 };
 
 template <>
 struct Num<__nv_bfloat16> {
-  // bf16 -> float is exact, so comparing the floats is comparing the
-  // bf16 values
-  using Key = float;
-  __device__ static Key key(__nv_bfloat16 x) { return __bfloat162float(x); }
+  // the 16 bits, sign-extended to int, then the same flip
+  using Key = int;
+  __device__ static Key key(__nv_bfloat16 x) {
+    const int b = static_cast<short>(__bfloat16_as_ushort(x));
+    return b ^ ((b >> 31) & 0x7fffffff);
+  }
   __device__ static __nv_bfloat16 neg_inf() {
     return __ushort_as_bfloat16(static_cast<unsigned short>(0xFF80U));
   }

@@ -11,15 +11,19 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.order import take_bits, total_order_key
+
 
 def merge_ref(vals_a, idx_a, vals_b, idx_b, k: Optional[int] = None,
               valid_a=None, valid_b=None):
     """Merge two descending (vals, idx) k-lists along the last axis.
 
-    Returns the top-k of the union, descending.  Ties are broken in favour
-    of list ``a`` then lower position: a stable descending sort of the
-    concatenation ``a ++ b`` (``torch.topk`` leaves its tie order
-    unspecified, so it is not used).
+    Returns the top-k of the union, descending in the reference's total
+    order (``kernels/order.py``: +0.0 ranks above -0.0, NaNs at the
+    ends).  Ties are broken in favour of list ``a`` then lower position:
+    a stable descending sort of the concatenation ``a ++ b`` on the
+    total-order key (``torch.topk`` leaves its tie order unspecified, so
+    it is not used).
 
     ``valid_a`` / ``valid_b``: optional boolean row masks over the
     leading axes — an invalid list contributes ``-inf`` values.
@@ -37,6 +41,7 @@ def merge_ref(vals_a, idx_a, vals_b, idx_b, k: Optional[int] = None,
         dt = torch.promote_types(dt, torch.float32)
     v = torch.cat([vals_a, vals_b], dim=-1).to(dt)
     i = torch.cat([idx_a, idx_b], dim=-1)
-    mv, pos = torch.sort(v, dim=-1, descending=True, stable=True)
-    mi = torch.take_along_dim(i, pos[..., :k], dim=-1)
-    return mv[..., :k], mi.to(torch.int32)
+    _, pos = torch.sort(total_order_key(v), dim=-1, descending=True,
+                        stable=True)
+    pos = pos[..., :k]
+    return take_bits(v, pos), take_bits(i, pos).to(torch.int32)

@@ -12,8 +12,10 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 from repro import jaxcompat
+from repro.core.scorelist import empty_scorelist as jax_empty_scorelist
 from repro.kernels.merge import merge_pallas
 from repro.kernels.merge import merge_ref as jax_merge_ref
+from repro_torch.core.scorelist import empty_scorelist
 from repro_torch.kernels.merge import merge_cuda, merge_ref, merge_scorelists
 
 
@@ -61,6 +63,15 @@ def test_merge_identity():
         v, i = _port(*a, *b)
         np.testing.assert_array_equal(v, va)
         np.testing.assert_array_equal(i, ia)
+    # the port's empty score-list is that list, as the reference's is
+    tv, ti = empty_scorelist((), 8)
+    rv, ri = jax_empty_scorelist((), 8)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+    v, i = merge_scorelists(torch.from_numpy(va.astype(np.float32)),
+                            torch.from_numpy(ia), tv, ti)
+    np.testing.assert_array_equal(v.numpy(), va.astype(np.float32))
+    np.testing.assert_array_equal(i.numpy(), ia)
 
 
 @settings(max_examples=12, deadline=None)
@@ -177,3 +188,62 @@ def test_merge_routes_by_device_without_fallback():
                          i.to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
         merge_cuda(v, i, v, i)
+
+
+def _total_order_desc(x):
+    """``x`` (numpy f64/f32) sorted descending in the IEEE total order
+    along the last axis (+NaN first, +0.0 above -0.0, -NaN last)."""
+    ib = np.int64 if x.dtype == np.float64 else np.int32
+    b = x.view(ib)
+    key = b ^ ((b >> (8 * x.itemsize - 1)) & np.iinfo(ib).max)
+    return np.take_along_axis(x, np.argsort(-key, axis=-1, kind="stable"),
+                              axis=-1)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32", "bf16"])
+def test_merge_total_order_matches_reference(dtype):
+    """±0.0, ±inf and ±NaN in both lists: the reference orders by the
+    IEEE total order (``lax.top_k``), so +0.0 beats -0.0 whichever list
+    holds it, and NaNs sit at the ends.  Exact on values (bits) and
+    owners; the fault this guards against returned ``[1, .5, -0.]`` /
+    ``[1, 11, 2]`` for the first case below."""
+    va = np.array([1, -0., -1]), np.array([1, 2, 3], np.int32)
+    vb = np.array([.5, 0., -2]), np.array([11, 12, 13], np.int32)
+    rng = np.random.default_rng(4)
+    pool = np.array([0., -0., np.inf, -np.inf, np.nan, -np.nan, 1., -1.,
+                     .5, .5, -.5])
+    la = _total_order_desc(rng.choice(pool, (6, 12)))
+    lb = _total_order_desc(rng.choice(pool, (6, 12)))
+    oa = rng.integers(0, 500, (6, 12)).astype(np.int32)
+    ob = rng.integers(500, 999, (6, 12)).astype(np.int32)
+    for (a, ia), (b, ib) in (((va[0], va[1]), (vb[0], vb[1])),
+                             ((la, oa), (lb, ob)), ((lb, ob), (la, oa))):
+        if dtype == "f64":
+            ja, jb = a, b
+            ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+            bits = (np.int64, torch.int64)
+        elif dtype == "f32":
+            ja, jb = a.astype(np.float32), b.astype(np.float32)
+            ta, tb = torch.from_numpy(ja), torch.from_numpy(jb)
+            bits = (np.int32, torch.int32)
+        else:       # the same bf16 bits in both: the upper half of f32
+            ua = (a.astype(np.float32).view(np.uint32) >> 16)
+            ub = (b.astype(np.float32).view(np.uint32) >> 16)
+            ja = ua.astype(np.uint16).view(jnp.bfloat16)
+            jb = ub.astype(np.uint16).view(jnp.bfloat16)
+            ta = torch.from_numpy(ua.astype(np.int16)).view(torch.bfloat16)
+            tb = torch.from_numpy(ub.astype(np.int16)).view(torch.bfloat16)
+            bits = (np.int16, torch.int16)
+        v, i = merge_scorelists(ta, torch.from_numpy(ia), tb,
+                                torch.from_numpy(ib))
+        with jaxcompat.enable_x64():
+            v2, i2 = jax_merge_ref(jnp.asarray(ja), ia, jnp.asarray(jb), ib)
+            v2, i2 = np.asarray(v2), np.asarray(i2)
+        assert v2.dtype == ja.dtype
+        np.testing.assert_array_equal(v.view(bits[1]).numpy(),
+                                      v2.view(bits[0]))
+        np.testing.assert_array_equal(i.numpy(), i2)
+    np.testing.assert_array_equal(
+        merge_ref(torch.from_numpy(va[0]), torch.from_numpy(va[1]),
+                  torch.from_numpy(vb[0]), torch.from_numpy(vb[1]))[1],
+        [1, 11, 12])
