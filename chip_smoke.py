@@ -13,7 +13,11 @@ code 1, no result line) when any phase fails:
      top-k) bit-equal to its plain PyTorch version on the card, in f64,
      f32 and bf16 (top-k: f32, bf16, f16), on inputs with ties, -inf
      tails, signed zeros and NaNs of both signs where the kernel orders
-     scores (tolerance: exact — equal bits of values and owners);
+     scores, and for the top-k the inputs that break selections by
+     counting (ties at the k-th key across tiles, one repeated value,
+     rows of the tile width and one off, n == k, specials at the
+     threshold, all -inf) (tolerance: exact — equal bits of values and
+     owners);
   3. serve 32 independent-stream ``fd-dynamic`` requests from 8 client
      threads plus one ``fd-basic``, ``fd-st1`` and ``fd-st1+2`` request
      on a 100,000-peer Barabási–Albert overlay (the reference package's
@@ -33,7 +37,9 @@ code 1, no result line) when any phase fails:
   6. time each kernel at the shapes its path gives it (CUDA events,
      median of several runs) beside its plain version, one PyTorch
      library call where one computes the same function, and its bound
-     (bytes over the card's memory rate).
+     (bytes over the card's memory rate); ``device_ms`` is the kernel's
+     own device time per timed call from one ``torch.profiler`` window
+     (``library_device_ms`` the library call's), free of host gaps.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -102,6 +108,32 @@ def _cuda_ms(fn, reps=7, warm=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _device_ms(fn, match=None, reps=10):
+    """Device milliseconds of one call of ``fn``: the CUDA time of the
+    kernels whose names hold one of ``match`` (all kernels when None),
+    summed over one ``torch.profiler`` window around ``reps`` calls and
+    divided by ``reps``.  None when the profiler saw no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        if match is not None and not any(m in ev.key for m in match):
+            continue
+        us += getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0))
+    return us / 1e3 / reps if us > 0 else None
 
 
 _BITS = {2: "int16", 4: "int32", 8: "int64"}
@@ -235,14 +267,90 @@ def _topk_input(rows, n, dtype, gen, dev):
     return v.contiguous()
 
 
+def _topk_adversarial(dtype, gen, dev):
+    """(name, scores) pairs that break selections by counting: more than
+    k scores tied at the k-th key across several tiles, one repeated
+    value, rows one short of, at and one past the tile width, signed
+    zeros, infinities and NaNs at the threshold, an all -inf row."""
+    import torch
+    from repro_torch.kernels.topk.topk import TILE
+    out = []
+    for n in (TILE - 1, TILE, TILE + 1, 3 * TILE + 5):
+        # 4 levels: the top level holds ~n/4 scores in every tile
+        lat = (torch.randint(0, 4, (4, n), generator=gen, device=dev)
+               .to(torch.float32) / 4).to(dtype)
+        out.append((f"lattice n={n}", lat))
+    n = 3 * TILE + 5
+    rare = torch.zeros((3, n), device=dev)
+    # exactly 40 scores of 1.0, in the last tiles first, and the rest a
+    # tie of +0.0 and -0.0; row 2 has its 1.0s at the tile seams
+    pos = torch.randperm(n, generator=gen, device=dev)[:40]
+    rare[0, pos] = 1.0
+    rare[1, n - 40:] = 1.0
+    seams = torch.tensor([TILE - 1, TILE, 2 * TILE - 1, 2 * TILE, n - 1],
+                         device=dev)
+    rare[2, seams] = 1.0
+    rare[:, 1::2] = torch.where(rare[:, 1::2] == 0, -0.0, rare[:, 1::2])
+    out.append(("few winners over tiles, +-0 ties", rare.to(dtype)))
+    for v in (0.5, -0.0, float("-inf"), float("nan"), float("inf")):
+        out.append((f"all {v}", torch.full((2, TILE + 1), v, device=dev)
+                    .to(dtype)))
+    # only signed zeros, infinities and NaNs: the k-th key is a special
+    spec = _with_specials(torch.zeros((4, 2 * TILE + 3), device=dev)
+                          .to(dtype), gen, 1.0)
+    out.append(("specials only", spec))
+    return out
+
+
+def _check_topk_plan(dev):
+    """The built library tiles as the wrapper plans, and its launcher
+    refuses any other plan (the wrapper computes tiles and scratch)."""
+    import torch
+    import repro_torch.kernels.topk.topk as wrapper
+    from repro_torch.kernels import _build
+    tile = _build.function("topk", "repro_topk_tile", [])()
+    _require(tile == wrapper.TILE, f"topk: library tiles by {tile}, the "
+             f"wrapper by {wrapper.TILE}")
+    fn = _build.function("topk", "repro_topk_f32", wrapper._ARGTYPES)
+    n, k = wrapper.TILE + 1, 20
+    x = torch.zeros((1, n), device=dev)
+    vo = torch.empty((1, k), device=dev)
+    io = torch.empty((1, k), dtype=torch.int32, device=dev)
+    cand = torch.empty((1, 2 * k), dtype=torch.int64, device=dev)
+    for tiles, c in ((1, cand), (3, cand), (2, None)):
+        code = fn(x.data_ptr(), 1, n, k, 0, tiles,
+                  None if c is None else c.data_ptr(), vo.data_ptr(),
+                  io.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _require(code != 0, f"topk launcher took {tiles} tiles for n={n} "
+                 f"(scratch {'given' if c is not None else 'missing'})")
+    return 3
+
+
 def _check_topk(gen, dev, errs):
     import torch
     from repro_torch.kernels.topk import topk_cuda, topk_ref
-    n_checks = 0
-    # 4080 leaves a last tile of fewer than k elements (empty slots in
-    # the candidates); 1,280,000 is the CN shape of the device path
+    n_checks = _check_topk_plan(dev)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        cases = _topk_adversarial(dt, gen, dev)
+        for k in (1, 8, 20, 64, 256):
+            # n == k: the row is its own top-k
+            cases.append((f"n == k={k}", _topk_input(3, k, dt, gen, dev)))
+        for what, x in cases:
+            for k in (1, 8, 20, 64, 256):
+                if k > x.shape[-1]:
+                    continue
+                v1, i1 = topk_cuda(x, k, index_offset=7)
+                v2, i2 = topk_ref(x, k, index_offset=7)
+                err = _max_abs_err(v1, v2)
+                errs["topk"] = max(errs["topk"], err)
+                _require(_same(v1, v2) and _same(i1, i2),
+                         f"topk {what} k={k} {dt}: kernel != plain version "
+                         f"(max abs err {err})")
+                n_checks += 1
+    # 20,485 leaves a last tile of 5 scores, fewer than k (empty slots
+    # in the candidates); 1,280,000 is the CN shape of the device path
     for n, rows in ((128, 64), (777, 16), (4080, 4), (4096, 8),
-                    (20_000, 8), (1_280_000, 2)):
+                    (20_000, 8), (20_485, 4), (1_280_000, 2)):
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             x = _topk_input(rows, n, dt, gen, dev)
             for k in (1, 8, 20, 64, 256):
@@ -567,6 +675,8 @@ def _times(levels, dev, gen, errs, launches):
     rows = []
     for (name, source, replaces, calls, nbytes, nops, kern, plain,
          lib) in out:
+        # the device time of this kernel's own launches in one sweep
+        dev_ms = _device_ms(kern, match=(f"{name}_kernel",))
         # plain, kernel, kernel, plain: take the lower of each pair
         p1 = _cuda_ms(plain)
         k1 = _cuda_ms(kern)
@@ -583,6 +693,10 @@ def _times(levels, dev, gen, errs, launches):
             "plain_ms": min(p1, p2), "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None if lib is None else _cuda_ms(lib),
+            "device_ms": dev_ms,
+            "device_ms_per_launch": None if dev_ms is None
+            else dev_ms / calls,
+            "library_device_ms": None if lib is None else _device_ms(lib),
             "calls_per_sweep": calls, "bytes_per_sweep": nbytes,
             "shape_note": f"one fd-dynamic sweep of origin 0, E={E_MAIN}"})
     churn = wait[len(wait) // 2]
@@ -594,6 +708,11 @@ def _times(levels, dev, gen, errs, launches):
           f"kernel {wc} ms, plain {wp} ms, bound "
           f"{6 * churn[0].numel() * 8 / MEM_BYTES_PER_S * 1e3} ms")
     return rows
+
+
+def _sum_or_none(xs):
+    xs = list(xs)
+    return None if any(x is None for x in xs) else sum(xs)
 
 
 def _topk_row(scores, errs, launches):
@@ -619,6 +738,9 @@ def _topk_row(scores, errs, launches):
         k2 = _cuda_ms(lambda: topk_cuda(x, DEV_K))
         p2 = _cuda_ms(lambda: topk_ref(x, DEV_K))
         lib = _cuda_ms(lambda: torch.topk(x, DEV_K, dim=-1))
+        dev_ms = _device_ms(lambda: topk_cuda(x, DEV_K),
+                            match=("topk_tiles", "topk_final"))
+        lib_dev = _device_ms(lambda: torch.topk(x, DEV_K, dim=-1))
         # each score read once, each (value, index) written once
         nbytes = x.numel() * x.element_size() + x.shape[0] * DEV_K * 8
         t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
@@ -628,12 +750,14 @@ def _topk_row(scores, errs, launches):
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops
                     else "operations",
-                    "library_ms": lib, "bytes": nbytes})
+                    "library_ms": lib, "device_ms": dev_ms,
+                    "library_device_ms": lib_dev, "bytes": nbytes})
         print(f"[times] topk {what} {tuple(x.shape)} f32 k={DEV_K}: "
               + json.dumps(per[-1]))
     by_path = {path: n["topk"] for path, n in launches.items()}
     t_bytes = sum(r["bytes"] for r in per) / MEM_BYTES_PER_S * 1e3
     t_ops = sum(math.prod(r["shape"]) for r in per) / OPS32_PER_S * 1e3
+    dev_ms = _sum_or_none(r["device_ms"] for r in per)
     return {
         "name": "topk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/topk.cu",
@@ -645,6 +769,10 @@ def _topk_row(scores, errs, launches):
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": sum(r["library_ms"] for r in per),
+        "device_ms": dev_ms,
+        "device_ms_per_launch": None if dev_ms is None else dev_ms / len(per),
+        "library_device_ms": _sum_or_none(r["library_device_ms"]
+                                          for r in per),
         "shapes": per,
         "shape_note": (f"one call at each device-path shape: local "
                        f"execution of {DEV_B} queries on {DEV_PEERS} "

@@ -1,9 +1,11 @@
 """Wrapper of the CUDA local top-k kernel (``csrc/topk.cu``).
 
 Replaces ``src/repro/kernels/topk/topk.py::topk_pallas``.  The kernel
-is bound by device-memory bytes; it reduces tiles of each row to k
-candidates with a block argmax, then the candidates of a row (see the
-note in the source).  Launch counter:
+is bound by device-memory bytes; it reads each score once and finds the
+k largest of each tile of ``TILE`` scores by a radix select on the
+scores' total-order keys, then the k largest of a row's candidates (see
+the note in the source).  This module plans the tiles and the scratch;
+the launcher refuses any other plan.  Launch counter:
 ``repro_torch.kernels._build.LAUNCHES["topk"]``.
 """
 from __future__ import annotations
@@ -14,12 +16,23 @@ import torch
 
 from repro_torch.kernels import _build
 
+#: scores a pass-1 block holds (``TILE`` in ``csrc/topk.cu``)
+TILE = 20480
+MAX_K = 256
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
            torch.float16: "f16"}
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int, _P, _P, _P, _P]
-MAX_K = 256
+             ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P]
+_FNS: dict = {}                          # dtype -> launcher
+
+
+def plan(n: int, k: int):
+    """(tiles a row, candidate words a row) of a row of ``n`` scores:
+    one pass-1 block per ``TILE`` scores, and ``tiles * k`` words of
+    scratch for pass 2 when a row has more than one tile (else 0)."""
+    tiles = -(-n // TILE)
+    return tiles, (tiles * k if tiles > 1 else 0)
 
 
 def topk_cuda(scores, k: int, *, index_offset: int = 0):
@@ -48,21 +61,22 @@ def topk_cuda(scores, k: int, *, index_offset: int = 0):
                          f"{index_offset} do not fit int32")
     if scores.dtype not in _SUFFIX:
         scores = scores.to(torch.float32)
-    lead = tuple(scores.shape[:-1])
+    lead = scores.shape[:-1]
     rows = scores.numel() // n
     vo = torch.empty(lead + (k,), dtype=torch.float32, device=dev)
     io = torch.empty(lead + (k,), dtype=torch.int32, device=dev)
     if rows == 0:
         return vo, io
-    words = _build.function("topk", "repro_topk_scratch",
-                            [ctypes.c_longlong, ctypes.c_int],
-                            restype=ctypes.c_longlong)(n, k)
+    tiles, words = plan(n, k)
     cand = (torch.empty((rows, words), dtype=torch.int64, device=dev)
             if words else None)
-    fn = _build.function("topk", f"repro_topk_{_SUFFIX[scores.dtype]}",
-                         _ARGTYPES)
-    code = fn(_build.ptr(scores), rows, n, k, index_offset, _build.ptr(cand),
-              _build.ptr(vo), _build.ptr(io), _build.stream(dev))
+    fn = _FNS.get(scores.dtype)
+    if fn is None:
+        fn = _FNS[scores.dtype] = _build.function(
+            "topk", f"repro_topk_{_SUFFIX[scores.dtype]}", _ARGTYPES)
+    code = fn(scores.data_ptr(), rows, n, k, index_offset, tiles,
+              None if cand is None else cand.data_ptr(), vo.data_ptr(),
+              io.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "topk")
     _build.LAUNCHES["topk"] += 1
     return vo, io

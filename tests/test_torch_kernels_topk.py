@@ -156,3 +156,242 @@ def test_topk_routes_by_device_without_fallback():
         local_topk(x, 17)
     v, i = local_topk(x.to(torch.float64), 2)
     assert v.dtype == torch.float32 and i.dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of the CUDA kernel's selection (csrc/topk.cu), which
+# cannot run here: the same tiles (the wrapper's plan), the same digits
+# of the total-order key (the source's first-digit width, then bytes),
+# the same three ways through a tile, the same winners and pass 2; held
+# to topk_ref, lax.top_k and topk_pallas.
+# ---------------------------------------------------------------------------
+
+import re  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import repro_torch.kernels.topk.topk as _wrapper  # noqa: E402
+from repro_torch.kernels.topk.ref import to_f32  # noqa: E402
+from repro_torch.kernels.topk.topk import MAX_K, TILE, plan  # noqa: E402
+
+_SRC = (Path(_wrapper.__file__).resolve().parents[1] / "csrc"
+        / "topk.cu").read_text()
+_CONST = {name: int(v) for name, v in
+          re.findall(r"constexpr int (\w+) = (\d+);", _SRC)}
+FIRST_BITS, CAND = _CONST["FIRST_BITS"], _CONST["CAND"]
+THREADS = _CONST["THREADS"]
+
+
+def _np_keys(x32):
+    """Total-order keys of f32 scores, ordering as unsigned (key_of)."""
+    b = np.ascontiguousarray(x32, np.float32).view(np.int32)
+    b = b ^ ((b >> 31) & 0x7FFFFFFF)
+    return b.view(np.uint32) ^ np.uint32(0x80000000)
+
+
+def _np_values(keys):
+    """The inverse of ``_np_keys`` (value_of)."""
+    b = (keys.astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32)
+    return (b ^ ((b >> 31) & 0x7FFFFFFF)).view(np.float32)
+
+
+def _narrow(keys, lo, hi, need, shift, bits):
+    """pick_bin: among the keys in [lo, hi], the bin of the ``bits``-bit
+    digit at ``shift`` that holds the need-th largest.  Returns the new
+    (lo, hi, need, keys in the bin)."""
+    u = keys.dtype.type
+    inbin = keys[(keys >= u(lo)) & (keys <= u(hi))]
+    h = np.bincount(((inbin >> u(shift)) & u((1 << bits) - 1))
+                    .astype(np.int64), minlength=1 << bits)
+    above = np.cumsum(h[::-1])[::-1] - h          # keys in higher bins
+    b = int(np.flatnonzero((above < need) & (above + h >= need))[0])
+    lo |= b << shift
+    return lo, lo | ((1 << shift) - 1), need - int(above[b]), int(h[b])
+
+
+def _refine(keys, lo, hi, need, cnt, shift):
+    """refine: one byte at a time from ``shift`` down (the last digit
+    clamped to bit 0) until the bin holds exactly the keys wanted."""
+    while cnt != need:
+        lo, hi, need, cnt = _narrow(keys, lo, hi, need, shift, 8)
+        if shift == 0:
+            break
+        shift = max(shift - 8, 0)
+    return lo, hi, need, cnt
+
+
+def _winners(keys, lo, hi, need, cnt):
+    """collect: every key above the bin, then the bin's keys: all of
+    them, or the need lowest-indexed equal keys."""
+    above = np.flatnonzero(keys > hi)
+    if cnt == need:
+        return np.concatenate([above, np.flatnonzero((keys >= lo)
+                                                     & (keys <= hi))])
+    assert lo == hi                       # only the last digit leaves ties
+    return np.concatenate([above, np.flatnonzero(keys == lo)[:need]])
+
+
+def _words(keys, local):
+    return ((keys.astype(np.uint64) << np.uint64(32))
+            | (0xFFFFFFFF - local).astype(np.uint64))
+
+
+def _tile_words(keys, base, k, paths):
+    """Pass 1 of one tile: its min(k, count) winners as words."""
+    kt = min(k, len(keys))
+    sel = (0, 2 ** 32 - 1, kt, len(keys))
+    if kt < len(keys):
+        sel = _narrow(keys, *sel[:3], 32 - FIRST_BITS, FIRST_BITS)
+    lo, hi, need, cnt = sel
+    local = base + np.arange(len(keys))
+    if cnt == need:                       # the first bin is all wanted
+        paths.add("all")
+        return _words(keys, local)[_winners(keys, *sel)]
+    if cnt <= CAND:                       # gather the bin as words
+        inbin = (keys >= lo) & (keys <= hi)
+        w = _words(keys[inbin], local[inbin])
+        if cnt <= THREADS:                # by rank, one word a thread
+            paths.add("bin words by rank")
+            rank = (w[None, :] > w[:, None]).sum(axis=1)
+            won = w[rank < need]
+        else:
+            paths.add("bin words by digits")
+            wsel = _refine(w, lo << 32, (hi << 32) | 0xFFFFFFFF, need, cnt,
+                           64 - FIRST_BITS - 8)
+            assert wsel[2] == wsel[3]     # distinct words: no tie
+            won = w[_winners(w, *wsel)]
+        return np.concatenate([_words(keys[keys > hi], local[keys > hi]),
+                               won])
+    paths.add("whole tile")
+    sel = _refine(keys, lo, hi, need, cnt, 32 - FIRST_BITS - 8)
+    return _words(keys, local)[_winners(keys, *sel)]
+
+
+def _model_topk(x32, k, index_offset=0, paths=None):
+    """Top-k of each row of ``x32`` (f32) as the kernel computes it;
+    ``paths`` collects the ways the tiles went."""
+    paths = set() if paths is None else paths
+    rows, n = x32.shape
+    tiles, words = plan(n, k)
+    vals = np.empty((rows, k), np.float32)
+    idx = np.empty((rows, k), np.int64)
+    for r in range(rows):
+        cand = []
+        for t in range(tiles):                   # pass 1, one block a tile
+            w = _tile_words(_np_keys(x32[r, t * TILE:(t + 1) * TILE]),
+                            t * TILE, k, paths)
+            assert len(w) == min(k, n - t * TILE)
+            cand.append(np.concatenate([w, np.zeros(k - len(w), np.uint64)]))
+        cand = np.concatenate(cand)
+        if tiles > 1:                            # pass 2 over the words
+            assert len(cand) == words
+            sel = _refine(cand, 0, 2 ** 64 - 1, k, len(cand), 56)
+            assert sel[2] == sel[3]              # distinct words: no tie
+            cand = cand[_winners(cand, *sel)]
+        w = np.sort(cand)[::-1]
+        assert len(w) == k and w[-1] != 0        # no empty slot wins
+        vals[r] = _np_values(w >> np.uint64(32))
+        idx[r] = (0xFFFFFFFF - (w & np.uint64(0xFFFFFFFF))).astype(np.int64)
+    return vals, (idx + index_offset).astype(np.int32)
+
+
+def _adversarial(case, k, seed):
+    """Scores (rows, n) as f32, every value exact in bf16 and f16."""
+    rng = np.random.default_rng(seed)
+    if case == "ties_over_tiles":          # > k tied at the k-th key
+        return (rng.integers(0, 4, (3, 3 * TILE + 5)) / 4).astype(np.float32)
+    if case == "few_winners_at_seams":     # 1.0 at the tile seams only
+        x = np.zeros((2, 3 * TILE + 5), np.float32)
+        x[:, 1::2] = -0.0
+        x[0, [TILE - 1, TILE, 2 * TILE - 1, 2 * TILE, 3 * TILE + 4]] = 1.0
+        x[1, -40:] = 1.0
+        return x
+    if case == "one_value":
+        return np.full((2, TILE + 1), 0.5, np.float32)
+    if case.startswith("n_tile"):          # n = TILE - 1, TILE, TILE + 1
+        n = TILE + {"n_tile_minus_1": -1, "n_tile": 0,
+                    "n_tile_plus_1": 1}[case]
+        return ((rng.integers(0, 17, (2, n)) - 8) / 8).astype(np.float32)
+    if case == "n_eq_k":
+        return ((rng.integers(0, 5, (3, k)) - 2) / 2).astype(np.float32)
+    if case == "specials_at_threshold":    # the k-th key is a special
+        pool = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1.0],
+                        np.float32)
+        return rng.choice(pool, size=(3, 2 * TILE + 3))
+    if case == "normal":                   # the device path's scores
+        return rng.standard_normal((2, 2 * TILE + 100)).astype(np.float32)
+    if case == "all_neg_inf":
+        return np.full((2, TILE + 7), -np.inf, np.float32)
+    raise ValueError(case)
+
+
+_CASES = ("ties_over_tiles", "few_winners_at_seams", "one_value",
+          "n_tile_minus_1", "n_tile", "n_tile_plus_1", "n_eq_k",
+          "specials_at_threshold", "all_neg_inf", "normal")
+
+
+@pytest.mark.parametrize("case", _CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("k", [1, 20, MAX_K])
+def test_topk_kernel_model_matches_reference(case, dtype, k):
+    """The kernel's selection, modelled step by step, equals the port's
+    plain version and lax.top_k bit for bit on the inputs that break
+    selections by counting."""
+    x32 = _adversarial(case, k, seed=len(case) + k)
+    xj, xt = _exact(x32, dtype)
+    wide = to_f32(xt).numpy()
+    ref = jax_topk_ref(xj, k, index_offset=5)
+    port = topk_ref(xt, k, index_offset=5)
+    _assert_same(port, ref)
+    got = _model_topk(wide, k, index_offset=5)
+    _assert_same((torch.from_numpy(got[0]), torch.from_numpy(got[1])), ref)
+
+
+@pytest.mark.parametrize("case", ["ties_over_tiles", "few_winners_at_seams",
+                                  "one_value", "n_tile_plus_1"])
+def test_topk_kernel_model_matches_pallas(case):
+    """The model against the TPU kernel in interpret mode, on inputs
+    whose top-k holds no -inf (where topk_pallas reports index -1) and
+    no -0.0 (topk_pallas compares floats, so -0.0 ties with +0.0)."""
+    x32 = _adversarial(case, 20, seed=3)
+    x32 = np.where(x32 == 0, np.float32(0.0), x32)
+    got = _model_topk(x32, 20)
+    pv, pi = topk_pallas(jnp.asarray(x32), 20, tile_n=8192)
+    _assert_same((torch.from_numpy(got[0]), torch.from_numpy(got[1])),
+                 (pv, pi))
+
+
+def test_topk_plan_matches_launcher():
+    """The wrapper's tiles and scratch are what the launcher of
+    csrc/topk.cu accepts (ceil(n / TILE) tiles, tiles * k words a row
+    when a row has several), at the device path's three shapes, and its
+    constants and argument list match the source."""
+    assert _CONST["TILE"] == TILE and _CONST["MAX_K"] == MAX_K
+    assert "tiles != (n + TILE - 1) / TILE" in _SRC
+    params = re.search(r"extern \"C\" int NAME\(([^)]*)\)", _SRC).group(1)
+    assert len(params.split(",")) == len(_wrapper._ARGTYPES)
+    # local execution, CN and CN* of the device path (B = 32, P = 64,
+    # N = 64 x 20,000, k = 20)
+    assert plan(20_000, 20) == (1, 0)
+    assert plan(1_280_000, 20) == (63, 63 * 20)
+    assert plan(1_280, 20) == (1, 0)
+    assert plan(TILE, 256) == (1, 0)
+    assert plan(TILE + 1, 256) == (2, 512)
+    assert plan(2 ** 31, 256) == (-(-2 ** 31 // TILE), -(-2 ** 31 // TILE)
+                                  * 256)
+
+
+def test_topk_kernel_model_takes_every_path():
+    """The inputs above drive the model through every way a tile can
+    go: the first bin wholly wanted, the bin gathered as words and
+    ranked (the device path's normal scores) or narrowed by digits, and
+    the whole tile (heavy ties)."""
+    paths = {}
+    for case in _CASES:
+        seen = set()
+        _model_topk(_adversarial(case, 20, seed=1), 20, paths=seen)
+        paths[case] = seen
+    assert "bin words by rank" in paths["normal"]
+    assert "bin words by digits" in paths["n_tile"]   # ~1200 equal keys
+    assert paths["n_eq_k"] == {"all"}
+    assert "whole tile" in paths["one_value"]
+    assert "whole tile" in paths["ties_over_tiles"]
