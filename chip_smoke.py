@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths — the static FD overlay top-k query served
-by a ``QueryServer``, and the ``DeviceEngine``'s FD collectives over 64
-virtual peers — through the hand-written CUDA kernels, and fails (exit
-code 1, no result line) when any phase fails:
+Drives the port's paths — the FD overlay top-k query served by a
+``QueryServer``, statically and under churn with the CN / CN* baselines,
+and the ``DeviceEngine``'s FD collectives over 64 virtual peers —
+through the hand-written CUDA kernels, and fails (exit code 1, no
+result line) when any phase fails:
 
   1. build the kernel library from ``src/repro_torch/kernels/csrc``;
   2. hold each kernel (merge, arrivals, wait and its churn variant,
@@ -16,15 +17,25 @@ code 1, no result line) when any phase fails:
      scores, and for the top-k the inputs that break selections by
      counting (ties at the k-th key across tiles, one repeated value,
      rows of the tile width and one off, n == k, specials at the
-     threshold, all -inf) (tolerance: exact — equal bits of values and
-     owners);
+     threshold, all -inf), and for the wait kernel's churn variant
+     deaths exactly at the send time, infinite deaths and all-dead rows
+     (tolerance: exact — equal bits of values and owners);
   3. serve 32 independent-stream ``fd-dynamic`` requests from 8 client
      threads plus one ``fd-basic``, ``fd-st1`` and ``fd-st1+2`` request
      on a 100,000-peer Barabási–Albert overlay (the reference package's
      full-size ``jax_backend`` configuration: m=2, seed 7,
      ``SimParams(seed=5)``), and check that every kernel of that path
      moved its launch counter;
-  4. run a 4-entry spec on the card and on the port's CPU path and
+  3b. serve churn and the baselines from a second ``QueryServer`` over
+     the same engine (the reference's full-size ``jax_churn_bench``
+     settings: ``fd-dynamic``, independent streams, mean lifetimes of
+     60 s and 600 s), 8 + 2 ``fd-dynamic`` requests from 4 client
+     threads plus one ``fd-basic`` at 60 s, ``cn``, ``cn-star`` and
+     ``cn`` at 60 s; check the answers, that peers died at lifetime 60,
+     and that the wait kernel's churn variant, the merge and the
+     arrivals moved their launch counters;
+  4. run 4-entry specs (``fd-dynamic`` static and at lifetime 60,
+     ``cn``, ``cn-star``) on the card and on the port's CPU path and
      require equal bits;
   5. drive the ``DeviceEngine`` on ``make_mesh((64,), ("model",))``, the
      paper's 64-node cluster: 32 queries of N = 64 x 20,000 scores
@@ -34,7 +45,8 @@ code 1, no result line) when any phase fails:
      ``run_many``, and the row gather), ``cn`` and ``cn-star``; check
      that the top-k and merge counters moved and that the first 4
      queries equal the port's CPU path bit for bit;
-  6. time each kernel at the shapes its path gives it (CUDA events,
+  6. time each kernel (the churn variant at the churn sweep's level
+     shapes) at the shapes its path gives it (CUDA events,
      median of several runs) beside its plain version, one PyTorch
      library call where one computes the same function, and its bound
      (bytes over the card's memory rate); ``device_ms`` is the kernel's
@@ -405,7 +417,29 @@ def _check_sweep(levels, gen, dev, errs):
             _require(_same(c1, c2) and _same(snd1, snd2),
                      f"wait (churn variant) level {d} {dt}: kernel != "
                      "plain")
-            n += 2
+            # the churn variant's edges: deaths exactly at the send time
+            # (alive, by ``>=``), infinite deaths, an all-dead row (0),
+            # an all-alive row (1) and a row dead exactly at s (2)
+            s = wait_ref(own, all_in, dl)
+            u = torch.rand((E_MAIN, L), generator=gen, device=dev)
+            edge = torch.where(u < 0.4, s, torch.where(
+                u < 0.6, torch.full_like(s, math.inf), death))
+            edge[0] = -1.0
+            edge[1] = math.inf
+            edge[2] = s[2]
+            c1, snd1 = wait_cuda(own, all_in, dl, edge)
+            c2, snd2 = wait_ref(own, all_in, dl, edge)
+            errs["wait_churn"] = max(errs["wait_churn"],
+                                     _max_abs_err(snd1, snd2),
+                                     _max_abs_err(c1, c2))
+            _require(_same(c1, c2) and _same(snd1, snd2),
+                     f"wait (churn variant) level {d} {dt} at the death "
+                     "edges: kernel != plain")
+            _require(bool(torch.isinf(snd1[0]).all())
+                     and _same(snd1[1:3], s[1:3]),
+                     f"wait (churn variant) level {d} {dt}: a peer dead "
+                     "exactly at its send time must send")
+            n += 3
     return n
 
 
@@ -472,22 +506,170 @@ def _serve(engine, _build):
              f"served {m.served} of {m.submitted} (expected 35)")
     _require(m.failed == 0, f"{m.failed} requests failed in the engine")
     for pol, res in results:
-        _require(res.backend_used == res.backend == "sim-torch",
-                 f"{pol}: backend_used={res.backend_used}")
+        _check_result(pol, res, engine.params.k)
         _require(res.compile_s == 0.0,
                  f"{pol}: live dispatch compiled ({res.compile_s} s)")
-        v = res.values
-        _require(v.shape == (1, 1, engine.params.k)
-                 and bool((v[..., :-1] >= v[..., 1:]).all())
-                 and bool((v > 0).all() and (v <= 1).all()),
-                 f"{pol}: values not a descending score list: {v}")
-        acc = res.metrics.accuracy
-        _require(bool(((acc >= 0) & (acc <= 1)).all()),
-                 f"{pol}: accuracy out of range {acc}")
     for name in ("merge", "arrivals", "wait"):
         _require(launches[name] > 0, f"kernel {name} never launched on "
                  "the main path")
     return launches, m
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: churn and the CN / CN* baselines through a second QueryServer
+# ---------------------------------------------------------------------------
+
+# the reference's full-size churn suite (benchmarks/multi_query.py,
+# jax_churn_bench): heavy and light churn
+CHURN_HEAVY_S = 60.0
+CHURN_LIGHT_S = 600.0
+
+
+def _check_result(name, res, k):
+    """One served answer: the port's backend, a descending k-list of
+    scores in (0, 1], accuracies in [0, 1]."""
+    _require(res.backend_used == res.backend == "sim-torch",
+             f"{name}: backend_used={res.backend_used}")
+    v = res.values
+    _require(v.shape == (1, 1, k)
+             and bool((v[..., :-1] >= v[..., 1:]).all())
+             and bool((v > 0).all() and (v <= 1).all()),
+             f"{name}: values not a descending score list: {v}")
+    acc = res.metrics.accuracy
+    _require(bool(((acc >= 0) & (acc <= 1)).all()),
+             f"{name}: accuracy out of range {acc}")
+
+
+def _serve_churn(engine, _build):
+    """Serve churned fd-dynamic (with §4.2 reroute), fd-basic under
+    churn, cn and cn-star (with and without churn) from 4 clients."""
+    from repro_torch.engine import (QueryServer, QuerySpec, ServerConfig,
+                                    get_policy)
+    heavy = get_policy("fd-dynamic").variant(lifetime_mean_s=CHURN_HEAVY_S)
+    light = get_policy("fd-dynamic").variant(lifetime_mean_s=CHURN_LIGHT_S)
+    singles = {
+        "fd-basic@60": get_policy("fd-basic").variant(
+            lifetime_mean_s=CHURN_HEAVY_S),
+        "cn": get_policy("cn"),
+        "cn-star": get_policy("cn-star"),
+        "cn@60": get_policy("cn").variant(lifetime_mean_s=CHURN_HEAVY_S),
+    }
+    server = QueryServer(engine, ServerConfig(max_queue=256, max_batch=64))
+    pool = (0, 1)
+    t0 = time.perf_counter()
+    for o in pool:
+        server.warm(QuerySpec(origins=(o,), rng="independent"), heavy,
+                    batch_sizes=(1, 4))
+        server.warm(QuerySpec(origins=(o,), rng="independent"), light,
+                    batch_sizes=(1,))
+    for pol in singles.values():
+        server.warm(QuerySpec(origins=(0,)), pol, batch_sizes=(1,))
+    print(f"[churn] warmed in {time.perf_counter() - t0:.3f} s")
+    stream = ([("fd-dynamic@60", heavy)] * 8
+              + [("fd-dynamic@600", light)] * 2)
+    results, errors = [], []
+    lock = threading.Lock()
+
+    def client(c):
+        try:
+            for i in range(c, len(stream), 4):
+                name, pol = stream[i]
+                h = server.submit(QuerySpec(origins=(pool[i % 2],),
+                                            seed=2000 + i,
+                                            rng="independent"), pol)
+                res = h.result(timeout=600)
+                with lock:
+                    results.append((name, res))
+        except Exception as e:           # noqa: BLE001 — reported below
+            with lock:
+                errors.append(repr(e))
+
+    _build.reset_launches()              # count this path alone
+    t0 = time.perf_counter()
+    server.start()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in threads:
+        t.start()
+    handles = [(name, server.submit(QuerySpec(origins=(0,), seed=78), pol))
+               for name, pol in singles.items()]
+    for name, h in handles:
+        try:
+            results.append((name, h.result(timeout=600)))
+        except Exception as e:           # noqa: BLE001 — reported below
+            errors.append(repr(e))
+    for t in threads:
+        t.join(timeout=900)
+    alive = [t for t in threads if t.is_alive()]
+    server.stop(drain=not alive, timeout=60)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    m = server.metrics()
+    print(f"[churn] served {m.served}/{m.submitted} in {wall:.3f} s; "
+          f"failed={m.failed} shed={m.shed} timed_out={m.timed_out}")
+    print("[churn] serving metrics " + json.dumps(m.as_dict()))
+    print("[churn] launches " + json.dumps(launches))
+    _require(not alive, "client threads did not finish")
+    _require(not errors, f"requests failed: {errors}")
+    n_req = len(stream) + len(singles)
+    _require(m.submitted == n_req and m.served == m.submitted,
+             f"served {m.served} of {m.submitted} (expected {n_req})")
+    _require(m.failed == 0, f"{m.failed} requests failed in the engine")
+    run_s, dead = {}, {}
+    for name, res in results:
+        _check_result(name, res, engine.params.k)
+        _require(res.compile_s == 0.0,
+                 f"{name}: live dispatch compiled ({res.compile_s} s)")
+        run_s.setdefault(name, []).append(res.run_s)
+        # fd-basic and cn send one list per peer alive at its send
+        # time: fewer lists than reached peers means some died
+        short = int((res.metrics.n_reached - 1 - res.metrics.m_bw).min())
+        dead[name] = max(dead.get(name, short), short)
+    print("[churn] host run_s by policy " + json.dumps(run_s))
+    print("[churn] reached - 1 - lists sent, by policy " + json.dumps(dead))
+    lat = m.latency
+    print(f"[churn] served latency p50 {lat.p50_s} s, p95 {lat.p95_s} s, "
+          f"p99 {lat.p99_s} s")
+    _require(dead["fd-basic@60"] > 0 and dead["cn@60"] > 0,
+             "no peer died at its send time at lifetime 60")
+    for name in ("wait_churn", "merge", "arrivals"):
+        _require(launches[name] > 0, f"kernel {name} never launched on "
+                 "the churn path")
+    return launches, m
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the card against the port's CPU path
+# ---------------------------------------------------------------------------
+
+def _parity(engine, p):
+    """4-entry specs (static and churned fd-dynamic, cn, cn-star) on the
+    card and on the port's CPU path: equal bits."""
+    import numpy as np
+    from repro_torch.engine import QuerySpec, SimEngine, get_policy
+    spec = QuerySpec(origins=(0, 1), n_trials=2, rng="independent")
+    cpu = SimEngine(engine.plan, p, device="cpu")
+    for name, pol in (
+            ("fd-dynamic", "fd-dynamic"),
+            ("fd-dynamic@60", get_policy("fd-dynamic").variant(
+                lifetime_mean_s=CHURN_HEAVY_S)),
+            ("cn", "cn"), ("cn-star", "cn-star")):
+        t0 = time.perf_counter()
+        rg = engine.run(spec, pol)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc = cpu.run(spec, pol)
+        t_cpu = time.perf_counter() - t0
+        for f in ("n_reached", "n_edges_pq", "avg_degree", "m_fw", "b_fw",
+                  "m_bw", "m_rt", "b_bw", "b_rt", "response_time_s",
+                  "accuracy"):
+            _require(np.array_equal(getattr(rg.metrics, f),
+                                    getattr(rc.metrics, f)),
+                     f"{name}: card != CPU path on metric {f}")
+        _require(np.array_equal(rg.values, rc.values)
+                 and np.array_equal(rg.indices, rc.indices),
+                 f"{name}: card != CPU path on values / indices")
+        print(f"[parity] {name} 4-entry spec: card == CPU path bit for "
+              f"bit (card {t_card:.3f} s, CPU {t_cpu:.3f} s host wall)")
 
 
 # ---------------------------------------------------------------------------
@@ -592,91 +774,149 @@ def _device_path(dev, gen, _build):
 # phase 6: times at main-path shapes
 # ---------------------------------------------------------------------------
 
-def _level_calls(levels, dev, gen):
-    """One sweep's worth of inputs per kernel, at E=32 and K=32."""
+def _merge_pairs(levels, rr=None):
+    """Each merge of one sweep as (list pairs, masked): the fold's rounds
+    (masked), then the parents' merge with their own lists (unmasked),
+    per level; with ``rr``, the reroute-augmented fold where a level has
+    one."""
+    pairs = []
+    for d, lv in enumerate(levels):
+        if "cnode" not in lv:
+            continue
+        rounds = (rr[d]["rounds"] if rr is not None and rr[d] is not None
+                  else lv["rounds"])
+        pairs += [(mi_a.shape[0], True) for mi_a, _, _ in rounds]
+        pairs.append((lv["par_sel"].shape[0], False))
+    return pairs
+
+
+def _merge_calls(pairs, dev, gen):
+    """Random descending K=32 f64 list pairs at the sizes ``pairs``."""
     import torch
     from repro_torch.engine.sim_torch import _next_pow2
     K = _next_pow2(20)
+    merge = []
+    for P, masked in pairs:
+        va, ia = _sorted_lists((E_MAIN, P), K, torch.float64, gen, dev,
+                               False)
+        vb, ib = _sorted_lists((E_MAIN, P), K, torch.float64, gen, dev,
+                               False)
+        ma = mb = None
+        if masked:
+            ma = torch.rand((E_MAIN, P), generator=gen, device=dev) < 0.9
+            mb = torch.rand((E_MAIN, P), generator=gen, device=dev) < 0.9
+        merge.append((va, ia, vb, ib, ma, mb))
+    return merge
+
+
+def _level_calls(levels, dev, gen):
+    """One sweep's worth of inputs per sweep kernel, at E=32."""
+    import torch
     f64 = torch.float64
 
     def rnd(*shape):
         return torch.rand(shape, generator=gen, device=dev, dtype=f64)
 
-    arr, wait, merge = [], [], []
+    arr, wait, wait_churn = [], [], []
     for d, lv in enumerate(levels):
         L = lv["vv"].shape[0]
         if d > 0:
             Lp = levels[d - 1]["vv"].shape[0]
             arr.append((rnd(E_MAIN, Lp), rnd(E_MAIN, L), lv["par_pos"]))
         wait.append((rnd(E_MAIN, L), rnd(E_MAIN, L), rnd(E_MAIN, L)))
-        if "cnode" not in lv:
-            continue
-        for mi_a, _, _ in lv["rounds"]:
-            P = mi_a.shape[0]
-            va, ia = _sorted_lists((E_MAIN, P), K, f64, gen, dev, False)
-            vb, ib = _sorted_lists((E_MAIN, P), K, f64, gen, dev, False)
-            ma = torch.rand((E_MAIN, P), generator=gen, device=dev) < 0.9
-            mb = torch.rand((E_MAIN, P), generator=gen, device=dev) < 0.9
-            merge.append((va, ia, vb, ib, ma, mb))
-        P = lv["par_sel"].shape[0]
-        va, ia = _sorted_lists((E_MAIN, P), K, f64, gen, dev, False)
-        vb, ib = _sorted_lists((E_MAIN, P), K, f64, gen, dev, False)
-        merge.append((va, ia, vb, ib, None, None))
-    return arr, wait, merge
+        # death times around the send times: about a third die
+        wait_churn.append(wait[-1] + (1.5 * rnd(E_MAIN, L),))
+    return arr, wait, wait_churn
 
 
-def _times(levels, dev, gen, errs, launches):
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def _merge_row(name, merge, errs, note):
+    """The merge's timing entry at the list pairs ``merge``, held to its
+    plain version there first."""
     import torch
     from repro_torch.kernels.merge import merge_cuda, merge_ref
-    from repro_torch.kernels.sweep import (arrivals_cuda, arrivals_ref,
-                                           wait_cuda, wait_ref)
-    arr, wait, merge = _level_calls(levels, dev, gen)
-    # the merge at its main-path shapes is held to its plain version too
     for va, ia, vb, ib, ma, mb in merge:
         v1, i1 = merge_cuda(va, ia, vb, ib, valid_a=ma, valid_b=mb)
         v2, i2 = merge_ref(va, ia, vb, ib, valid_a=ma, valid_b=mb)
         errs["merge"] = max(errs["merge"], _max_abs_err(v1, v2))
         _require(_same(v1, v2) and _same(i1, i2),
-                 "merge at main-path shapes: kernel != plain")
+                 f"merge at the shapes of {note}: kernel != plain")
     cats = [torch.cat([va, vb], dim=-1) for va, _, vb, _, _, _ in merge]
-
-    def nb(t):
-        return t.numel() * t.element_size()
-
-    out = []
-    # merge: reads both lists (+ masks) once, writes one list
+    nb = _nbytes
+    # reads both lists (+ masks) once, writes one list
     m_bytes = sum(nb(va) + nb(ia) + nb(vb) + nb(ib) + nb(va) + nb(ia)
                   + (0 if ma is None else nb(ma) + nb(mb))
                   for va, ia, vb, ib, ma, mb in merge)
     # one binary search of log2(K) + 1 compares per input element
     m_ops = sum(2 * va.numel() * (math.log2(va.shape[-1]) + 1)
                 for va, *_ in merge)
-    out.append(("merge", "src/repro_torch/kernels/csrc/merge.cu",
-                "src/repro/kernels/merge/merge.py:140", len(merge),
-                m_bytes, m_ops,
-                lambda: [merge_cuda(va, ia, vb, ib, valid_a=ma, valid_b=mb)
-                         for va, ia, vb, ib, ma, mb in merge],
-                lambda: [merge_ref(va, ia, vb, ib, valid_a=ma, valid_b=mb)
-                         for va, ia, vb, ib, ma, mb in merge],
-                lambda: [torch.sort(c, dim=-1, descending=True,
-                                    stable=True) for c in cats]))
+    return (name, "src/repro_torch/kernels/csrc/merge.cu",
+            "src/repro/kernels/merge/merge.py:140", len(merge),
+            m_bytes, m_ops,
+            lambda: [merge_cuda(va, ia, vb, ib, valid_a=ma, valid_b=mb)
+                     for va, ia, vb, ib, ma, mb in merge],
+            lambda: [merge_ref(va, ia, vb, ib, valid_a=ma, valid_b=mb)
+                     for va, ia, vb, ib, ma, mb in merge],
+            lambda: [torch.sort(c, dim=-1, descending=True, stable=True)
+                     for c in cats], "merge", note)
+
+
+def _times(levels, rr, dev, gen, errs, launches):
+    from repro_torch.kernels.sweep import (arrivals_cuda, arrivals_ref,
+                                           wait_cuda, wait_ref)
+    arr, wait, wait_churn = _level_calls(levels, dev, gen)
+    static_note = f"one fd-dynamic sweep of origin 0, E={E_MAIN}"
+    churn_note = (f"one fd-dynamic sweep of origin 0 at lifetime "
+                  f"{CHURN_HEAVY_S:g} s, E={E_MAIN}")
+    pairs, rr_pairs = _merge_pairs(levels), _merge_pairs(levels, rr)
+    print(f"[times] merges a sweep: {len(pairs)} static, {len(rr_pairs)} "
+          f"with the reroute fold; list pairs "
+          f"{sum(P for P, _ in pairs)} / {sum(P for P, _ in rr_pairs)}")
+    out = [_merge_row("merge", _merge_calls(pairs, dev, gen), errs,
+                      static_note)]
+    if abs(len(rr_pairs) - len(pairs)) > len(pairs) / 4:
+        out.append(_merge_row("merge (reroute fold)",
+                              _merge_calls(rr_pairs, dev, gen), errs,
+                              churn_note))
+    nb = _nbytes
     a_bytes = sum(nb(tq) + 2 * nb(dn) + nb(pp) for tq, dn, pp in arr)
     out.append(("arrivals", "src/repro_torch/kernels/csrc/sweep.cu",
                 "src/repro/kernels/sweep/sweep.py:53", len(arr), a_bytes,
                 sum(dn.numel() for _, dn, _ in arr),
                 lambda: [arrivals_cuda(*c) for c in arr],
-                lambda: [arrivals_ref(*c) for c in arr], None))
+                lambda: [arrivals_ref(*c) for c in arr], None, "arrivals",
+                static_note))
     w_bytes = sum(4 * nb(o) for o, _, _ in wait)
     out.append(("wait", "src/repro_torch/kernels/csrc/sweep.cu",
                 "src/repro/kernels/sweep/sweep.py:98", len(wait), w_bytes,
                 sum(4 * o.numel() for o, _, _ in wait),
                 lambda: [wait_cuda(*c) for c in wait],
-                lambda: [wait_ref(*c) for c in wait], None))
+                lambda: [wait_ref(*c) for c in wait], None, "wait",
+                static_note))
+    for c in wait_churn:
+        s1, snd1 = wait_cuda(*c)
+        s2, snd2 = wait_ref(*c)
+        errs["wait_churn"] = max(errs["wait_churn"], _max_abs_err(s1, s2),
+                                 _max_abs_err(snd1, snd2))
+        _require(_same(s1, s2) and _same(snd1, snd2),
+                 "wait (churn variant) at the churn sweep's shapes: "
+                 "kernel != plain")
+    # four (E, L) inputs read, s and send written
+    out.append(("wait_churn", "src/repro_torch/kernels/csrc/sweep.cu",
+                "src/repro/kernels/sweep/sweep.py:102", len(wait_churn),
+                sum(6 * nb(c[0]) for c in wait_churn),
+                sum(6 * c[0].numel() for c in wait_churn),
+                lambda: [wait_cuda(*c) for c in wait_churn],
+                lambda: [wait_ref(*c) for c in wait_churn], None,
+                "wait_churn", churn_note))
     rows = []
     for (name, source, replaces, calls, nbytes, nops, kern, plain,
-         lib) in out:
+         lib, counter, note) in out:
         # the device time of this kernel's own launches in one sweep
-        dev_ms = _device_ms(kern, match=(f"{name}_kernel",))
+        dev_ms = _device_ms(kern, match=(f"{counter}_kernel",))
         # plain, kernel, kernel, plain: take the lower of each pair
         p1 = _cuda_ms(plain)
         k1 = _cuda_ms(kern)
@@ -684,12 +924,12 @@ def _times(levels, dev, gen, errs, launches):
         p2 = _cuda_ms(plain)
         t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
         t_ops = nops / OPS_PER_S * 1e3
-        by_path = {path: n[name] for path, n in launches.items()}
+        by_path = {path: n[counter] for path, n in launches.items()}
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": errs[name], "ms": min(k1, k2),
+            "max_abs_err": errs[counter], "ms": min(k1, k2),
             "plain_ms": min(p1, p2), "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None if lib is None else _cuda_ms(lib),
@@ -698,15 +938,7 @@ def _times(levels, dev, gen, errs, launches):
             else dev_ms / calls,
             "library_device_ms": None if lib is None else _device_ms(lib),
             "calls_per_sweep": calls, "bytes_per_sweep": nbytes,
-            "shape_note": f"one fd-dynamic sweep of origin 0, E={E_MAIN}"})
-    churn = wait[len(wait) // 2]
-    death = torch.rand(churn[0].shape, generator=gen, device=dev,
-                       dtype=torch.float64)
-    wc = _cuda_ms(lambda: wait_cuda(*churn, death))
-    wp = _cuda_ms(lambda: wait_ref(*churn, death))
-    print(f"[times] wait churn variant at {tuple(churn[0].shape)} f64: "
-          f"kernel {wc} ms, plain {wp} ms, bound "
-          f"{6 * churn[0].numel() * 8 / MEM_BYTES_PER_S * 1e3} ms")
+            "shape_note": note})
     return rows
 
 
@@ -784,7 +1016,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.engine import QuerySpec, SimEngine
+    from repro_torch.engine import SimEngine
     from repro_torch.engine.sim_torch import _device_slices
     from repro_torch.kernels import _build
     from repro_torch.p2psim import SimParams, barabasi_albert
@@ -805,7 +1037,7 @@ def main() -> int:
     engine = SimEngine(top, p)
     sts, _ = engine.plan.origin_statics([0], p.ttl, "st1+2")
     sl = engine.plan.depth_slices(sts[0])
-    levels, _ = _device_slices(sl, dev)
+    levels, _, _ = _device_slices(sl, dev)
     print(f"[setup] overlay n={top.n} edges={top.n_edges} ttl="
           f"{sts[0].ttl} levels={[len(lv['vv']) for lv in sl.levels]} in "
           f"{time.perf_counter() - t0:.3f} s")
@@ -821,31 +1053,17 @@ def main() -> int:
           f"(f64/f32/bf16/f16); max abs err {errs}")
 
     serve_launches, _ = _serve(engine, _build)
-
-    spec = QuerySpec(origins=(0, 1), n_trials=2, rng="independent")
-    t0 = time.perf_counter()
-    rg = engine.run(spec, "fd-dynamic")
-    t_card = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rc = SimEngine(engine.plan, p, device="cpu").run(spec, "fd-dynamic")
-    t_cpu = time.perf_counter() - t0
-    import numpy as np
-    for f in ("n_reached", "n_edges_pq", "avg_degree", "m_fw", "b_fw",
-              "m_bw", "m_rt", "b_bw", "b_rt", "response_time_s",
-              "accuracy"):
-        _require(np.array_equal(getattr(rg.metrics, f),
-                                getattr(rc.metrics, f)),
-                 f"card != CPU path on metric {f}")
-    _require(np.array_equal(rg.values, rc.values)
-             and np.array_equal(rg.indices, rc.indices),
-             "card != CPU path on values / indices")
-    print(f"[parity] 4-entry spec: card == CPU path bit for bit (card "
-          f"{t_card:.3f} s, CPU {t_cpu:.3f} s host wall)")
+    churn_launches, _ = _serve_churn(engine, _build)
+    _parity(engine, p)
 
     dev_launches, scores, _ = _device_path(dev, gen, _build)
 
-    launches = {"serve": serve_launches, "device": dev_launches}
-    rows = _times(levels, dev, gen, errs, launches)
+    launches = {"serve": serve_launches, "serve_churn": churn_launches,
+                "device": dev_launches}
+    # phase 3b extended origin 0's slices with the reroute tables
+    rr = _device_slices(engine.plan.depth_slices(sts[0]), dev)[2]
+    _require(rr is not None, "phase 3b built no reroute tables")
+    rows = _times(levels, rr, dev, gen, errs, launches)
     rows.append(_topk_row(scores, errs, launches))
     print(card)
     print(json.dumps({"kernels": rows}))

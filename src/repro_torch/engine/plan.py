@@ -15,10 +15,11 @@ persists across ``SimEngine.run`` calls:
   * per-origin :class:`DepthSlices` — the dense per-level index arrays
     and static merge-fold schedule the device sweep
     (``repro_torch.engine.sim_torch``) runs on; the sweep caches their
-    device copies on the instance, one per device.
+    device copies on the instance, one per device; ``reroute=True``
+    extends a cached instance in place with the churn sweep's §4.2
+    dead-parent reroute tables.
 
-Live overlays (``sync``) and the churn sweep's reroute tables are not
-part of this package yet.
+Live overlays (``sync``) are not part of this package yet.
 """
 from __future__ import annotations
 
@@ -83,9 +84,28 @@ class DepthSlices:
         leaf split of the level and the permutation reassembling
         [parents, leaves] into node order;
       * ``rounds`` / ``ret`` / ``ret_perm`` — the fold schedule.
+
+    With ``reroute=True`` (the churn sweep's §4.2 dead-parent rerouting)
+    each level that has grandchildren additionally carries a STATIC
+    reroute candidate table: every level-d+2 node is a potential urgent
+    contributor to its grandparent at level d whenever its own parent
+    died, so the fold schedule is recompiled over the augmented slot set
+    [children..., grandchildren...]:
+
+      * ``rr_gc_pos`` — grandchild positions inside level d+2;
+      * ``rr_gc_par_pos`` — their parents' positions inside level d+1
+        (the liveness gather: a grandchild slot is live iff that parent
+        is DEAD);
+      * ``rr_rounds`` / ``rr_ret`` / ``rr_ret_perm`` — the augmented
+        fold schedule (grandchild slots segment to their grandparent).
+
+    Which slots actually contribute is decided per entry by validity
+    masks at run time; the shapes, gathers and merge schedule stay
+    fixed.
     """
 
-    def __init__(self, st: _OriginStatic, n: int, index_dtype=np.int64):
+    def __init__(self, st: _OriginStatic, n: int, reroute: bool = False,
+                 index_dtype=np.int64):
         """Compile ``st``'s tree into dense slices + fold schedules.
 
         ``index_dtype``: dtype of every position/index array (``vv``,
@@ -95,6 +115,7 @@ class DepthSlices:
         """
         self.n = n
         self.origin = st.origin
+        self.reroute = False
         self.dmax = len(st.levels) - 1
         self.index_dtype = np.dtype(index_dtype)
         ix = self._ix
@@ -128,6 +149,8 @@ class DepthSlices:
                 lv["ret_perm"] = ix(np.argsort(segs, kind="stable"))
             self.levels.append(lv)
         self._set_els(st)
+        if reroute:
+            self.extend_reroute(st)
 
     def _ix(self, a: np.ndarray) -> np.ndarray:
         return a.astype(self.index_dtype, copy=False)
@@ -150,6 +173,33 @@ class DepthSlices:
             self.els_src = self._ix(st.fw_els_src)
             self.els_dst = self._ix(st.fw_els_dst)
             self.cond = st.fw_cond
+
+    def extend_reroute(self, st: _OriginStatic) -> None:
+        """Add the reroute tables to THIS instance, in place.
+
+        Level d's grandchildren are level d+1's children, re-segmented
+        by grandparent (always one of level d's parents: a grandchild's
+        grandparent has the dead child as a child by construction).
+        Everything already compiled is shared, and the static sweep's
+        device tensors stay valid: the sweep caches the rr tables
+        separately (``sim_torch._device_slices``).
+        """
+        if self.reroute:
+            return
+        for d in range(self.dmax - 1):
+            lv, nxt = self.levels[d], self.levels[d + 1]
+            par_nodes = lv["vv"][lv["par_sel"]]
+            gp = st.parent[st.parent[nxt["cnode"]]]
+            lv["rr_gc_pos"] = nxt["c_in_next"]
+            lv["rr_gc_par_pos"] = nxt["cpar_pos"]
+            seg = np.concatenate([
+                np.searchsorted(par_nodes, st.parent[lv["cnode"]]),
+                np.searchsorted(par_nodes, gp)])
+            rounds, ret, segs = self._fold_schedule(seg)
+            lv["rr_rounds"] = self._ix_rounds(rounds)
+            lv["rr_ret"] = self._ix_ret(ret)
+            lv["rr_ret_perm"] = self._ix(np.argsort(segs, kind="stable"))
+        self.reroute = True
 
     @staticmethod
     def _fold_schedule(seg_of_slot: np.ndarray):
@@ -260,14 +310,21 @@ class NetworkPlan:
                 self.indptr, self.indices, r, p.replication_placement)
         return tab
 
-    def depth_slices(self, st: _OriginStatic) -> DepthSlices:
+    def depth_slices(self, st: _OriginStatic,
+                     reroute: bool = False) -> DepthSlices:
         """Padded depth-bucketed arrays for ``st`` (the device sweep's
-        inputs), compiled once per (origin, ttl, strategy) and cached."""
+        inputs), compiled once per (origin, ttl, strategy) and cached.
+        ``reroute=True`` lazily EXTENDS the cached instance with the
+        static §4.2 dead-parent reroute tables the churn sweep folds
+        over — the base arrays are never duplicated."""
         key = (st.origin, st.ttl, st.fw_strategy)
         sl = self._slices.get(key)
         if sl is None:
             sl = self._slices[key] = DepthSlices(
-                st, self.top.n, index_dtype=self.index_dtype)
+                st, self.top.n, reroute=reroute,
+                index_dtype=self.index_dtype)
+        elif reroute:
+            sl.extend_reroute(st)
         return sl
 
     def auto_ttl(self, origin: int) -> int:

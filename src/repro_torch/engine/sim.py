@@ -6,18 +6,19 @@ NetworkPlan` once; every subsequent ``run(spec, policy)`` reuses the
 cached CSR, directed edges, per-origin BFS trees / forward masks,
 auto-TTLs and device-resident depth slices.
 
-This package carries the static FD path: ``fd-basic``, ``fd-st1``,
-``fd-st1+2`` and ``fd-dynamic`` without churn, in float64, with iid link
-latencies.  In every RNG mode its ``TopKResult`` carries the reference
-package's bits (``values``, ``indices`` and every ``BatchMetrics``
-field).  Everything else raises ``NotImplementedError`` naming the
-slice of the port that will bring it — the engine never falls back to
-another path.
+This package carries ``fd-basic``, ``fd-st1``, ``fd-st1+2`` and
+``fd-dynamic`` with or without churn (finite ``lifetime_mean_s``; §4.2
+dead-parent rerouting under ``fd-dynamic``) and the ``cn`` / ``cn-star``
+baselines, in float64, with iid link latencies.  In every RNG mode its
+``TopKResult`` carries the reference package's bits (``values``,
+``indices`` and every ``BatchMetrics`` field).  Everything else
+(``fd-stats``, ``latency_model="edge"``, reduced precision, live
+overlays) raises ``NotImplementedError`` naming the slice of the port
+that will bring it — the engine never falls back to another path.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from typing import List, Optional, Sequence, Union
 
@@ -51,17 +52,11 @@ def _slice_rows(bm: BatchMetrics, lo: int, n_queries: int,
 
 def _unported(spec: QuerySpec, pol: Policy, p: SimParams) -> Optional[str]:
     """Why this package cannot run ``(spec, pol, p)`` yet, or None."""
-    if pol.algorithm in ("cn", "cn_star"):
-        return (f"policy {pol.name!r} (CN/CN*) comes with the churn and "
-                "CN slice of the port")
     if pol.algorithm == "fd-stats":
         return ("policy 'fd-stats' comes with the slice that ports the "
                 "scalar reference run")
-    if pol.algorithm != "fd":
+    if pol.algorithm not in ("fd", "cn", "cn_star"):
         return f"algorithm {pol.algorithm!r} is not part of the port"
-    if not math.isinf(pol.lifetime_mean_s):
-        return ("churn (finite lifetime_mean_s) comes with the churn and "
-                "CN slice of the port")
     if p.latency_model == "edge":
         return ("latency_model='edge' comes with the topology-registry "
                 "slice of the port")
@@ -241,21 +236,25 @@ class SimEngine(Engine):
         compile_s = 0.0
         if self.device.type == "cuda":
             compile_s += _build.ensure_built()   # 0.0 once loaded
+        baseline = pol.algorithm in ("cn", "cn_star")
         n_statics = len(self.plan._statics)
         t0 = time.perf_counter()
-        sts, st_of_q = self.plan.origin_statics(origins, p.ttl,
-                                                pol.strategy)
+        sts, st_of_q = self.plan.origin_statics(
+            origins, p.ttl, "basic" if baseline else pol.strategy)
         # statics wall counts as compile only when this call actually
         # BUILT something — a warm plan reports 0.0
         if len(self.plan._statics) > n_statics:
             compile_s += time.perf_counter() - t0
         ent_st = np.repeat(st_of_q, T)
         ent_origin = np.repeat(origins, T)
-        rep = self.plan.replica_table(p)
+        # replica placement is retrieval-phase only (FD paths); the CN
+        # baselines never enter the owner-fetch fallback
+        rep = None if baseline else self.plan.replica_table(p)
         t0 = time.perf_counter()
         res = run_entries_torch(self.plan, sts, ent_st, ent_origin,
                                 ent_seeds, self.plan.top.n, p,
-                                pol.dynamic, spec.independent,
+                                pol.algorithm, pol.dynamic,
+                                pol.lifetime_mean_s, spec.independent,
                                 self.device, replicas=rep)
         compile_s += res.pop("compile_s")
         run_s = time.perf_counter() - t0

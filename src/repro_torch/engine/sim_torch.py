@@ -1,9 +1,10 @@
-"""The FD forward and merge-and-backward sweep on a torch device.
+"""The FD forward and merge-and-backward sweep, and the CN / CN* arrival
+sweep, on a torch device.
 
-The port of the reference package's jitted sweep
-(``repro/engine/sim_jax.py``: ``_fd_sweep_impl``, ``_fold_lists``,
-``_retire``, ``_fold_max``, ``_device_slices``, ``run_entries_jax``) for
-FD without churn, in eager PyTorch:
+The port of the reference package's jitted sweeps
+(``repro/engine/sim_jax.py``: ``_fd_sweep_impl``, ``_cn_sweep``,
+``_fold_lists``, ``_retire``, ``_fold_max``, ``_device_slices``,
+``run_entries_jax``), with and without churn, in eager PyTorch:
 
   * the per-depth forward flood — query arrival times down the BFS tree
     (the ``arrivals`` kernel) plus the Strategy-1 "who-sent-first" edge
@@ -11,7 +12,16 @@ FD without churn, in eager PyTorch:
   * the bottom-up k-list merge — the plan's static fold schedule
     (:class:`~repro_torch.engine.plan.DepthSlices`) executes only real
     pairwise merges, each one a call of the ``merge`` kernel, and each
-    level's send times come from the ``wait`` kernel (Appendix A).
+    level's send times come from the ``wait`` kernel (Appendix A);
+  * churn (finite ``lifetime_mean_s``, §4): a peer dead at its send
+    time gets ``send = inf`` (the wait kernel's churn variant) and -inf
+    / -1 merged rows; under ``fd-dynamic`` the §4.2 dead-parent reroute
+    folds each level's static grandchild table (``DepthSlices.rr_*``),
+    a grandchild slot being live iff its parent died — masks over fixed
+    shapes;
+  * CN / CN*: only the forward flood (the ``arrivals`` kernel) plus each
+    peer's execution time; the baselines' arithmetic is the shared numpy
+    ``_cn_entries``.
 
 On a CUDA device every one of those calls launches a hand-written CUDA
 kernel (``repro_torch.kernels``); on the CPU the same calls run the
@@ -21,11 +31,11 @@ they were plain XLA in the reference.
 
 Everything stochastic is precomputed in numpy by the shared
 ``_precompute_draws`` (the reference's RNG streams, in its order), and
-the urgent-list / retrieval epilogue is the shared numpy code, so in
-float64 this sweep gives the reference's bits in every RNG mode.  The
-merge follows ``merge_ref``'s tie rule (list ``a`` first, then the lower
-position) everywhere; on distinct scores — what f64 uniform draws give —
-every merge rule selects the same lists.
+the urgent-list / reroute-count / retrieval epilogue is the shared
+numpy code, so in float64 this sweep gives the reference's bits in every
+RNG mode.  The merge follows ``merge_ref``'s tie rule (list ``a`` first,
+then the lower position) everywhere; on distinct scores — what f64
+uniform draws give — every merge rule selects the same lists.
 
 Entry rows are independent and PyTorch runs eagerly, so there is no
 power-of-two padding of entry groups (the reference pads only to bound
@@ -44,8 +54,10 @@ from repro_torch.kernels.merge.ops import merge_scorelists
 from repro_torch.kernels.sweep.ops import level_arrivals, wait_propagate
 from repro_torch.p2psim.metrics import ENTRY_BYTES_PAPER
 from repro_torch.p2psim.simulate import (SimParams, _accept_urgent_origin,
-                                         _empty_out, _entry_latencies,
+                                         _cn_entries, _empty_out,
+                                         _entry_latencies,
                                          _precompute_draws,
+                                         _reroute_counts,
                                          _retrieval_exact,
                                          _retrieval_shared,
                                          _true_topk_by_origin, wait_time)
@@ -132,8 +144,19 @@ def _fold_max(a, lv):
     return _retire(pools, lv["ret"], lv["ret_perm"])
 
 
+def _arrivals(dn_term, levels, E, dt, dev):
+    """Per-level query arrival times down the tree: level d's from level
+    d-1's through the ``arrivals`` kernel (the forward flood)."""
+    t_qs = [torch.zeros((E, 1), dtype=dt, device=dev)]
+    for d in range(1, len(levels)):
+        lv = levels[d]
+        t_qs.append(level_arrivals(t_qs[d - 1], dn_term[:, lv["vv"]],
+                                   lv["par_pos"]))
+    return t_qs
+
+
 def _fd_sweep(scores, t_exec, up_term, dn_term, wt, tqf, lam, levels,
-              els, *, k: int, with_st1: bool):
+              els, *, k: int, with_st1: bool, death=None, rr=None):
     """Forward + merge-and-backward sweeps of one origin's tree.
 
     Per-level functional form: level d's tensors are produced from level
@@ -142,13 +165,22 @@ def _fd_sweep(scores, t_exec, up_term, dn_term, wt, tqf, lam, levels,
     the reference sweep's; k-lists are padded to K = 2^ceil(log2 k) with
     -inf tails that never surface in the top k.
 
+    Churn (``death`` given, (E, n) death times): a peer dead at its raw
+    send time ``s`` gets ``send = inf`` (its arrival can never release a
+    waiting parent) and -inf / -1 merged rows.  ``rr`` (the per-level
+    reroute tables, churn only) additionally folds each level's static
+    grandchild slots: a grandchild's list reaches its grandparent iff
+    its parent died (its own death is already in its -inf rows).
+
     Returns per-level send times, merged values (E, L, k) and owners,
-    and the Strategy-1 skip count per entry (None for FD-Basic).
+    the Strategy-1 skip count per entry (None for FD-Basic), and the
+    per-level liveness masks (None without churn).
     """
     E = t_exec.shape[0]
     dt, dev = t_exec.dtype, t_exec.device
     K = _next_pow2(k)
     dmax = len(levels) - 1
+    with_churn = death is not None
 
     skip = None
     if with_st1:
@@ -157,15 +189,12 @@ def _fd_sweep(scores, t_exec, up_term, dn_term, wt, tqf, lam, levels,
         skip = ((send_at[:, els_dst] < send_at[:, els_src])
                 & cond[None, :]).sum(dim=1)
 
-    t_qs = [torch.zeros((E, 1), dtype=dt, device=dev)]
-    for d in range(1, dmax + 1):
-        lv = levels[d]
-        t_qs.append(level_arrivals(t_qs[d - 1], dn_term[:, lv["vv"]],
-                                   lv["par_pos"]))
+    t_qs = _arrivals(dn_term, levels, E, dt, dev)
 
     send = [None] * (dmax + 1)
     m_v = [None] * (dmax + 1)
     m_o = [None] * (dmax + 1)
+    alive = [None] * (dmax + 1)
     for d in range(dmax, -1, -1):
         lv = levels[d]
         vv = lv["vv"]
@@ -182,6 +211,8 @@ def _fd_sweep(scores, t_exec, up_term, dn_term, wt, tqf, lam, levels,
         if "cnode" not in lv:                    # all leaves
             all_in = torch.zeros((E, L), dtype=dt, device=dev)
         else:
+            # a dead child's send is inf, so its parent waits until its
+            # deadline and the child is never on time: no extra mask
             a0 = send[d + 1][:, lv["c_in_next"]] + up_term[:, lv["cnode"]]
             # the parent's send time depends on all_in, a pure max over
             # ALL child arrivals
@@ -190,16 +221,29 @@ def _fd_sweep(scores, t_exec, up_term, dn_term, wt, tqf, lam, levels,
             all_in = torch.cat(
                 [am, torch.zeros((E, L - n_par), dtype=dt, device=dev)],
                 dim=1)[:, lv["asm_perm"]]
-        s = wait_propagate(own_ready, all_in, deadline)
+        if with_churn:
+            death_lv = death[:, vv]
+            s, snd = wait_propagate(own_ready, all_in, deadline,
+                                    death=death_lv)
+        else:
+            s = snd = wait_propagate(own_ready, all_in, deadline)
         if a0 is None:
             mv, mo = own_v, own_o
         else:
-            # on-time = arrived by the parent's send time
+            # on-time = arrived by the parent's (raw) send time
             ont = a0 <= s[:, lv["cpar_pos"]]
-            child_v, child_o = _fold_lists(
-                m_v[d + 1][:, lv["c_in_next"]],
-                m_o[d + 1][:, lv["c_in_next"]],
-                (lv["rounds"], lv["ret"], lv["ret_perm"]), valid=ont)
+            cv0 = m_v[d + 1][:, lv["c_in_next"]]
+            co0 = m_o[d + 1][:, lv["c_in_next"]]
+            vmask = ont
+            sched = (lv["rounds"], lv["ret"], lv["ret_perm"])
+            if rr is not None and rr[d] is not None:
+                r = rr[d]
+                cv0 = torch.cat([cv0, m_v[d + 2][:, r["gc_pos"]]], dim=1)
+                co0 = torch.cat([co0, m_o[d + 2][:, r["gc_pos"]]], dim=1)
+                vmask = torch.cat(
+                    [ont, ~alive[d + 1][:, r["gc_par_pos"]]], dim=1)
+                sched = (r["rounds"], r["ret"], r["ret_perm"])
+            child_v, child_o = _fold_lists(cv0, co0, sched, valid=vmask)
             pv, po = merge_scorelists(own_v[:, lv["par_sel"]],
                                       own_o[:, lv["par_sel"]],
                                       child_v, child_o)
@@ -207,10 +251,23 @@ def _fd_sweep(scores, t_exec, up_term, dn_term, wt, tqf, lam, levels,
                 [pv, own_v[:, lv["leaf_sel"]]], dim=1)[:, lv["asm_perm"]]
             mo = torch.cat(
                 [po, own_o[:, lv["leaf_sel"]]], dim=1)[:, lv["asm_perm"]]
-        send[d] = s
+        send[d] = snd
+        if with_churn:
+            alv = death_lv >= s
+            alive[d] = alv
+            mv = torch.where(alv[..., None], mv, NEG_INF)
+            mo = torch.where(alv[..., None], mo, -1)
         m_v[d], m_o[d] = mv, mo
     return (send, [v[:, :, :k] for v in m_v], [o[:, :, :k] for o in m_o],
-            skip)
+            skip, alive if with_churn else None)
+
+
+def _cn_sweep(t_exec, dn_term, levels):
+    """CN / CN* need only the arrival sweep: each level's execution-done
+    times ``t_q + t_exec``."""
+    t_qs = _arrivals(dn_term, levels, t_exec.shape[0], t_exec.dtype,
+                     t_exec.device)
+    return [tq + t_exec[:, lv["vv"]] for tq, lv in zip(t_qs, levels)]
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -219,74 +276,132 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _entry_rows(a: np.ndarray, es: np.ndarray, device) -> torch.Tensor:
+    """Rows ``es`` of a per-entry (E, ...) host array on ``device``; when
+    ``es`` is the whole batch (then ``es == arange(E)``) no gather."""
+    return _to_device(a if len(es) == a.shape[0] else a[es], device)
+
+
 def _conv_slice_field(f, v, device):
-    if f == "rounds":
+    if f.endswith("rounds"):
         return tuple(tuple(_to_device(x, device) for x in rnd)
                      for rnd in v)
-    if f == "ret":
+    if f.endswith("ret"):
         return tuple(None if idx is None else _to_device(idx, device)
                      for idx in v)
     return _to_device(v, device)
 
 
+_RR_FIELDS = ("rr_gc_pos", "rr_gc_par_pos", "rr_rounds", "rr_ret",
+              "rr_ret_perm")
+
+
 def _device_slices(sl: DepthSlices, device: torch.device):
-    """``sl``'s level tables and Strategy-1 edge arrays as tensors on
-    ``device``, cached on the instance per device (one upload per plan
-    and device)."""
+    """``sl``'s level tables, Strategy-1 edge arrays and (once the plan
+    carries them) reroute tables as tensors on ``device``, cached on the
+    instance per device (one upload per plan and device).
+
+    Returns ``(levels, els, rr)``; ``rr`` is None until ``sl`` has been
+    extended with reroute tables, else one dict per level (None where a
+    level has no grandchildren).  The reroute tables are cached
+    SEPARATELY from the static tables, so a plan that later serves churn
+    keeps the static sweep's tensors as they were.
+    """
     cache = sl.__dict__.setdefault("_device", {})
     key = str(device)
     if key not in cache:
         levels = tuple({f: _conv_slice_field(f, v, device)
-                        for f, v in lv.items()} for lv in sl.levels)
+                        for f, v in lv.items() if not f.startswith("rr_")}
+                       for lv in sl.levels)
         els = (_to_device(sl.els_src, device),
                _to_device(sl.els_dst, device),
                _to_device(sl.cond, device))
         cache[key] = (levels, els)
-    return cache[key]
+    rr_cache = sl.__dict__.setdefault("_device_rr", {})
+    if key not in rr_cache and sl.reroute:
+        rr_cache[key] = tuple(
+            {f[3:]: _conv_slice_field(f, lv[f], device) for f in _RR_FIELDS}
+            if "rr_rounds" in lv else None
+            for lv in sl.levels)
+    return cache[key] + (rr_cache.get(key),)
+
+
+def _slices(plan: NetworkPlan, st, device, reroute: bool, out: dict):
+    """The plan's depth slices of ``st`` on ``device``; the wall time of
+    whatever this call had to build or upload (the slices, their reroute
+    extension, either upload) is added to ``out["compile_s"]``."""
+    t0 = time.perf_counter()
+    n_slices = len(plan._slices)
+    sl = plan.depth_slices(st)
+    key = str(device)
+    fresh = (len(plan._slices) > n_slices
+             or (reroute and not sl.reroute)
+             or key not in sl.__dict__.get("_device", {})
+             or (reroute and key not in sl.__dict__.get("_device_rr", {})))
+    if reroute:
+        plan.depth_slices(st, reroute=True)
+    levels, els, rr = _device_slices(sl, device)
+    if fresh:
+        out["compile_s"] += time.perf_counter() - t0
+    return sl, levels, els, rr
 
 
 def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
                       ent_origin: np.ndarray, seeds, n: int, p: SimParams,
-                      dynamic: bool, independent: bool,
-                      device: torch.device, replicas=None) -> dict:
-    """FD without churn over a flattened (E,) entry batch on ``device``.
+                      algorithm: str, dynamic: bool, lifetime_mean_s: float,
+                      independent: bool, device: torch.device,
+                      replicas=None) -> dict:
+    """FD (with or without churn) or CN / CN* over a flattened (E,) entry
+    batch on ``device``.
 
-    The counterpart of the reference's ``run_entries_jax`` for
-    ``algorithm="fd"`` and an infinite lifetime: the same per-entry
-    output dict (metric arrays, the origin's merged ``values`` /
-    ``owners``), plus ``compile_s`` — the wall time of the depth-slice
-    compiles and uploads this call had to do (0.0 on a warm plan).
+    The counterpart of the reference's ``run_entries_jax`` in f64: the
+    same per-entry output dict (metric arrays, the origin's merged
+    ``values`` / ``owners``), plus ``compile_s`` — the wall time of the
+    depth-slice compiles, reroute extensions and uploads this call had
+    to do (0.0 on a warm plan).
     """
+    churn = not math.isinf(lifetime_mean_s)
     E = len(seeds)
     S = len(sts)
     k = p.k
     list_bytes = k * ENTRY_BYTES_PAPER
     ent_of_st = [np.flatnonzero(ent_st == s) for s in range(S)]
     par_lat, origin_lat = _entry_latencies(sts, ent_st, p)
-    draws = _precompute_draws(ent_origin, seeds, n, p, "fd",
-                              sts[0].fw_strategy, math.inf, independent,
-                              par_lat, origin_lat)
+    draws = _precompute_draws(ent_origin, seeds, n, p, algorithm,
+                              sts[0].fw_strategy, lifetime_mean_s,
+                              independent, par_lat, origin_lat)
     out = _empty_out(E, k)
     out["compile_s"] = 0.0
 
+    # ---- CN / CN*: arrival sweep on the device, baseline math shared ----
+    if algorithm in ("cn", "cn_star"):
+        out["m_fw"][:] = np.array([st.m_basic for st in sts],
+                                  np.int64)[ent_st]
+        t_ex_done = np.full((E, n), np.inf)
+        for si, st in enumerate(sts):
+            es = ent_of_st[si]
+            sl, levels, _, _ = _slices(plan, st, device, False, out)
+            ted = _cn_sweep(_entry_rows(draws.t_exec, es, device),
+                            _entry_rows(draws.dn_term, es, device), levels)
+            for d, lv in enumerate(sl.levels):
+                t_ex_done[np.ix_(es, lv["vv"])] = ted[d].cpu().numpy()
+        _cn_entries(out, draws, sts, ent_st, ent_origin, t_ex_done, p,
+                    algorithm)
+        return out
+
+    # ---- FD: forward + merge sweeps per origin --------------------------
+    with_reroute = churn and dynamic
     send_t = np.full((E, n), np.inf)
     mvals = np.empty((E, n, k))
     mown = np.full((E, n, k), -1, np.int32)
+    valid = np.zeros((E, n), bool) if churn else None
     for si, st in enumerate(sts):
         es = ent_of_st[si]
-        full = len(es) == E          # then es == arange(E): no gather
 
         def _take(a):
-            return _to_device(a if full else a[es], device)
+            return _entry_rows(a, es, device)
 
-        t0 = time.perf_counter()
-        n_slices = len(plan._slices)
-        sl = plan.depth_slices(st)
-        fresh = (len(plan._slices) > n_slices
-                 or str(device) not in sl.__dict__.get("_device", {}))
-        levels, els = _device_slices(sl, device)
-        if fresh:
-            out["compile_s"] += time.perf_counter() - t0
+        sl, levels, els, rr = _slices(plan, st, device, with_reroute, out)
         with_st1 = st.fw_strategy != "basic"
         tqf = lam = None
         if with_st1:
@@ -294,24 +409,36 @@ def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
                                       st.depth * p.t_qsnd_s, np.inf),
                              device)
             lam = _take(draws.lam)
-        send_d, mv_d, mo_d, skip = _fd_sweep(
+        send_d, mv_d, mo_d, skip, alive_d = _fd_sweep(
             _take(draws.scores), _take(draws.t_exec),
             _take(draws.up_term), _take(draws.dn_term),
             _to_device(wait_time(st.ttl_rem, p), device), tqf, lam,
-            levels, els, k=k, with_st1=with_st1)
+            levels, els, k=k, with_st1=with_st1,
+            death=_take(draws.death) if churn else None,
+            rr=rr if with_reroute else None)
         for d, lv in enumerate(sl.levels):
             rows = np.ix_(es, lv["vv"])
             send_t[rows] = send_d[d].cpu().numpy()
             mvals[rows] = mv_d[d].cpu().numpy()
             mown[rows] = mo_d[d].cpu().numpy()
+            if churn:
+                valid[rows] = alive_d[d].cpu().numpy()
         out["m_fw"][es] = (st.fw_static + sl.n_els
                            - skip.cpu().numpy().astype(np.int64)
                            if with_st1 else st.m_basic)
 
-    # without churn every reached peer but the origin sends its list once
-    n_reached_arr = np.array([len(st.idx) for st in sts], np.int64)
-    out["m_bw"] += n_reached_arr[ent_st] - 1
-    out["b_bw"] += (n_reached_arr[ent_st] - 1) * list_bytes
+    # every reached peer that is still alive at its send time sends its
+    # list exactly once (without churn that is everyone but the origin)
+    if churn:
+        for si, st in enumerate(sts):
+            es = ent_of_st[si]
+            n_alive = valid[np.ix_(es, st.idx)].sum(axis=1)
+            out["m_bw"][es] += n_alive - 1        # origin never dies
+            out["b_bw"][es] += (n_alive - 1) * list_bytes
+    else:
+        n_reached_arr = np.array([len(st.idx) for st in sts], np.int64)
+        out["m_bw"] += n_reached_arr[ent_st] - 1
+        out["b_bw"] += (n_reached_arr[ent_st] - 1) * list_bytes
 
     # ---- urgent lists (§4.1): late-arrival post-pass --------------------
     urgent: list = [[] for _ in range(E)]
@@ -325,6 +452,10 @@ def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
             pr = st.parent[ch]
             a = send_t[np.ix_(es, ch)] + draws.up_term[np.ix_(es, ch)]
             late = a > send_t[np.ix_(es, pr)]
+            if churn:
+                # a dead child never went urgent; a dead parent's
+                # children reroute (counted below) instead
+                late &= valid[np.ix_(es, ch)] & valid[np.ix_(es, pr)]
             if not late.any():
                 continue
             d_par = st.depth[pr]
@@ -336,10 +467,18 @@ def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
             out["b_bw"][es] += (late
                                 * (d_par[None, :] * list_bytes)).sum(axis=1)
 
+    # ---- §4.2 reroute accounting: one message per accepted list ---------
+    if with_reroute:
+        for si, st in enumerate(sts):
+            es = ent_of_st[si]
+            cnt = _reroute_counts(st, valid[es])
+            out["m_bw"][es] += cnt
+            out["b_bw"][es] += cnt * list_bytes
+
     top_true_all = _true_topk_by_origin(draws.scores, sts, ent_of_st, k)
     t_merge_done = send_t[np.arange(E), ent_origin] + p.merge_s
     _accept_urgent_origin(urgent, ent_origin, t_merge_done, mvals, mown,
-                          None, k)
+                          valid, k)
     ar = np.arange(E)
     out["values"] = mvals[ar, ent_origin]
     out["owners"] = mown[ar, ent_origin].astype(np.int64)

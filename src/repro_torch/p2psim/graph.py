@@ -1,7 +1,7 @@
 """Overlay topologies: the BA generator and the CSR / BFS helpers.
 
 A copy of the pieces of the reference package's ``p2psim.graph`` that
-the static FD path reads: :class:`Topology`, the Barabási–Albert
+the overlay sweeps read: :class:`Topology`, the Barabási–Albert
 generator (BRITE "BA", the same construction and RNG stream, so a seed
 gives the same overlay in both packages), the CSR view and the
 vectorized first-touch BFS.

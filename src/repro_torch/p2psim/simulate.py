@@ -1,20 +1,23 @@
-"""Host side of the static FD sweep: parameters, draws, per-origin
+"""Host side of the overlay sweeps: parameters, draws, per-origin
 statics and the shared epilogue.
 
 A copy of the pieces of the reference package's ``p2psim.simulate``
-that the static FD path reads, kept verbatim so the two packages share
-one RNG-draw contract: every stochastic input of a query is drawn here
-in numpy, in the scalar reference's exact order (``_precompute_draws``),
-so the port's device sweep and the reference's sweeps see the same bits
-and parity is a statement about sweep math alone.
+that the FD, churn and CN / CN* paths read, kept verbatim so the two
+packages share one RNG-draw contract: every stochastic input of a query
+is drawn here in numpy, in the scalar reference's exact order
+(``_precompute_draws``), so the port's device sweep and the reference's
+sweeps see the same bits and parity is a statement about sweep math
+alone.
 
   * ``SimParams`` (Table 1 of the paper) and the Appendix-A wait budget;
   * the link, score and churn draws (``EntryDraws``);
   * ``_OriginStatic`` — one origin's BFS tree, levels, child CSR and
     forward-phase edge masks;
   * the epilogue the sweep hands over to: urgent-list acceptance at
-    the origin (§4.1), ground-truth top-k, and the retrieval phase with
-    optional replica placement.
+    the origin (§4.1), the §4.2 reroute message count, ground-truth
+    top-k, and the retrieval phase with optional replica placement;
+  * the CN / CN* baselines given the sweep's arrival times
+    (``_cn_entries``).
 """
 from __future__ import annotations
 
@@ -539,6 +542,67 @@ def _empty_out(E: int, k: Optional[int] = None) -> dict:
     return out
 
 
+def _accuracy(scores, idx, delivered, k) -> float:
+    true_scores = scores[idx].reshape(-1)
+    top_true = np.sort(true_scores)[::-1][:k]
+    deliv_idx = idx[delivered[idx]]
+    if len(deliv_idx) == 0:
+        return 0.0
+    got = np.sort(scores[deliv_idx].reshape(-1))[::-1][:k]
+    return float(np.intersect1d(top_true, got).size) / k
+
+
+def _cn_entries(out: dict, draws: EntryDraws, sts, ent_st: np.ndarray,
+                ent_origin: np.ndarray, t_ex_done: np.ndarray,
+                p: SimParams, algorithm: str) -> None:
+    """CN / CN* baselines given arrival times (backend-shared)."""
+    E = len(ent_st)
+    k = p.k
+    n = t_ex_done.shape[1]
+    list_bytes = k * ENTRY_BYTES_PAPER
+    scores, death = draws.scores, draws.death
+    item_sizes, lat_o = draws.item_sizes, draws.lat_o
+    for e in range(E):
+        idx = sts[ent_st[e]].idx
+        origin = int(ent_origin[e])
+        per_peer = (item_sizes[e][:, :k].sum(1) if algorithm == "cn"
+                    else np.full(n, float(list_bytes)))
+        alive = death[e] > t_ex_done[e]
+        senders = idx[alive[idx]]
+        senders = senders[senders != origin]
+        out["m_bw"][e] = len(senders)
+        out["b_bw"][e] = int(per_peer[senders].sum())
+        own_bw = max(p.bw_mean_Bps, 1.0)
+        t_arrive = t_ex_done[e][senders] + lat_o[e][senders]
+        t_resp = (np.max(t_arrive) if len(senders) else 0.0) \
+            + per_peer[senders].sum() / own_bw
+        if algorithm == "cn_star":
+            true_full = np.full((n, k), -np.inf)
+            true_full[idx] = scores[e][idx]
+            flat = true_full.reshape(-1)
+            top_idx = np.argpartition(flat, -k)[-k:]
+            owners = np.unique(top_idx // k)
+            out["m_rt"][e] = 2 * len(owners)
+            out["b_rt"][e] = int(
+                out["m_rt"][e] / 2 * p.request_B
+                + item_sizes[e].reshape(-1)[top_idx].sum())
+            t_resp += 2 * p.latency_mean_s + out["b_rt"][e] / own_bw
+        out["response_time_s"][e] = float(t_resp)
+        delivered = np.zeros(n, bool)
+        delivered[senders] = True
+        delivered[origin] = True
+        out["accuracy"][e] = _accuracy(scores[e], idx, delivered, k)
+        if "values" in out:
+            # the origin's collected k-list: top-k over every delivered
+            # peer's items (the origin always delivers to itself)
+            didx = idx[delivered[idx]]
+            sc = scores[e][didx].reshape(-1)
+            top = np.argpartition(sc, -k)[-k:]
+            top = top[np.argsort(sc[top])[::-1]]
+            out["values"][e] = sc[top]
+            out["owners"][e] = didx[top // k]
+
+
 def _true_topk_by_origin(scores: np.ndarray, sts, ent_of_st,
                          k: int) -> np.ndarray:
     """(E, k) true top-k of each entry's reach set, grouped by origin."""
@@ -550,6 +614,24 @@ def _true_topk_by_origin(scores: np.ndarray, sts, ent_of_st,
         part = np.partition(block, -k, axis=1)[:, -k:]
         top_true_all[es] = np.sort(part, axis=1)[:, ::-1]
     return top_true_all
+
+
+def _reroute_counts(st, valid_rows: np.ndarray) -> np.ndarray:
+    """Per-entry count of §4.2 dead-parent reroutes (backend-shared).
+
+    A reroute message is sent per grandchild ``cc`` whose parent died
+    before its send time while both ``cc`` and the grandparent survive
+    — exactly the lists the numpy sweep re-merges and the jax sweep's
+    masked reroute fold accepts.  ``valid_rows``: (entries, n) liveness
+    (True = alive at its send time) for this origin's entries.
+    """
+    ch = st.kid_sorted
+    pr = st.parent[ch]
+    has_gp = st.parent[pr] >= 0
+    cc, pp = ch[has_gp], pr[has_gp]
+    gp = st.parent[pp]
+    return (valid_rows[:, cc] & ~valid_rows[:, pp]
+            & valid_rows[:, gp]).sum(axis=1)
 
 
 def _accept_urgent_origin(urgent, ent_origin: np.ndarray,

@@ -141,10 +141,10 @@ def test_random_overlays_match_reference_bits(n, m, seed, pol, rng):
 
 
 @pytest.mark.parametrize("policy,spec", [
-    ("cn", QuerySpec()),
-    ("cn-star", QuerySpec()),
+    (get_policy("fd-stats").variant(lifetime_mean_s=30.0), QuerySpec()),
+    ("cn", QuerySpec(precision="f32")),
     ("fd-stats", QuerySpec()),
-    (get_policy("fd-dynamic").variant(lifetime_mean_s=30.0), QuerySpec()),
+    ("cn-star", QuerySpec(latency_model="edge")),
     ("fd-dynamic", QuerySpec(latency_model="edge")),
     ("fd-dynamic", QuerySpec(precision="f32")),
     ("fd-basic", QuerySpec(precision="bf16")),

@@ -127,3 +127,45 @@ def test_replica_table_and_index_dtype_guards_match_reference():
         resolve_index_dtype(2**31, 10, "int32")
     with pytest.raises(ValueError, match="index_dtype"):
         NetworkPlan(TOP, index_dtype="int16")
+
+
+@pytest.mark.parametrize("strategy", ["basic", "st1+2"])
+def test_reroute_tables_match_reference(strategy):
+    """``depth_slices(st, reroute=True)`` gives the reference's §4.2
+    reroute tables, whether built with the slices or extended onto a
+    cached instance whose static device tensors were uploaded already —
+    those stay as they were, and the reroute tables upload apart."""
+    import torch
+    from repro_torch.engine.sim_torch import _device_slices
+    ref = RefPlan(REF_TOP)
+    built, extended = NetworkPlan(TOP), NetworkPlan(TOP)
+    cpu = torch.device("cpu")
+    for o in ORIGINS:
+        st_r = ref.origin_statics(np.asarray([o]), 0, strategy)[0][0]
+        sl_r = ref.depth_slices(st_r, reroute=True)
+        st_b = built.origin_statics(np.asarray([o]), 0, strategy)[0][0]
+        st_e = extended.origin_statics(np.asarray([o]), 0, strategy)[0][0]
+        sl_e = extended.depth_slices(st_e)
+        levels, els, rr = _device_slices(sl_e, cpu)
+        assert rr is None and not sl_e.reroute
+        assert extended.depth_slices(st_e, reroute=True) is sl_e
+        for sl_p in (built.depth_slices(st_b, reroute=True), sl_e):
+            assert sl_p.reroute and sl_r.reroute
+            for d, (lv_p, lv_r) in enumerate(zip(sl_p.levels,
+                                                 sl_r.levels)):
+                assert sorted(lv_p) == sorted(lv_r), (o, d)
+                for f in lv_r:
+                    _eq(lv_p[f], lv_r[f], f"origin {o}: level {d} {f}")
+        again = _device_slices(sl_e, cpu)
+        assert again[0] is levels and again[1] is els
+        assert not any(f.startswith("rr_") for lv in levels for f in lv)
+        rr = again[2]
+        assert len(rr) == sl_e.dmax + 1
+        for d, r in enumerate(rr):
+            if "rr_rounds" not in sl_e.levels[d]:
+                assert r is None, (o, d)
+                continue
+            np.testing.assert_array_equal(
+                r["gc_pos"].numpy(), sl_e.levels[d]["rr_gc_pos"])
+            assert len(r["rounds"]) == len(sl_e.levels[d]["rr_rounds"])
+    assert extended.cache_info() == built.cache_info() == ref.cache_info()

@@ -14,7 +14,7 @@ import pytest
 import repro.engine as ref_engine
 from repro.p2psim import SimParams as RefParams
 from repro.p2psim import barabasi_albert as ref_ba
-from repro_torch.engine import QueryServer, QuerySpec, SimEngine
+from repro_torch.engine import QueryServer, QuerySpec, SimEngine, get_policy
 from repro_torch.p2psim import SimParams, topology_from_arrays
 
 REF_TOP = ref_ba(220, m=2, seed=7)
@@ -97,8 +97,57 @@ def test_engine_failure_is_counted_not_hidden():
     """An unported policy fails its request: the handle raises and the
     server's ``failed`` counter says so."""
     with QueryServer(SimEngine(TOP, PA, device="cpu")) as server:
-        h = server.submit(QuerySpec(origins=(0,)), "cn")
+        h = server.submit(QuerySpec(origins=(0,)), "fd-stats")
         with pytest.raises(NotImplementedError):
             h.result(timeout=60)
         m = server.metrics()
     assert m.failed == 1 and m.served == 0
+
+
+@pytest.mark.parametrize("lifetime", [float("inf"), 60.0])
+def test_run_many_mixed_fd_dynamic_and_cn_group_separately(lifetime):
+    """Mirrors tests/test_serving.py's mixed-policy batch: fd-dynamic
+    and cn requests fuse per policy, bit-exact with sequential ``run``
+    and with the reference package, with and without churn."""
+    engine = SimEngine(TOP, PA, device="cpu")
+    ref = ref_engine.SimEngine(REF_TOP, REF_PA)
+    specs = [QuerySpec(origins=(o,), seed=s)
+             for s, o in enumerate((0, 7, 42, 3, 12, 9))]
+    names = ["fd-dynamic", "cn"] * 3
+    pols = [get_policy(n).variant(lifetime_mean_s=lifetime) for n in names]
+    fused = engine.run_many(specs, pols)
+    for i, (f, spec, pol) in enumerate(zip(fused, specs, pols)):
+        _same_bits(f, engine.run(spec, pol), f"request {i}")
+        rs = ref_engine.QuerySpec(**{fl.name: getattr(spec, fl.name)
+                                     for fl in dataclasses.fields(spec)})
+        rp = ref_engine.get_policy(names[i]).variant(
+            lifetime_mean_s=lifetime)
+        _same_bits(f, ref.run(rs, rp), f"request {i} vs reference")
+        assert f.policy == names[i] and f.batch_size == 3
+
+
+def test_warmed_server_serves_churn_and_baselines():
+    """A server warmed per policy serves churned fd-dynamic (reroute),
+    fd-basic, cn and cn-star requests from several clients with no
+    compile and no failure, each with ``run``'s bits."""
+    engine = SimEngine(TOP, PA, device="cpu")
+    pols = [get_policy(n).variant(lifetime_mean_s=60.0)
+            for n in ("fd-dynamic", "fd-basic", "cn", "cn-star")]
+    server = QueryServer(engine)
+    for pol in pols:
+        for o in (0, 1):
+            server.warm(QuerySpec(origins=(o,), rng="independent"), pol,
+                        batch_sizes=(1, 4))
+    reqs = [(QuerySpec(origins=(i % 2,), seed=70 + i, rng="independent"),
+             pols[i % len(pols)]) for i in range(12)]
+    handles = [server.submit(s, p) for s, p in reqs]
+    server.start()
+    results = [h.result(timeout=60) for h in handles]
+    server.stop()
+    m = server.metrics()
+    assert m.served == m.submitted == len(reqs) and m.failed == 0
+    assert max(r.batch_size for r in results) > 1
+    for i, (r, (spec, pol)) in enumerate(zip(results, reqs)):
+        assert r.compile_s == 0, (i, r.batch_size, r.compile_s)
+        assert r.backend_used == "sim-torch"
+        _same_bits(r, engine.run(spec, pol), f"request {i}")

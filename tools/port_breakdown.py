@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where one fused request of the port's main path spends its time.
 
-    python3 tools/port_breakdown.py [--entries 32] [--out FILE]
+    python3 tools/port_breakdown.py [--entries 32] [--lifetime S]
+                                    [--out FILE]
 
 Runs the port's ``SimEngine`` on a CUDA device over the 100,000-peer
 Barabási–Albert overlay of ``chip_smoke.py`` (m=2, seed 7,
 ``SimParams(seed=5)``), one ``fd-dynamic`` spec of ``--entries``
 independent-stream entries at origin 0 (the fused batch of 32 that
-``QueryServer.warm(batch_sizes=(1, 32))`` makes), and reports:
+``QueryServer.warm(batch_sizes=(1, 32))`` makes), without churn or, with
+``--lifetime``, under churn of that mean peer lifetime in seconds (the
+§4.2 reroute fold included), and reports:
 
   * the wall time of ``engine.run`` on a warm engine (median of 3);
   * the same request cut into its phases, each timed alone with the
@@ -49,6 +52,7 @@ def _wall(fn, reps=3):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--entries", type=int, default=32)
+    ap.add_argument("--lifetime", type=float, default=math.inf)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import numpy as np
@@ -56,7 +60,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("port_breakdown: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.engine import QuerySpec, SimEngine
+    from repro_torch.engine import QuerySpec, SimEngine, get_policy
     from repro_torch.engine.sim_torch import (_device_slices, _fd_sweep,
                                               _to_device)
     from repro_torch.p2psim import SimParams, barabasi_albert
@@ -68,41 +72,47 @@ def main() -> int:
         timeout=60, check=True).stdout.strip()
     dev = torch.device("cuda")
     E = args.entries
+    churn = not math.isinf(args.lifetime)
+    pol = get_policy("fd-dynamic").variant(lifetime_mean_s=args.lifetime)
     p = SimParams(seed=5)
     engine = SimEngine(barabasi_albert(100_000, m=2, seed=7), p)
     spec = QuerySpec(origins=(0,) * E, rng="independent")
-    engine.run(spec, "fd-dynamic")                 # build + warm
-    run_s = _wall(lambda: engine.run(spec, "fd-dynamic"))
+    engine.run(spec, pol)                          # build + warm
+    run_s = _wall(lambda: engine.run(spec, pol))
 
     sts, _ = engine.plan.origin_statics(np.zeros(1, np.int64), p.ttl,
                                         "st1+2")
     st = sts[0]
-    sl = engine.plan.depth_slices(st)
-    levels, els = _device_slices(sl, dev)
+    sl = engine.plan.depth_slices(st, reroute=churn)
+    levels, els, rr = _device_slices(sl, dev)
     seeds = p.seed + np.arange(E, dtype=np.int64)
     origin = np.zeros(E, np.int64)
     n = engine.plan.top.n
 
     def draw():
         return _precompute_draws(origin, seeds, n, p, "fd", "st1+2",
-                                 math.inf, True)
+                                 args.lifetime, True)
 
     draws_s = _wall(draw)
     dr = draw()
     host = (dr.scores, dr.t_exec, dr.up_term, dr.dn_term, dr.lam)
+    if churn:
+        host += (dr.death,)
 
     def upload():
         return [_to_device(a, dev) for a in host]
 
     upload_s = _wall(upload)
-    scores, t_exec, up, dn, lam = upload()
+    scores, t_exec, up, dn, lam, *death = upload()
     wt = _to_device(wait_time(st.ttl_rem, p), dev)
     tqf = _to_device(np.where(st.depth >= 0, st.depth * p.t_qsnd_s,
                               np.inf), dev)
 
     def sweep():
         return _fd_sweep(scores, t_exec, up, dn, wt, tqf, lam, levels, els,
-                         k=p.k, with_st1=True)
+                         k=p.k, with_st1=True,
+                         death=death[0] if churn else None,
+                         rr=rr if churn else None)
 
     sweep_s = _wall(sweep)
     out = sweep()
@@ -112,6 +122,8 @@ def main() -> int:
             out[0][d].cpu().numpy()
             out[1][d].cpu().numpy()
             out[2][d].cpu().numpy()
+            if churn:
+                out[4][d].cpu().numpy()
 
     download_s = _wall(download)
 
@@ -121,7 +133,7 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.run(spec, "fd-dynamic")
+        engine.run(spec, pol)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     # device-side events only (kernels and copies): a host op's device
@@ -139,7 +151,9 @@ def main() -> int:
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"]))
     res = {
         "card": card, "n_peers": n, "entries": E, "k": p.k,
-        "policy": "fd-dynamic", "run_s": run_s,
+        "policy": "fd-dynamic",
+        "lifetime_mean_s": args.lifetime if churn else None,
+        "run_s": run_s,
         "phases_s": {"draws": draws_s, "upload": upload_s,
                      "sweep": sweep_s, "download": download_s,
                      "epilogue_and_rest": run_s - draws_s - upload_s
