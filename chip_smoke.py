@@ -17,9 +17,16 @@ result line) when any phase fails:
      scores, and for the top-k the inputs that break selections by
      counting (ties at the k-th key across tiles, one repeated value,
      rows of the tile width and one off, n == k, specials at the
-     threshold, all -inf), and for the wait kernel's churn variant
-     deaths exactly at the send time, infinite deaths and all-dead rows
-     (tolerance: exact — equal bits of values and owners);
+     threshold, all -inf), for the arrivals kernel the library's
+     launch plan equal to the wrapper's (``arrivals_plan``) and refusal
+     of any other, both its ways (gathered, staged) at the path's level
+     shapes and the plan's edges (one row, one column, one parent, odd
+     widths, dn off 16-byte alignment, 70,000 rows, int64 positions,
+     repeated parents) with signed zeros, infinities and NaNs in
+     tq_prev and dn, and for the wait kernel's churn variant deaths
+     exactly at the send time, infinite deaths and all-dead rows
+     (tolerance: exact — equal bits of values and owners; the
+     arrivals write into outputs filled with NaN);
   3. serve 32 independent-stream ``fd-dynamic`` requests from 8 client
      threads plus one ``fd-basic``, ``fd-st1`` and ``fd-st1+2`` request
      on a 100,000-peer Barabási–Albert overlay (the reference package's
@@ -51,7 +58,10 @@ result line) when any phase fails:
      library call where one computes the same function, and its bound
      (bytes over the card's memory rate); ``device_ms`` is the kernel's
      own device time per timed call from one ``torch.profiler`` window
-     (``library_device_ms`` the library call's), free of host gaps.
+     (``library_device_ms`` the library call's), free of host gaps; the
+     arrivals bound counts the distinct parents each row reads (beside
+     it, ``bound_ms_whole_parent_level`` counts all of tq_prev), and its
+     row lists each level's device time beside its bounds (``levels``).
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -146,6 +156,30 @@ def _device_ms(fn, match=None, reps=10):
         us += getattr(ev, "self_device_time_total",
                       getattr(ev, "self_cuda_time_total", 0))
     return us / 1e3 / reps if us > 0 else None
+
+
+def _device_ms_each(fn, n_launch, match, reps=10):
+    """Device milliseconds of each of the ``n_launch`` kernels (names
+    holding ``match``) that one call of ``fn`` launches, in launch order,
+    each the mean over ``reps`` calls in one ``torch.profiler`` window.
+    None when the profiler did not see ``n_launch * reps`` such kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ks = sorted((ev.time_range.start, ev.time_range.elapsed_us())
+                for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA and match in ev.name)
+    if len(ks) != n_launch * reps:
+        return None
+    return [statistics.fmean(us for _, us in ks[i::n_launch]) / 1e3
+            for i in range(n_launch)]
 
 
 _BITS = {2: "int16", 4: "int32", 8: "int64"}
@@ -380,27 +414,146 @@ def _check_topk(gen, dev, errs):
     return n_checks
 
 
+def _arrivals_cases(levels, gen, dev):
+    """(name, E, L_prev, par_pos) of phase 2's arrivals checks: the
+    path's level shapes, then the plan's edges: one entry row, one
+    column, one parent, an odd row count, an odd width (rows that start
+    off the 16-byte boundaries), rows past the grid's y extent (on z),
+    int64 positions, repeated parents."""
+    import torch
+    cases = []
+    for d in range(1, len(levels)):
+        cases.append((f"level {d}", E_MAIN, levels[d - 1]["vv"].shape[0],
+                      levels[d]["par_pos"]))
+    big = max(range(1, len(levels)), key=lambda d: len(levels[d]["vv"]))
+    big_pp, big_lp = levels[big]["par_pos"], levels[big - 1]["vv"].shape[0]
+
+    def rand_pos(L, Lp):
+        return torch.randint(0, Lp, (L,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    cases += [
+        ("E=1", 1, big_lp, big_pp),
+        ("L=1", E_MAIN, 7, rand_pos(1, 7)),
+        ("L_prev=1", E_MAIN, 1, rand_pos(1000, 1)),
+        ("E=37", 37, big_lp, big_pp),
+        ("E=13, L=1001", 13, 333, rand_pos(1001, 333)),
+        ("E=70,000 (rows on z)", 70_000, 5, rand_pos(3, 5)),
+        ("int64 positions", E_MAIN, big_lp, big_pp.long()),
+        ("repeated parents", E_MAIN, 5000, rand_pos(20_000, 3) * 1777),
+    ]
+    return cases
+
+
+def _check_arrivals_plan(dev):
+    """The library plans as the wrapper does (``arrivals_plan``) at the
+    path's level shapes, the edges and shapes whose offsets need 64
+    bits, for every element size, alignment and staging request, and
+    its launcher refuses any other plan."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sweep.sweep import (_ARRIVALS_ARGTYPES,
+                                                 arrivals_plan)
+    LL, I = ctypes.c_longlong, ctypes.c_int
+    plan_fn = _build.function("sweep", "repro_arrivals_plan",
+                              [LL, LL, LL, I, I, I, ctypes.c_void_p])
+    buf = (LL * 9)()
+    shapes = [(32, 308, 1), (32, 3837, 308), (32, 24120, 3837),
+              (32, 51529, 24120), (32, 19690, 51529), (32, 515, 19690),
+              (1, 51529, 24120), (32, 1, 7), (32, 1000, 1),
+              (37, 51529, 24120), (13, 1001, 333), (70_000, 3, 5),
+              (200, 40_000, 20_000), (32, 2 ** 26, 1000),
+              (1, 2 ** 31 - 2 ** 17, 9), (1, 2 ** 31 - 2 ** 17 - 1, 9),
+              (65_535, 1, 1), (65_536, 1, 1), (65_535 ** 2, 1, 1),
+              (65_535 ** 2 + 1, 1, 1)]
+    n = 0
+    for E, L, Lp in shapes:
+        for size in (8, 4, 2):
+            for aligned in (True, False):
+                for staged, flag in ((None, -1), (False, 0), (True, 1)):
+                    try:
+                        want = tuple(int(x) for x in arrivals_plan(
+                            E, L, Lp, size, aligned=aligned, staged=staged))
+                    except ValueError:
+                        want = None
+                    code = plan_fn(E, L, Lp, size, int(aligned), flag,
+                                   ctypes.cast(buf, ctypes.c_void_p))
+                    got = None if code else tuple(buf)
+                    _require(got == want, f"arrivals plan E={E} L={L} "
+                             f"Lp={Lp} itemsize={size} aligned={aligned} "
+                             f"staged={staged}: library {got}, wrapper "
+                             f"{want}")
+                    n += 1
+    # the launcher refuses a plan other than its own
+    fn = _build.function("sweep", "repro_arrivals_f64_i32",
+                         _ARRIVALS_ARGTYPES)
+    tq = torch.zeros((E_MAIN, 100), dtype=torch.float64, device=dev)
+    dn = torch.zeros((E_MAIN, 24120), dtype=torch.float64, device=dev)
+    pp = torch.zeros(24120, dtype=torch.int32, device=dev)
+    out = torch.empty_like(dn)
+    p = arrivals_plan(E_MAIN, 24120, 100, 8)
+    _require(p.staged and p.vec == 2, f"arrivals plan of a large dense "
+             f"level: {p}")
+    for what, vec, staged, wide in (("vector width", 1, 1, 0),
+                                    ("gather", 2, 0, 0),
+                                    ("staging flag", 2, -1, 0),
+                                    ("offset width", 2, 1, 1)):
+        code = fn(tq.data_ptr(), dn.data_ptr(), pp.data_ptr(),
+                  out.data_ptr(), E_MAIN, 24120, 100, vec, staged, wide,
+                  torch.cuda.current_stream().cuda_stream)
+        _require(code != 0, f"arrivals launcher took another {what}")
+        n += 1
+    return n
+
+
+def _check_arrivals(levels, gen, dev, errs):
+    """The arrivals kernel, gathering and (where the parent level fits)
+    staging, bit-equal to ``arrivals_ref`` in f64, f32 and bf16 at the
+    path's level shapes and the plan's edges, with 2% signed zeros,
+    infinities and NaNs in tq_prev and dn, also with dn not 16-byte
+    aligned (a staged slot of one column)."""
+    import torch
+    from repro_torch.kernels.sweep import arrivals_ref
+    from repro_torch.kernels.sweep.sweep import SMEM_MAX, _arrivals
+    n = _check_arrivals_plan(dev)
+    cases = _arrivals_cases(levels, gen, dev)
+    for dt in (torch.float64, torch.float32, torch.bfloat16):
+        size = torch.empty((), dtype=dt).element_size()
+        for what, E, Lp, pp in cases:
+            L = pp.shape[0]
+            tq = _with_specials(torch.rand(
+                (E, Lp), generator=gen, device=dev,
+                dtype=torch.float64).to(dt), gen, 0.02)
+            flat = torch.empty(E * L + 1, dtype=dt, device=dev)
+            for offset in (0, 1):        # 1: dn not 16-byte aligned
+                dn = flat[offset:offset + E * L].view(E, L)
+                dn.copy_(_with_specials(torch.rand(
+                    (E, L), generator=gen, device=dev,
+                    dtype=torch.float64).to(dt), gen, 0.02))
+                ref = arrivals_ref(tq, dn, pp)
+                for staged in (False, True):
+                    if staged and Lp * size > SMEM_MAX:
+                        continue
+                    # into NaNs: a skipped element shows
+                    got = _arrivals(tq, dn, pp, staged, out=torch.full_like(
+                        dn, float("nan")))
+                    errs["arrivals"] = max(errs["arrivals"],
+                                           _max_abs_err(got, ref))
+                    _require(_same(got, ref), f"arrivals {what} {dt} dn "
+                             f"offset {offset} staged={staged}: kernel != "
+                             "plain")
+                    n += 1
+    return n
+
+
 def _check_sweep(levels, gen, dev, errs):
     import torch
-    from repro_torch.kernels.sweep import (arrivals_cuda, arrivals_ref,
-                                           wait_cuda, wait_ref)
-    n = 0
+    from repro_torch.kernels.sweep import wait_cuda, wait_ref
+    n = _check_arrivals(levels, gen, dev, errs)
     for dt in (torch.float64, torch.float32, torch.bfloat16):
         for d, lv in enumerate(levels):
             L = lv["vv"].shape[0]
-            if d > 0:
-                Lp = levels[d - 1]["vv"].shape[0]
-                tq = torch.rand((E_MAIN, Lp), generator=gen, device=dev,
-                                dtype=torch.float64).to(dt)
-                dn = torch.rand((E_MAIN, L), generator=gen, device=dev,
-                                dtype=torch.float64).to(dt)
-                a1 = arrivals_cuda(tq, dn, lv["par_pos"])
-                a2 = arrivals_ref(tq, dn, lv["par_pos"])
-                errs["arrivals"] = max(errs["arrivals"],
-                                       _max_abs_err(a1, a2))
-                _require(_same(a1, a2),
-                         f"arrivals level {d} {dt}: kernel != plain")
-                n += 1
             own, all_in, dl, death = (
                 torch.rand((E_MAIN, L), generator=gen, device=dev,
                            dtype=torch.float64).to(dt) for _ in range(4))
@@ -833,6 +986,15 @@ def _nbytes(t):
     return t.numel() * t.element_size()
 
 
+def _arrivals_bytes(tq, dn, pp, whole=False):
+    """Bytes one arrivals launch must move: the distinct parents each
+    row reads (all of tq_prev when ``whole``, the formula before this
+    count), dn read, out written and par_pos."""
+    parents = (_nbytes(tq) if whole else int(pp.unique().numel())
+               * tq.shape[0] * tq.element_size())
+    return parents + 2 * _nbytes(dn) + _nbytes(pp)
+
+
 def _merge_row(name, merge, errs, note):
     """The merge's timing entry at the list pairs ``merge``, held to its
     plain version there first."""
@@ -882,7 +1044,7 @@ def _times(levels, rr, dev, gen, errs, launches):
                               _merge_calls(rr_pairs, dev, gen), errs,
                               churn_note))
     nb = _nbytes
-    a_bytes = sum(nb(tq) + 2 * nb(dn) + nb(pp) for tq, dn, pp in arr)
+    a_bytes = sum(_arrivals_bytes(*c) for c in arr)
     out.append(("arrivals", "src/repro_torch/kernels/csrc/sweep.cu",
                 "src/repro/kernels/sweep/sweep.py:53", len(arr), a_bytes,
                 sum(dn.numel() for _, dn, _ in arr),
@@ -939,6 +1101,22 @@ def _times(levels, rr, dev, gen, errs, launches):
             "library_device_ms": None if lib is None else _device_ms(lib),
             "calls_per_sweep": calls, "bytes_per_sweep": nbytes,
             "shape_note": note})
+    # the arrivals level by level: the small levels are bound by their
+    # launches, the large ones by their bytes
+    each = _device_ms_each(lambda: [arrivals_cuda(*c) for c in arr],
+                           len(arr), "arrivals_kernel")
+    row = next(r for r in rows if r["name"] == "arrivals")
+    row["levels"] = [
+        {"L": dn.shape[1], "L_prev": tq.shape[1],
+         "distinct_parents": int(pp.unique().numel()),
+         "device_ms": None if each is None else each[i],
+         "bound_ms": _arrivals_bytes(tq, dn, pp) / MEM_BYTES_PER_S * 1e3,
+         "bound_ms_whole_parent_level":
+         _arrivals_bytes(tq, dn, pp, whole=True) / MEM_BYTES_PER_S * 1e3}
+        for i, (tq, dn, pp) in enumerate(arr)]
+    row["bound_ms_whole_parent_level"] = sum(
+        lv["bound_ms_whole_parent_level"] for lv in row["levels"])
+    print("[times] arrivals by level " + json.dumps(row["levels"]))
     return rows
 
 

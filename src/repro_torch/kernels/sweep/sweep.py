@@ -3,14 +3,22 @@
 ``arrivals_cuda`` replaces
 ``src/repro/kernels/sweep/sweep.py::arrivals_pallas`` and
 ``wait_cuda`` replaces ``src/repro/kernels/sweep/sweep.py::wait_pallas``
-(both variants).  Both kernels are bound by device-memory bytes: one
-thread per output element, coalesced along the level axis.  Launch
-counters: ``repro_torch.kernels._build.LAUNCHES["arrivals"]``,
-``["wait"]`` and ``["wait_churn"]``.
+(both variants).  Both kernels are bound by device-memory bytes.  The
+arrivals kernel runs on a 2-D grid (tiles of a row's columns times the
+rows), so no thread divides to find its (e, l): one thread a column
+that gathers its parent from L2, or, for a large level whose parent
+row fits a block's shared memory, blocks that stage the row's parent
+level there first and move dn and out 16 bytes a thread.
+:func:`arrivals_plan` chooses between them and computes the launch;
+the launcher refuses any other plan.  The wait kernel is one thread per
+output element.  Launch counters:
+``repro_torch.kernels._build.LAUNCHES["arrivals"]``, ``["wait"]`` and
+``["wait_churn"]``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -21,6 +29,96 @@ _SUFFIX = {torch.float64: "f64", torch.float32: "f32",
 _IDX = {torch.int32: "i32", torch.int64: "i64"}
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
+_ARRIVALS_ARGTYPES = [_P, _P, _P, _P] + [_LL] * 6 + [_P]
+
+
+#: the arrivals kernel's constants (``csrc/sweep.cu``)
+ARR_THREADS = 512            # columns of a gathering block
+STAGE_THREADS = 1024         # threads of a staging block
+STAGE_ELEMS = 8              # loads in flight a staging thread
+SMS = 132                    # the H100's SMs
+SMEM_MAX = 232448            # a block's dynamic shared memory
+VEC_BYTES = 16               # one vector access
+SECTOR = 32                  # bytes a gather moves from L2
+STAGE_MIN_BYTES = 1 << 21    # dn of a staged level
+MAX_GRID_Y = 65535
+WIDE_MARGIN = 1 << 17        # threads, slots and rows past the ends
+
+
+class ArrivalsPlan(NamedTuple):
+    """The launch of one level (the fields of ``csrc/sweep.cu``'s Plan).
+
+    Block (x, y, z) serves row ``e = z * grid_y + y`` (rows past E
+    return).  Gathering (``vec`` 1): columns ``[x*slots, (x+1)*slots)``,
+    one a thread, each parent read from L2.  Staged: the block copies
+    row e's parent level into ``smem`` bytes of shared memory and covers
+    slots ``[x*slots, (x+1)*slots)``, ``threads`` apart; a slot is
+    ``vec`` columns moved by one 16-byte access, cut at the 16-byte
+    boundaries of the flat (E, L) array, so row e covers slot j as
+    columns ``[vec*j - s, vec*j - s + vec)`` with ``s = (e * L) % vec``.
+    ``wide``: 64-bit offsets.
+    """
+    vec: int
+    staged: bool
+    wide: bool
+    threads: int
+    grid_x: int
+    grid_y: int
+    grid_z: int
+    slots: int
+    smem: int
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def row_slots(L: int, vec: int) -> int:
+    """Slots a row of ``L`` columns may take: ``L / vec`` when every row
+    starts aligned, else one more for the partial slots at the ends."""
+    return L // vec if L % vec == 0 else (L + 2 * vec - 2) // vec
+
+
+def arrivals_plan(E: int, L: int, Lp: int, itemsize: int, *,
+                  aligned: bool = True,
+                  staged: Optional[bool] = None) -> ArrivalsPlan:
+    """The arrivals launch of an (E, L) level whose parent level is
+    ``Lp`` wide, for elements of ``itemsize`` bytes.
+
+    ``staged``: True copies each row's parent level into shared memory
+    (one block per split of the row, ``SMS // E`` splits), False gathers
+    it from L2, None chooses: stage a level whose ``dn`` holds at least
+    ``STAGE_MIN_BYTES`` (a smaller launch is bound by its latency, and
+    gathering is the shorter chain) where the parent row fits and its
+    copies move fewer bytes than the gathers' sectors (``SECTOR`` bytes
+    a column).  ``aligned``: ``dn`` and ``out`` start on 16-byte
+    boundaries, so a staged slot is 16 bytes (else one column).
+    Offsets are 64-bit where ``E * max(L, Lp) + WIDE_MARGIN`` reaches
+    2**31.  Raises ValueError where the request cannot be planned.
+    """
+    if min(E, L, Lp, itemsize) <= 0:
+        raise ValueError(f"arrivals_plan: empty shape E={E} L={L} Lp={Lp}")
+    vec = VEC_BYTES // itemsize if aligned else 1
+    slots_row = row_slots(L, vec)
+    splits = min(1 if E >= SMS else SMS // E, slots_row)
+    fits = Lp * itemsize <= SMEM_MAX
+    if staged is None:
+        staged = (fits and E * L * itemsize >= STAGE_MIN_BYTES
+                  and splits * Lp * itemsize <= L * SECTOR)
+    if staged and not fits:
+        raise ValueError(f"arrivals_plan: a parent level of {Lp} x "
+                         f"{itemsize} bytes cannot be staged")
+    slots = _cdiv(slots_row, splits) if staged else ARR_THREADS
+    grid_y = min(E, MAX_GRID_Y)
+    plan = ArrivalsPlan(vec if staged else 1, bool(staged),
+                        E * max(L, Lp) + WIDE_MARGIN >= 2 ** 31,
+                        STAGE_THREADS if staged else ARR_THREADS,
+                        _cdiv(slots_row if staged else L, slots), grid_y,
+                        _cdiv(E, grid_y), slots,
+                        Lp * itemsize if staged else 0)
+    if plan.grid_z > MAX_GRID_Y or plan.grid_x >= 2 ** 31:
+        raise ValueError(f"arrivals_plan: ({E}, {L}) exceeds the grid")
+    return plan
 
 
 def _check(name, ts, shape, device, dtype):
@@ -41,6 +139,15 @@ def arrivals_cuda(tq_prev, dn, par_pos):
     every value in ``[0, L_prev)`` (the plan's parent positions).
     Returns (E, L) in the input dtype.
     """
+    return _arrivals(tq_prev, dn, par_pos, None)
+
+
+def _arrivals(tq_prev, dn, par_pos, staged, out=None):
+    """:func:`arrivals_cuda` launched as ``arrivals_plan(...,
+    staged=staged)`` plans it, into ``out`` when given (an (E, L)
+    contiguous tensor like ``dn``).  The on-card checks force either way
+    here, into an output filled with NaN so that a skipped element
+    shows."""
     dev = tq_prev.device
     if dev.type != "cuda":
         raise ValueError(f"arrivals_cuda needs CUDA tensors, got {dev}")
@@ -57,14 +164,21 @@ def arrivals_cuda(tq_prev, dn, par_pos):
         raise ValueError(f"arrivals: par_pos must be int32 or int64, got "
                          f"{par_pos.dtype}")
     _check("arrivals", (par_pos,), (L,), dev, par_pos.dtype)
-    out = torch.empty_like(dn)
+    if out is None:
+        out = torch.empty_like(dn)
+    _check("arrivals", (out,), (E, L), dev, tq_prev.dtype)
     if out.numel() == 0:
         return out
+    plan = arrivals_plan(
+        E, L, Lp, dn.element_size(),
+        aligned=dn.data_ptr() % VEC_BYTES == 0
+        and out.data_ptr() % VEC_BYTES == 0, staged=staged)
     fn = _build.function(
         "sweep", f"repro_arrivals_{_SUFFIX[dn.dtype]}_{_IDX[par_pos.dtype]}",
-        [_P, _P, _P, _P, _LL, _LL, _LL, _P])
+        _ARRIVALS_ARGTYPES)
     code = fn(_build.ptr(tq_prev), _build.ptr(dn), _build.ptr(par_pos),
-              _build.ptr(out), E, L, Lp, _build.stream(dev))
+              _build.ptr(out), E, L, Lp, plan.vec, int(plan.staged),
+              int(plan.wide), _build.stream(dev))
     _build.check(code, "arrivals")
     _build.LAUNCHES["arrivals"] += 1
     return out

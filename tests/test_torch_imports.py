@@ -2,7 +2,8 @@
 
 Importing every module of ``repro_torch`` in a fresh interpreter leaves
 ``jax`` and ``repro`` out of ``sys.modules``; a scan of the sources (and
-of ``chip_smoke.py``) finds no import of either; and ``chip_smoke.py``
+of ``chip_smoke.py`` and the tools that drive the port on the card)
+finds no import of either; and ``chip_smoke.py``
 fails, printing no result, where no CUDA device is present.
 """
 import os
@@ -42,7 +43,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 
 
 def test_sources_import_neither_jax_nor_reference():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("*.py")))
     hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
             for p in files for m in _FORBIDDEN.finditer(p.read_text())]
     assert not hits, hits
