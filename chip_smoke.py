@@ -32,7 +32,10 @@ result line) when any phase fails:
      on a 100,000-peer Barabási–Albert overlay (the reference package's
      full-size ``jax_backend`` configuration: m=2, seed 7,
      ``SimParams(seed=5)``), and check that every kernel of that path
-     moved its launch counter;
+     moved its launch counter; one ``fd-stats`` request at origin 0 in
+     the same queue must be served from the host reference path
+     (``backend_used == "sim"``), cut traffic and equal a direct
+     ``engine.run``;
   3b. serve churn and the baselines from a second ``QueryServer`` over
      the same engine (the reference's full-size ``jax_churn_bench``
      settings: ``fd-dynamic``, independent streams, mean lifetimes of
@@ -52,6 +55,19 @@ result line) when any phase fails:
      ``run_many``, and the row gather), ``cn`` and ``cn-star``; check
      that the top-k and merge counters moved and that the first 4
      queries equal the port's CPU path bit for bit;
+  7. every registered topology family (the reference's full-size
+     ``topology_sweep``: hierarchical at 100,000 peers, Waxman at 2,000,
+     the others at 20,000, seed 7) under its native latency model
+     (``"edge"`` where it carries coordinates, ``"iid"`` for BA):
+     ``fd-dynamic``, origins (0, 1) x 2 independent trials, card == CPU
+     path bit for bit, the sweep kernels held to their plain versions at
+     each family's level shapes;
+  8. reduced precision (the reference's ``precision`` and
+     ``precision_scale`` suites): f32 and bf16 on the phase-3 overlay,
+     the tolerance contract against the f64 rerun, card == CPU bits on
+     4-entry static, churned (lifetime 60 s) and ``cn`` specs, warm
+     ``run_s`` in f64 / f32 / bf16; the 1,000,000-peer star with an
+     int32 plan in f32 (tolerance contract, build and run seconds);
   6. time each kernel (the churn variant at the churn sweep's level
      shapes) at the shapes its path gives it (CUDA events,
      median of several runs) beside its plain version, one PyTorch
@@ -61,11 +77,14 @@ result line) when any phase fails:
      (``library_device_ms`` the library call's), free of host gaps; the
      arrivals bound counts the distinct parents each row reads (beside
      it, ``bound_ms_whole_parent_level`` counts all of tq_prev), and its
-     row lists each level's device time beside its bounds (``levels``).
+     row lists each level's device time beside its bounds (``levels``);
+     each sim kernel's row adds its f32 and bf16 times and bytes bound
+     at the same shapes (``by_dtype``).
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
+import dataclasses
 import json
 import math
 import statistics
@@ -507,69 +526,97 @@ def _check_arrivals_plan(dev):
     return n
 
 
-def _check_arrivals(levels, gen, dev, errs):
-    """The arrivals kernel, gathering and (where the parent level fits)
-    staging, bit-equal to ``arrivals_ref`` in f64, f32 and bf16 at the
-    path's level shapes and the plan's edges, with 2% signed zeros,
-    infinities and NaNs in tq_prev and dn, also with dn not 16-byte
-    aligned (a staged slot of one column)."""
+def _check_arrivals_at(what, tq, dn, pp, errs):
+    """The arrivals kernel each way the parent row allows (gathering;
+    staging where it fits shared memory), written into NaN outputs so a
+    skipped element shows, bit-equal to ``arrivals_ref``."""
     import torch
     from repro_torch.kernels.sweep import arrivals_ref
     from repro_torch.kernels.sweep.sweep import SMEM_MAX, _arrivals
-    n = _check_arrivals_plan(dev)
-    cases = _arrivals_cases(levels, gen, dev)
-    for dt in (torch.float64, torch.float32, torch.bfloat16):
-        size = torch.empty((), dtype=dt).element_size()
-        for what, E, Lp, pp in cases:
-            L = pp.shape[0]
-            tq = _with_specials(torch.rand(
-                (E, Lp), generator=gen, device=dev,
-                dtype=torch.float64).to(dt), gen, 0.02)
-            flat = torch.empty(E * L + 1, dtype=dt, device=dev)
-            for offset in (0, 1):        # 1: dn not 16-byte aligned
-                dn = flat[offset:offset + E * L].view(E, L)
-                dn.copy_(_with_specials(torch.rand(
-                    (E, L), generator=gen, device=dev,
-                    dtype=torch.float64).to(dt), gen, 0.02))
-                ref = arrivals_ref(tq, dn, pp)
-                for staged in (False, True):
-                    if staged and Lp * size > SMEM_MAX:
-                        continue
-                    # into NaNs: a skipped element shows
-                    got = _arrivals(tq, dn, pp, staged, out=torch.full_like(
-                        dn, float("nan")))
-                    errs["arrivals"] = max(errs["arrivals"],
-                                           _max_abs_err(got, ref))
-                    _require(_same(got, ref), f"arrivals {what} {dt} dn "
-                             f"offset {offset} staged={staged}: kernel != "
-                             "plain")
-                    n += 1
+    ref = arrivals_ref(tq, dn, pp)
+    n = 0
+    for staged in (False, True):
+        if staged and tq.shape[1] * tq.element_size() > SMEM_MAX:
+            continue
+        got = _arrivals(tq, dn, pp, staged,
+                        out=torch.full_like(dn, float("nan")))
+        errs["arrivals"] = max(errs["arrivals"], _max_abs_err(got, ref))
+        _require(_same(got, ref), f"arrivals {what} staged={staged}: "
+                 "kernel != plain")
+        n += 1
+    return n
+
+
+def _check_wait_at(what, own, all_in, dl, death, errs):
+    """Both wait variants bit-equal to ``wait_ref``; the churn
+    variant's send times as the kernel wrote them."""
+    from repro_torch.kernels.sweep import wait_cuda, wait_ref
+    s1, s2 = wait_cuda(own, all_in, dl), wait_ref(own, all_in, dl)
+    errs["wait"] = max(errs["wait"], _max_abs_err(s1, s2))
+    c1, snd1 = wait_cuda(own, all_in, dl, death)
+    c2, snd2 = wait_ref(own, all_in, dl, death)
+    errs["wait_churn"] = max(errs["wait_churn"], _max_abs_err(c1, c2),
+                             _max_abs_err(snd1, snd2))
+    _require(_same(s1, s2), f"wait {what}: kernel != plain")
+    _require(_same(c1, c2) and _same(snd1, snd2),
+             f"wait (churn variant) {what}: kernel != plain")
+    return snd1
+
+
+def _rand(shape, dt, gen, dev, specials=0.0):
+    """U[0, 1) in ``dt`` (drawn in f32 for bf16, never narrowed from f64
+    on the card), with a fraction ``specials`` of signed zeros,
+    infinities and NaNs."""
+    import torch
+    f = torch.float32 if dt == torch.bfloat16 else dt
+    v = torch.rand(shape, generator=gen, device=dev, dtype=f).to(dt)
+    return _with_specials(v, gen, specials) if specials else v
+
+
+def _check_levels(what, levels, E, dt, gen, dev, errs):
+    """The arrivals and both wait kernels bit-equal to their plain
+    versions at the level shapes of ``levels``, E rows, dtype ``dt``."""
+    n = 0
+    for d, lv in enumerate(levels):
+        L = lv["vv"].shape[0]
+        if d > 0:
+            Lp = levels[d - 1]["vv"].shape[0]
+            n += _check_arrivals_at(
+                f"at {what} level {d} (E={E}, L={L}, L_prev={Lp}) {dt}",
+                _rand((E, Lp), dt, gen, dev), _rand((E, L), dt, gen, dev),
+                lv["par_pos"], errs)
+        _check_wait_at(f"at {what} level {d} (E={E}, L={L}) {dt}",
+                       *(_rand((E, L), dt, gen, dev) for _ in range(4)),
+                       errs)
+        n += 2
     return n
 
 
 def _check_sweep(levels, gen, dev, errs):
+    """Phase 2's sweep checks in f64, f32 and bf16: the arrivals kernel
+    at the path's level shapes and the plan's edges (``_arrivals_cases``)
+    with 2% specials in tq_prev and dn, also with dn not 16-byte aligned
+    (a staged slot of one column); both wait kernels at the level shapes
+    and the churn variant at its death edges."""
     import torch
-    from repro_torch.kernels.sweep import wait_cuda, wait_ref
-    n = _check_arrivals(levels, gen, dev, errs)
+    from repro_torch.kernels.sweep import wait_ref
+    n = _check_arrivals_plan(dev)
+    cases = _arrivals_cases(levels, gen, dev)
     for dt in (torch.float64, torch.float32, torch.bfloat16):
+        for what, E, Lp, pp in cases:
+            L = pp.shape[0]
+            tq = _rand((E, Lp), dt, gen, dev, 0.02)
+            flat = torch.empty(E * L + 1, dtype=dt, device=dev)
+            for offset in (0, 1):        # 1: dn not 16-byte aligned
+                dn = flat[offset:offset + E * L].view(E, L)
+                dn.copy_(_rand((E, L), dt, gen, dev, 0.02))
+                n += _check_arrivals_at(f"{what} {dt} dn offset {offset}",
+                                        tq, dn, pp, errs)
         for d, lv in enumerate(levels):
             L = lv["vv"].shape[0]
-            own, all_in, dl, death = (
-                torch.rand((E_MAIN, L), generator=gen, device=dev,
-                           dtype=torch.float64).to(dt) for _ in range(4))
-            s1 = wait_cuda(own, all_in, dl)
-            s2 = wait_ref(own, all_in, dl)
-            errs["wait"] = max(errs["wait"], _max_abs_err(s1, s2))
-            _require(_same(s1, s2), f"wait level {d} {dt}: kernel "
-                     "!= plain")
-            c1, snd1 = wait_cuda(own, all_in, dl, death)
-            c2, snd2 = wait_ref(own, all_in, dl, death)
-            errs["wait_churn"] = max(errs["wait_churn"],
-                                     _max_abs_err(snd1, snd2),
-                                     _max_abs_err(c1, c2))
-            _require(_same(c1, c2) and _same(snd1, snd2),
-                     f"wait (churn variant) level {d} {dt}: kernel != "
-                     "plain")
+            own, all_in, dl, death = (_rand((E_MAIN, L), dt, gen, dev)
+                                      for _ in range(4))
+            _check_wait_at(f"level {d} {dt}", own, all_in, dl, death, errs)
             # the churn variant's edges: deaths exactly at the send time
             # (alive, by ``>=``), infinite deaths, an all-dead row (0),
             # an all-alive row (1) and a row dead exactly at s (2)
@@ -580,20 +627,31 @@ def _check_sweep(levels, gen, dev, errs):
             edge[0] = -1.0
             edge[1] = math.inf
             edge[2] = s[2]
-            c1, snd1 = wait_cuda(own, all_in, dl, edge)
-            c2, snd2 = wait_ref(own, all_in, dl, edge)
-            errs["wait_churn"] = max(errs["wait_churn"],
-                                     _max_abs_err(snd1, snd2),
-                                     _max_abs_err(c1, c2))
-            _require(_same(c1, c2) and _same(snd1, snd2),
-                     f"wait (churn variant) level {d} {dt} at the death "
-                     "edges: kernel != plain")
-            _require(bool(torch.isinf(snd1[0]).all())
-                     and _same(snd1[1:3], s[1:3]),
+            snd = _check_wait_at(f"level {d} {dt} at the death edges", own,
+                                 all_in, dl, edge, errs)
+            _require(bool(torch.isinf(snd[0]).all())
+                     and _same(snd[1:3], s[1:3]),
                      f"wait (churn variant) level {d} {dt}: a peer dead "
                      "exactly at its send time must send")
-            n += 3
+            n += 4
     return n
+
+
+_METRICS = ("n_reached", "n_edges_pq", "avg_degree", "m_fw", "b_fw", "m_bw",
+            "m_rt", "b_bw", "b_rt", "response_time_s", "accuracy")
+
+
+def _require_same_result(what, rg, rc):
+    """Two TopKResults with equal values, indices and metrics bits."""
+    import numpy as np
+    for f in _METRICS:
+        _require(np.array_equal(getattr(rg.metrics, f),
+                                getattr(rc.metrics, f)),
+                 f"{what}: card != CPU path on metric {f}")
+    _require(rg.values.dtype == rc.values.dtype
+             and np.array_equal(rg.values, rc.values)
+             and np.array_equal(rg.indices, rc.indices),
+             f"{what}: card != CPU path on values / indices")
 
 
 # ---------------------------------------------------------------------------
@@ -645,19 +703,38 @@ def _serve(engine, _build):
     for t in threads:
         t.join(timeout=900)
     alive = [t for t in threads if t.is_alive()]
-    server.stop(drain=not alive, timeout=60)
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    # the load's own percentiles: the fd-stats request below holds the
+    # one dispatcher for seconds of host work and is timed apart
     m = server.metrics()
     print(f"[main] served {m.served}/{m.submitted} in {wall:.3f} s; "
           f"failed={m.failed} shed={m.shed} timed_out={m.timed_out}")
     print("[main] serving metrics " + json.dumps(m.as_dict()))
     print("[main] launches " + json.dumps(launches))
+    # the two-round statistics heuristic, served from the same queue
+    # once the load has drained
+    stats = None
+    if not alive:
+        t1 = time.perf_counter()
+        try:
+            stats = server.submit(QuerySpec(**STATS_SPEC_ARGS),
+                                  "fd-stats").result(timeout=900)
+        except Exception as e:           # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        print(f"[fd-stats] submit to result {time.perf_counter() - t1:.3f}"
+              " s on the drained server")
+    server.stop(drain=not alive, timeout=60)
     _require(not alive, "client threads did not finish")
     _require(not errors, f"requests failed: {errors}")
     _require(m.submitted == 35 and m.served == m.submitted,
              f"served {m.served} of {m.submitted} (expected 35)")
-    _require(m.failed == 0, f"{m.failed} requests failed in the engine")
+    m_all = server.metrics()
+    _require(m_all.submitted == 36 and m_all.served == m_all.submitted,
+             f"with fd-stats: served {m_all.served} of {m_all.submitted} "
+             "(expected 36)")
+    _require(m_all.failed == 0,
+             f"{m_all.failed} requests failed in the engine")
     for pol, res in results:
         _check_result(pol, res, engine.params.k)
         _require(res.compile_s == 0.0,
@@ -665,7 +742,41 @@ def _serve(engine, _build):
     for name in ("merge", "arrivals", "wait"):
         _require(launches[name] > 0, f"kernel {name} never launched on "
                  "the main path")
+    _check_stats(engine, stats)
     return launches, m
+
+
+# the fd-stats request of phase 3: one origin x one trial
+STATS_SPEC_ARGS = {"origins": (0,), "seed": 79}
+
+
+def _check_stats(engine, served):
+    """The served fd-stats answer: from the host reference path, traffic
+    cut, and equal to a direct ``engine.run`` of the same request."""
+    import numpy as np
+    from repro_torch.engine import QuerySpec
+    ex = served.extras
+    print(f"[fd-stats] served in {served.run_s:.3f} s (host run_s), "
+          f"queue {served.queue_s:.3f} s: comm_reduction "
+          f"{ex['comm_reduction']}, accuracy {ex['accuracy']}, bytes "
+          f"{ex['metrics_full'].total_bytes} -> "
+          f"{ex['metrics_pruned'].total_bytes}")
+    _require(served.backend_used == "sim" and served.backend == "sim-torch",
+             f"fd-stats: backend_used={served.backend_used}")
+    _require(ex["comm_reduction"] > 0,
+             f"fd-stats cut no traffic: {ex['comm_reduction']}")
+    t0 = time.perf_counter()
+    direct = engine.run(QuerySpec(**STATS_SPEC_ARGS), "fd-stats")
+    print(f"[fd-stats] direct engine.run in {time.perf_counter() - t0:.3f}"
+          f" s wall (run_s {direct.run_s:.3f} s)")
+    for key in ("metrics_full", "metrics_pruned", "comm_reduction",
+                "accuracy"):
+        _require(ex[key] == direct.extras[key],
+                 f"fd-stats: served {key} != direct engine.run")
+    for f in _METRICS:
+        _require(np.array_equal(getattr(served.metrics, f),
+                                getattr(direct.metrics, f)),
+                 f"fd-stats: served metric {f} != direct engine.run")
 
 
 # ---------------------------------------------------------------------------
@@ -797,7 +908,6 @@ def _serve_churn(engine, _build):
 def _parity(engine, p):
     """4-entry specs (static and churned fd-dynamic, cn, cn-star) on the
     card and on the port's CPU path: equal bits."""
-    import numpy as np
     from repro_torch.engine import QuerySpec, SimEngine, get_policy
     spec = QuerySpec(origins=(0, 1), n_trials=2, rng="independent")
     cpu = SimEngine(engine.plan, p, device="cpu")
@@ -812,15 +922,7 @@ def _parity(engine, p):
         t0 = time.perf_counter()
         rc = cpu.run(spec, pol)
         t_cpu = time.perf_counter() - t0
-        for f in ("n_reached", "n_edges_pq", "avg_degree", "m_fw", "b_fw",
-                  "m_bw", "m_rt", "b_bw", "b_rt", "response_time_s",
-                  "accuracy"):
-            _require(np.array_equal(getattr(rg.metrics, f),
-                                    getattr(rc.metrics, f)),
-                     f"{name}: card != CPU path on metric {f}")
-        _require(np.array_equal(rg.values, rc.values)
-                 and np.array_equal(rg.indices, rc.indices),
-                 f"{name}: card != CPU path on values / indices")
+        _require_same_result(name, rg, rc)
         print(f"[parity] {name} 4-entry spec: card == CPU path bit for "
               f"bit (card {t_card:.3f} s, CPU {t_cpu:.3f} s host wall)")
 
@@ -924,6 +1026,249 @@ def _device_path(dev, gen, _build):
 
 
 # ---------------------------------------------------------------------------
+# the sweep kernels at a path's own level shapes
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase 7: every registered topology family, with per-edge latencies
+# ---------------------------------------------------------------------------
+
+# the reference's full-size topology_sweep (benchmarks/multi_query.py)
+TOPO_FLAT = 20_000
+TOPO_SIZES = {"hierarchical": 100_000, "waxman": 2_000}
+
+
+def _topologies(dev, gen, errs, _build):
+    """Each family of ``available_topologies()`` (seed 7) under its
+    native latency model: ``fd-dynamic``, origins (0, 1) x 2 independent
+    trials on the card, equal bits on the port's CPU path."""
+    import torch
+    from repro_torch.engine import NetworkPlan, QuerySpec, SimEngine
+    from repro_torch.engine.sim_torch import _device_slices
+    from repro_torch.p2psim import (SimParams, available_topologies,
+                                    build_topology)
+    spec = QuerySpec(origins=(0, 1), n_trials=2, seed=5, rng="independent")
+    fams, n_chk = {}, 0
+    for name in available_topologies():
+        n = TOPO_SIZES.get(name, TOPO_FLAT)
+        t0 = time.perf_counter()
+        top = build_topology(name, n, seed=7)
+        build_s = time.perf_counter() - t0
+        lm = "edge" if top.coords is not None else "iid"
+        p = SimParams(seed=5, latency_model=lm)
+        plan = NetworkPlan(top)
+        card = SimEngine(plan, p)
+        t0 = time.perf_counter()
+        card.run(spec)                   # statics, slices, uploads
+        warm_s = time.perf_counter() - t0
+        st = plan.origin_statics([0], p.ttl, "st1+2")[0][0]
+        levels = _device_slices(plan.depth_slices(st), dev)[0]
+        n_chk += _check_levels(name, levels, 2, torch.float64, gen, dev,
+                               errs)
+        widths = [len(lv["vv"]) for lv in levels]
+        fams[name] = (top, plan, p, card, build_s, warm_s,
+                      f"depth {len(widths) - 1}, widest level "
+                      f"{max(widths)}")
+    _build.reset_launches()              # count this path alone
+    runs = {name: f[3].run(spec) for name, f in fams.items()}
+    launches = dict(_build.LAUNCHES)
+    print("[topologies] launches " + json.dumps(launches))
+    for name, (top, plan, p, card, build_s, warm_s, lv) in fams.items():
+        rg = runs[name]
+        t0 = time.perf_counter()
+        rc = SimEngine(plan, p, device="cpu").run(spec)
+        cpu_s = time.perf_counter() - t0
+        _require(rg.backend_used == "sim-torch" and rg.topology == name
+                 and rg.latency_model == p.latency_model,
+                 f"{name}: result fields {rg.backend_used} {rg.topology} "
+                 f"{rg.latency_model}")
+        _require_same_result(f"topology {name}", rg, rc)
+        print(f"[topologies] {name} n={top.n} edges={top.n_edges} "
+              f"latency={p.latency_model} ({lv}): built in "
+              f"{build_s:.3f} s, first run {warm_s:.3f} s, card run_s "
+              f"{rg.run_s:.6f} s, CPU path {cpu_s:.3f} s; card == CPU bit "
+              f"for bit; mean m_bw {float(rg.metrics.m_bw.mean())}, mean "
+              f"response {float(rg.metrics.response_time_s.mean())} s")
+    for name in ("merge", "arrivals", "wait"):
+        _require(launches[name] > 0, f"kernel {name} never launched on "
+                 "the topology path")
+    print(f"[topologies] {len(fams)} families; {n_chk} kernel checks at "
+          "their level shapes bit-equal to the plain versions")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: reduced precision (f32 / bf16) on the sim path
+# ---------------------------------------------------------------------------
+
+def _star(n):
+    """A star of ``n`` peers (1M spokes share one neighbour array), the
+    reference's precision_scale overlay."""
+    import numpy as np
+    from repro_torch.p2psim import Topology
+    hub = np.arange(1, n, dtype=np.int32)
+    spoke = np.array([0], dtype=np.int32)
+    return Topology(n=n, neighbors=[hub] + [spoke] * (n - 1), kind="star")
+
+
+def _check_cast(prec, lo, hi, what=None):
+    """Checks of a reduced answer ``lo`` against the f64 answer ``hi``
+    of the same spec that still tell selections apart where the top
+    scores tie once cast (the tolerance contract then cannot): the cast
+    is monotone, so (1) an owner in both answers holds in ``lo`` the
+    cast of its own leading f64 scores, in order, and (2) an entry whose
+    message, byte and reach counts equal f64's (no late or urgent
+    decision flipped) has the f64 values cast, rank by rank."""
+    import numpy as np
+    from repro_torch.engine.precision import host_cast
+    what = what or prec
+    k = hi.values.shape[-1]
+    v_lo, o_lo = lo.values.reshape(-1, k), lo.indices.reshape(-1, k)
+    v_hi, o_hi = hi.values.reshape(-1, k), hi.indices.reshape(-1, k)
+    cast = host_cast(v_hi, prec).double().numpy()
+    owners = slots = 0
+    for e in range(len(v_hi)):
+        for o in np.intersect1d(o_lo[e][o_lo[e] >= 0], o_hi[e]):
+            a, b = v_lo[e][o_lo[e] == o], cast[e][o_hi[e] == o]
+            m = min(len(a), len(b))
+            _require(np.array_equal(a[:m], b[:m]), f"{what} entry {e} "
+                     f"owner {o}: values {a[:m]} != its f64 values cast "
+                     f"{b[:m]}")
+            owners, slots = owners + 1, slots + m
+    same = np.ones(len(v_hi), bool)
+    for f in ("n_reached", "m_fw", "m_bw", "b_fw", "b_bw", "m_rt", "b_rt"):
+        same &= (np.asarray(getattr(lo.metrics, f)).reshape(-1)
+                 == np.asarray(getattr(hi.metrics, f)).reshape(-1))
+    for e in np.flatnonzero(same):
+        _require(np.array_equal(v_lo[e], cast[e]), f"{what} entry {e} "
+                 "(no decision flipped): values != the f64 values cast")
+    distinct = [len(np.unique(c)) for c in cast]
+    tied = max(distinct) == 1
+    print(f"[precision] {what} cast checks: {owners} shared owners "
+          f"({slots} slots) hold their f64 values cast; "
+          f"{int(same.sum())}/{len(same)} entries without a flipped "
+          f"decision equal the f64 values cast; the f64 top-{k} casts to "
+          f"{distinct} distinct values an entry"
+          + ("; every entry's top-k ties once cast, so the tolerance "
+             "contract and check (2) cannot tell selections apart here"
+             if tied else ""))
+    return owners, tied
+
+
+def _reduced_precision(engine, dev, gen, errs, _build):
+    """The reference's precision suite on the phase-3 overlay: f32 and
+    bf16 validated against the f64 rerun and held to the f64 answer
+    cast (``_check_cast``), card == CPU bits on 4-entry static, churned
+    and cn specs, warm run_s per precision; then the 1M-peer star (int32
+    plan, f32).  Launches are counted per precision, over the reduced
+    runs alone (no validation, no f64 run inside a counted window)."""
+    import torch
+    from repro_torch.engine import (NetworkPlan, QuerySpec, SimEngine,
+                                    get_policy)
+    from repro_torch.engine.sim_torch import _device_slices
+    from repro_torch.p2psim import SimParams, barabasi_albert
+    plan, p = engine.plan, engine.params
+    spec = QuerySpec(origins=(0, 1), n_trials=2, seed=5, rng="independent")
+    churn = get_policy("fd-dynamic").variant(lifetime_mean_s=CHURN_HEAVY_S)
+    reduced = ("f32", "bf16")
+    timed = {"f64": SimEngine(plan, p)}
+    for prec in reduced:
+        timed[prec] = SimEngine(plan, p, precision=prec,
+                                validate_precision=False)
+        for pol in ("fd-dynamic", churn, "cn"):
+            timed[prec].run(spec, pol)   # first run books its uploads
+    counts = {prec: dict.fromkeys(_build.LAUNCHES, 0) for prec in reduced}
+
+    def counted(prec, fn):
+        _build.reset_launches()
+        out = fn()
+        for name, c in _build.LAUNCHES.items():
+            counts[prec][name] += c
+        return out
+
+    run_s, last = {prec: math.inf for prec in timed}, {}
+    for _ in range(3):                   # in turns: f64, f32, bf16
+        for prec, eng in timed.items():
+            last[prec] = (eng.run(spec) if prec == "f64" else
+                          counted(prec, lambda: eng.run(spec)))
+            run_s[prec] = min(run_s[prec], last[prec].run_s)
+    for prec in reduced:
+        tol = SimEngine(plan, p, precision=prec).run(spec).extras[
+            "tolerance"]
+        print(f"[precision] {prec} tolerance {json.dumps(tol)}")
+        _require(tol["ok"], f"{prec} tolerance contract violated: {tol}")
+        if tol["separated"]:
+            _require(tol["recall"] == 1.0, f"{prec}: separated scores "
+                     f"but recall {tol['recall']}")
+        _check_cast(prec, last[prec], last["f64"])
+        cpu = SimEngine(plan, p, device="cpu", precision=prec,
+                        validate_precision=False)
+        for name, pol in (("fd-dynamic", "fd-dynamic"),
+                          ("fd-dynamic@60", churn), ("cn", "cn")):
+            rg = counted(prec, lambda: timed[prec].run(spec, pol))
+            _require(rg.precision == prec, f"{name}: ran in {rg.precision}")
+            t0 = time.perf_counter()
+            rc = cpu.run(spec, pol)
+            _require_same_result(f"{prec} {name}", rg, rc)
+            print(f"[precision] {prec} {name} 4-entry spec: card == CPU "
+                  f"path bit for bit (CPU {time.perf_counter() - t0:.3f} s)")
+    print("[precision] warm run_s (min of 3 in turns, no validation) "
+          + json.dumps(run_s))
+    # the same checks where the top scores stay apart once cast: one
+    # score a peer, on the phase-3 overlay in f32 and, for bf16's 8
+    # bits, on a small BA overlay
+    one = dataclasses.replace(p, tuples_lo=1, tuples_hi=1)
+    small = NetworkPlan(barabasi_albert(SPREAD_PEERS, m=2, seed=7))
+    for prec, pl in (("f32", plan), ("bf16", small)):
+        what = f"{prec}, n={pl.top.n}, one score a peer"
+        lo = SimEngine(pl, one, precision=prec).run(spec)
+        tol = lo.extras["tolerance"]
+        print(f"[precision] {what}: tolerance {json.dumps(tol)}")
+        _require(tol["ok"], f"{what}: tolerance contract violated: {tol}")
+        owners, tied = _check_cast(prec, lo, SimEngine(pl, one).run(spec),
+                                   what)
+        _require(owners > 0 and not tied, f"{what}: the top scores tie "
+                 "once cast; the cast checks tell nothing apart")
+    # the 1M-peer star: the widest level the sweep sees, int32 indices
+    t0 = time.perf_counter()
+    plan1m = NetworkPlan(_star(STAR_PEERS), index_dtype="int32")
+    build_s = time.perf_counter() - t0
+    _require(str(plan1m.index_dtype) == "int32"
+             and str(plan1m.edge_keys.dtype) == "int64",
+             f"star plan dtypes {plan1m.index_dtype} "
+             f"{plan1m.edge_keys.dtype}")
+    star_p, star_q = SimParams(seed=3), QuerySpec(origins=(0,), seed=3)
+    star = SimEngine(plan1m, star_p, precision="f32",
+                     validate_precision=False)
+    t0 = time.perf_counter()
+    counted("f32", lambda: star.run(star_q))
+    first_s = time.perf_counter() - t0
+    res = counted("f32", lambda: star.run(star_q))
+    tol = SimEngine(plan1m, star_p, precision="f32").run(star_q).extras[
+        "tolerance"]
+    print(f"[precision] star n={STAR_PEERS} int32 plan built in "
+          f"{build_s:.3f} s; f32 first run {first_s:.3f} s, run_s "
+          f"{res.run_s:.6f} s; tolerance {json.dumps(tol)}")
+    _require(tol["ok"], f"1M-peer f32 tolerance contract violated: {tol}")
+    _check_cast("f32", res, SimEngine(plan1m, star_p).run(star_q))
+    print("[precision] launches " + json.dumps(counts))
+    for prec in reduced:
+        for name in ("merge", "arrivals", "wait", "wait_churn"):
+            _require(counts[prec][name] > 0, f"kernel {name} never "
+                     f"launched on the {prec} path")
+    st = plan1m.origin_statics([0], 0, "st1+2")[0][0]
+    levels = _device_slices(plan1m.depth_slices(st), dev)[0]
+    n = _check_levels("star", levels, 1, torch.float32, gen, dev, errs)
+    print(f"[precision] {n} kernel checks at the star's level shapes "
+          "bit-equal to the plain versions")
+    return {f"precision_{prec}": c for prec, c in counts.items()}, run_s
+
+
+STAR_PEERS = 1_000_000
+SPREAD_PEERS = 2_000
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at main-path shapes
 # ---------------------------------------------------------------------------
 
@@ -943,17 +1288,24 @@ def _merge_pairs(levels, rr=None):
     return pairs
 
 
-def _merge_calls(pairs, dev, gen):
-    """Random descending K=32 f64 list pairs at the sizes ``pairs``."""
+def _merge_calls(pairs, dev, gen, dt=None):
+    """Random descending K=32 list pairs at the sizes ``pairs``, f64 (or
+    ``dt``, drawn in f32 and rounded)."""
     import torch
     from repro_torch.engine.sim_torch import _next_pow2
     K = _next_pow2(20)
     merge = []
+
+    def lists(P):
+        if dt is None:
+            return _sorted_lists((E_MAIN, P), K, torch.float64, gen, dev,
+                                 False)
+        v, i = _sorted_lists((E_MAIN, P), K, torch.float32, gen, dev, False)
+        return v.to(dt), i
+
     for P, masked in pairs:
-        va, ia = _sorted_lists((E_MAIN, P), K, torch.float64, gen, dev,
-                               False)
-        vb, ib = _sorted_lists((E_MAIN, P), K, torch.float64, gen, dev,
-                               False)
+        va, ia = lists(P)
+        vb, ib = lists(P)
         ma = mb = None
         if masked:
             ma = torch.rand((E_MAIN, P), generator=gen, device=dev) < 0.9
@@ -962,13 +1314,17 @@ def _merge_calls(pairs, dev, gen):
     return merge
 
 
-def _level_calls(levels, dev, gen):
-    """One sweep's worth of inputs per sweep kernel, at E=32."""
+def _level_calls(levels, dev, gen, dt=None):
+    """One sweep's worth of inputs per sweep kernel, at E=32, f64 (or
+    ``dt``, drawn in f32 and rounded)."""
     import torch
     f64 = torch.float64
 
     def rnd(*shape):
-        return torch.rand(shape, generator=gen, device=dev, dtype=f64)
+        if dt is None:
+            return torch.rand(shape, generator=gen, device=dev, dtype=f64)
+        return torch.rand(shape, generator=gen, device=dev,
+                          dtype=torch.float32).to(dt)
 
     arr, wait, wait_churn = [], [], []
     for d, lv in enumerate(levels):
@@ -995,6 +1351,15 @@ def _arrivals_bytes(tq, dn, pp, whole=False):
     return parents + 2 * _nbytes(dn) + _nbytes(pp)
 
 
+def _merge_bytes(merge):
+    """Bytes of the merges ``merge``: both lists (+ masks) read once, one
+    list written."""
+    nb = _nbytes
+    return sum(nb(va) + nb(ia) + nb(vb) + nb(ib) + nb(va) + nb(ia)
+               + (0 if ma is None else nb(ma) + nb(mb))
+               for va, ia, vb, ib, ma, mb in merge)
+
+
 def _merge_row(name, merge, errs, note):
     """The merge's timing entry at the list pairs ``merge``, held to its
     plain version there first."""
@@ -1007,11 +1372,7 @@ def _merge_row(name, merge, errs, note):
         _require(_same(v1, v2) and _same(i1, i2),
                  f"merge at the shapes of {note}: kernel != plain")
     cats = [torch.cat([va, vb], dim=-1) for va, _, vb, _, _, _ in merge]
-    nb = _nbytes
-    # reads both lists (+ masks) once, writes one list
-    m_bytes = sum(nb(va) + nb(ia) + nb(vb) + nb(ib) + nb(va) + nb(ia)
-                  + (0 if ma is None else nb(ma) + nb(mb))
-                  for va, ia, vb, ib, ma, mb in merge)
+    m_bytes = _merge_bytes(merge)
     # one binary search of log2(K) + 1 compares per input element
     m_ops = sum(2 * va.numel() * (math.log2(va.shape[-1]) + 1)
                 for va, *_ in merge)
@@ -1118,6 +1479,67 @@ def _times(levels, rr, dev, gen, errs, launches):
         lv["bound_ms_whole_parent_level"] for lv in row["levels"])
     print("[times] arrivals by level " + json.dumps(row["levels"]))
     return rows
+
+
+def _dtype_times(levels, dev, gen, errs):
+    """The sim kernels at one phase-3 sweep's shapes in f32 and bf16, as
+    the reduced-precision sweep runs them: each held bit-equal to its
+    plain version there, then events ``ms`` (lower of two medians),
+    ``device_ms`` (one profiler window, per sweep) and the bytes bound at
+    that element size."""
+    import torch
+    from repro_torch.kernels.merge import merge_cuda, merge_ref
+    from repro_torch.kernels.sweep import (arrivals_cuda, arrivals_ref,
+                                           wait_cuda, wait_ref)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).split(".")[-1]
+        merge = _merge_calls(_merge_pairs(levels), dev, gen, dt)
+        arr, wait, wait_churn = _level_calls(levels, dev, gen, dt)
+        for va, ia, vb, ib, ma, mb in merge:
+            v1, i1 = merge_cuda(va, ia, vb, ib, valid_a=ma, valid_b=mb)
+            v2, i2 = merge_ref(va, ia, vb, ib, valid_a=ma, valid_b=mb)
+            errs["merge"] = max(errs["merge"], _max_abs_err(v1, v2))
+            _require(_same(v1, v2) and _same(i1, i2),
+                     f"merge {tag} at the phase-3 shapes: kernel != plain")
+        for c in arr:
+            got, ref = arrivals_cuda(*c), arrivals_ref(*c)
+            errs["arrivals"] = max(errs["arrivals"], _max_abs_err(got, ref))
+            _require(_same(got, ref), f"arrivals {tag} at the phase-3 "
+                     "shapes: kernel != plain")
+        for c in wait:
+            got, ref = wait_cuda(*c), wait_ref(*c)
+            errs["wait"] = max(errs["wait"], _max_abs_err(got, ref))
+            _require(_same(got, ref), f"wait {tag} at the phase-3 shapes: "
+                     "kernel != plain")
+        for c in wait_churn:
+            (s1, n1), (s2, n2) = wait_cuda(*c), wait_ref(*c)
+            errs["wait_churn"] = max(errs["wait_churn"], _max_abs_err(s1, s2),
+                                     _max_abs_err(n1, n2))
+            _require(_same(s1, s2) and _same(n1, n2), f"wait (churn variant)"
+                     f" {tag} at the phase-3 shapes: kernel != plain")
+        nb = _nbytes
+        calls = {
+            "merge": (lambda: [merge_cuda(va, ia, vb, ib, valid_a=ma,
+                                          valid_b=mb)
+                               for va, ia, vb, ib, ma, mb in merge],
+                      _merge_bytes(merge)),
+            "arrivals": (lambda: [arrivals_cuda(*c) for c in arr],
+                         sum(_arrivals_bytes(*c) for c in arr)),
+            "wait": (lambda: [wait_cuda(*c) for c in wait],
+                     sum(4 * nb(o) for o, _, _ in wait)),
+            "wait_churn": (lambda: [wait_cuda(*c) for c in wait_churn],
+                           sum(6 * nb(c[0]) for c in wait_churn)),
+        }
+        for name, (kern, nbytes) in calls.items():
+            dev_ms = _device_ms(kern, match=(f"{name}_kernel",))
+            ms = min(_cuda_ms(kern), _cuda_ms(kern))
+            bound = nbytes / MEM_BYTES_PER_S * 1e3
+            out.setdefault(name, {})[tag] = {
+                "ms": ms, "device_ms": dev_ms, "bound_ms": bound,
+                "bound_by": "bytes", "bytes_per_sweep": nbytes}
+            print(f"[times] {name} {tag}: " + json.dumps(out[name][tag]))
+    return out
 
 
 def _sum_or_none(xs):
@@ -1235,13 +1657,20 @@ def main() -> int:
     _parity(engine, p)
 
     dev_launches, scores, _ = _device_path(dev, gen, _build)
+    topo_launches = _topologies(dev, gen, errs, _build)
+    prec_launches, _ = _reduced_precision(engine, dev, gen, errs, _build)
 
     launches = {"serve": serve_launches, "serve_churn": churn_launches,
-                "device": dev_launches}
+                "device": dev_launches, "topologies": topo_launches,
+                **prec_launches}
     # phase 3b extended origin 0's slices with the reroute tables
     rr = _device_slices(engine.plan.depth_slices(sts[0]), dev)[2]
     _require(rr is not None, "phase 3b built no reroute tables")
     rows = _times(levels, rr, dev, gen, errs, launches)
+    by_dtype = _dtype_times(levels, dev, gen, errs)
+    for row in rows:
+        if row["name"] in by_dtype:
+            row["by_dtype"] = by_dtype[row["name"]]
     rows.append(_topk_row(scores, errs, launches))
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -9,34 +9,53 @@ auto-TTLs and device-resident depth slices.
 This package carries ``fd-basic``, ``fd-st1``, ``fd-st1+2`` and
 ``fd-dynamic`` with or without churn (finite ``lifetime_mean_s``; §4.2
 dead-parent rerouting under ``fd-dynamic``) and the ``cn`` / ``cn-star``
-baselines, in float64, with iid link latencies.  In every RNG mode its
-``TopKResult`` carries the reference package's bits (``values``,
-``indices`` and every ``BatchMetrics`` field).  Everything else
-(``fd-stats``, ``latency_model="edge"``, reduced precision, live
-overlays) raises ``NotImplementedError`` naming the slice of the port
-that will bring it — the engine never falls back to another path.
+baselines, with i.i.d. or per-edge (``latency_model="edge"``, any
+coordinate-carrying topology of ``repro_torch.p2psim.topologies``) link
+latencies.  In float64 and every RNG mode its ``TopKResult`` carries
+the reference package's bits (``values``, ``indices`` and every
+``BatchMetrics`` field); ``precision="f32"`` / ``"bf16"`` runs the
+sweep in that dtype under the tolerance contract of
+:mod:`repro_torch.engine.precision`.
+
+The two-round ``fd-stats`` heuristic (paper §3.3) runs the scalar
+reference twice on the host, as the reference package does in both of
+its backends: its result says so (``backend_used == "sim"``), and the
+engine warns once.  Live overlays raise ``NotImplementedError``; nothing
+else falls back to another path.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.mesh import resolve_device
-from repro_torch.engine.api import Engine, Policy, QuerySpec, TopKResult
+from repro_torch.engine.api import (PRECISIONS, Engine, Policy, QuerySpec,
+                                    TopKResult)
 from repro_torch.engine.plan import NetworkPlan
+from repro_torch.engine.precision import check_tolerance
 from repro_torch.engine.sim_torch import run_entries_torch
 from repro_torch.kernels import _build
 from repro_torch.p2psim.graph import Topology
-from repro_torch.p2psim.metrics import QUERY_BYTES, BatchMetrics
-from repro_torch.p2psim.simulate import SimParams
+from repro_torch.p2psim.metrics import QUERY_BYTES, BatchMetrics, QueryMetrics
+from repro_torch.p2psim.simulate import (SimParams, _latency_mode,
+                                         run_query_reference)
 
 _BM_FIELDS = ("m_bw", "m_rt", "b_bw", "b_rt", "response_time_s", "accuracy")
 _ALL_BM_FIELDS = ("n_reached", "n_edges_pq", "avg_degree", "m_fw",
                   "b_fw") + _BM_FIELDS
+
+
+def _batch_of_one(met: QueryMetrics) -> BatchMetrics:
+    """Wrap one scalar QueryMetrics as a (1, 1) BatchMetrics."""
+    bm = BatchMetrics.empty(met.algorithm, 1, 1)
+    for f in _ALL_BM_FIELDS:
+        getattr(bm, f)[0, 0] = getattr(met, f)
+    return bm
 
 
 def _slice_rows(bm: BatchMetrics, lo: int, n_queries: int,
@@ -50,22 +69,6 @@ def _slice_rows(bm: BatchMetrics, lo: int, n_queries: int,
     return out
 
 
-def _unported(spec: QuerySpec, pol: Policy, p: SimParams) -> Optional[str]:
-    """Why this package cannot run ``(spec, pol, p)`` yet, or None."""
-    if pol.algorithm == "fd-stats":
-        return ("policy 'fd-stats' comes with the slice that ports the "
-                "scalar reference run")
-    if pol.algorithm not in ("fd", "cn", "cn_star"):
-        return f"algorithm {pol.algorithm!r} is not part of the port"
-    if p.latency_model == "edge":
-        return ("latency_model='edge' comes with the topology-registry "
-                "slice of the port")
-    if (spec.precision or "f64") != "f64":
-        return (f"precision={spec.precision!r} comes with the "
-                "reduced-precision slice of the port")
-    return None
-
-
 class SimEngine(Engine):
     """Unified Top-k engine over the overlay simulator, sweep on a torch
     device.
@@ -75,18 +78,44 @@ class SimEngine(Engine):
     kernels' plain PyTorch versions.  ``device=None`` without a CUDA
     device raises.  The first CUDA execution builds the kernel library;
     that time is booked in ``TopKResult.compile_s``.
+
+    ``precision``: ``"f64"`` (default — the reference's bits), ``"f32"``
+    or ``"bf16"`` (the sweep runs in that dtype; tolerance contract).  A
+    spec's ``precision`` overrides it per request.  With
+    ``validate_precision=True`` (default) a reduced-precision execution
+    also reruns the same entries in f64 on the same device and records
+    ``check_tolerance(...).summary()`` in ``extras["tolerance"]``;
+    timed paths switch it off.
     """
 
     backend = "sim-torch"
 
     def __init__(self, top: Optional[Union[Topology, NetworkPlan]] = None,
-                 params: Optional[SimParams] = None, *, device=None):
+                 params: Optional[SimParams] = None, *, device=None,
+                 precision: str = "f64", validate_precision: bool = True):
         """Build the engine (and compile ``top``'s plan when given)."""
+        if precision not in PRECISIONS:
+            raise ValueError(
+                f"precision must be one of {PRECISIONS}, got {precision!r}")
         self.device = resolve_device(device, "SimEngine")
         self.params = params if params is not None else SimParams()
         self.plan: Optional[NetworkPlan] = None
+        self._precision = precision
+        self._validate_precision = validate_precision
+        self._warned_host = False
         if top is not None:
             self.prepare(top)
+
+    def _host_path(self, reason: str) -> str:
+        """Record a run on the host reference path; warn AT MOST ONCE per
+        engine.  Returns the ``backend_used`` it reports."""
+        if not self._warned_host:
+            self._warned_host = True
+            warnings.warn(
+                f"SimEngine(sim-torch): {reason}; running on the host "
+                "reference path (reported on TopKResult.backend_used)",
+                RuntimeWarning, stacklevel=5)
+        return "sim"
 
     def prepare(self, top: Union[Topology, NetworkPlan]) -> NetworkPlan:
         """Compile (or adopt) the overlay's NetworkPlan."""
@@ -182,7 +211,7 @@ class SimEngine(Engine):
             if not self._coalescable(spec, pol):
                 results[i] = self._execute(spec, pol, p)
                 continue
-            prec = spec.precision or "f64"
+            prec = spec.precision or self._precision
             groups.setdefault((pol, p.k, p.latency_model, prec),
                               []).append(i)
         for (pol, k, lm, prec), idxs in groups.items():
@@ -223,12 +252,14 @@ class SimEngine(Engine):
         """Run one (already resolved) spec on the prepared overlay."""
         if self.plan is None:
             raise RuntimeError("call SimEngine.prepare(topology) first")
-        if p.latency_model not in ("iid", "edge"):
-            raise ValueError(f"latency_model must be 'iid' or 'edge', "
-                             f"got {p.latency_model!r}")
-        why = _unported(spec, pol, p)
-        if why is not None:
-            raise NotImplementedError(why)
+        _latency_mode(self.plan.top, p)   # validate model name + coords
+        prec = spec.precision or self._precision
+        if pol.algorithm == "fd-stats":
+            if prec != "f64":
+                raise ValueError(
+                    "fd-stats runs on the scalar reference path, which "
+                    "is f64-only; request precision='f64' (or None)")
+            return self._run_stats(spec, pol, p)
 
         origins = np.atleast_1d(np.asarray(spec.origins, dtype=np.int64))
         Q, T = len(origins), spec.n_trials
@@ -255,11 +286,24 @@ class SimEngine(Engine):
                                 ent_seeds, self.plan.top.n, p,
                                 pol.algorithm, pol.dynamic,
                                 pol.lifetime_mean_s, spec.independent,
-                                self.device, replicas=rep)
+                                self.device, replicas=rep, precision=prec)
         compile_s += res.pop("compile_s")
         run_s = time.perf_counter() - t0
         vals = res.pop("values")
         owns = res.pop("owners")
+        extras: dict = {}
+        if prec != "f64" and self._validate_precision:
+            # the tolerance contract: rerun the SAME entries in f64 on
+            # the same device and measure the reduced result against it
+            res64 = run_entries_torch(self.plan, sts, ent_st, ent_origin,
+                                      ent_seeds, self.plan.top.n, p,
+                                      pol.algorithm, pol.dynamic,
+                                      pol.lifetime_mean_s,
+                                      spec.independent, self.device,
+                                      replicas=rep, precision="f64")
+            extras["tolerance"] = check_tolerance(
+                prec, vals, owns, res64["values"],
+                res64["owners"]).summary()
 
         bm = BatchMetrics.empty(pol.algorithm, Q, T)
         n_reached_s = np.array([len(st.idx) for st in sts], np.int64)
@@ -276,7 +320,74 @@ class SimEngine(Engine):
                           backend_used=self.backend,
                           topology=self.plan.top.kind,
                           latency_model=p.latency_model, metrics=bm,
-                          precision="f64",
+                          precision=prec,
                           values=vals.reshape(Q, T, p.k),
                           indices=owns.reshape(Q, T, p.k),
-                          compile_s=compile_s, run_s=run_s)
+                          compile_s=compile_s, run_s=run_s, extras=extras)
+
+    # ---- statistics heuristic (paper §3.3 + Fig 7) ----------------------
+
+    def _run_stats(self, spec: QuerySpec, pol: Policy,
+                   p: SimParams) -> TopKResult:
+        """Two-round protocol: round 1 full FD gathers per-child best-rank
+        stats; round 2 forwards Q only to children whose best past score
+        ranked above ``z * k`` in the parent's merged list.
+
+        The reference package's ``_run_stats``, copied: both rounds are
+        the scalar reference run on the host (``backend_used ==
+        "sim"``).  Under a finite ``lifetime_mean_s`` the rounds run
+        without churn, as the reference's do."""
+        used = self._host_path("the two-round fd-stats heuristic has no "
+                               "device sweep")
+        t_start = time.perf_counter()
+        origins = np.atleast_1d(np.asarray(spec.origins, dtype=np.int64))
+        if len(origins) != 1 or spec.n_trials != 1:
+            raise ValueError("fd-stats runs one origin x one trial per call")
+        if spec.seeds is not None:
+            seeds = np.asarray(spec.seeds, dtype=np.int64)
+            if seeds.shape != (1, 1):
+                raise ValueError(f"seeds must be (1, 1), got {seeds.shape}")
+            p = dataclasses.replace(p, seed=int(seeds[0, 0]))
+        origin = int(origins[0])
+        top = self.plan.top
+        if p.ttl == 0:
+            # resolve auto-TTL once from the plan cache and thread it
+            # through both rounds (round 2 prunes AFTER TTL resolution,
+            # so the full-topology eccentricity is the right value twice)
+            p = dataclasses.replace(p, ttl=self.plan.auto_ttl(origin))
+        met1, st = run_query_reference(top, origin, p, return_state=True)
+        children = st["children"]
+        ms = st["merged_scores"]
+        n = top.n
+        keep = np.ones(n, bool)
+        k = p.k
+        for v in range(n):
+            for c in children[v]:
+                if ms[v] is None or ms[c] is None:
+                    continue
+                # best rank of c's subtree contribution within v's merge
+                in_c = np.isin(ms[v], ms[c])
+                ranks = np.flatnonzero(in_c)
+                best = ranks[0] if len(ranks) else k
+                if best >= pol.z * k:
+                    keep[c] = False
+        met2, st2 = run_query_reference(top, origin, p, child_mask=keep,
+                                        return_state=True)
+        # accuracy of round 2 vs round-1 TRUTH (the full reach set) —
+        # pruning shrinks P_Q, so met2.accuracy alone would be trivially 1
+        reached1 = st["reached"]
+        idx1 = np.flatnonzero(reached1)
+        true_scores = st["scores"][idx1].reshape(-1)
+        top_true = np.sort(true_scores)[::-1][:k]
+        got = st2["merged_scores"][origin]
+        acc = float(np.intersect1d(top_true, got).size) / k \
+            if got is not None else 0.0
+        reduction = 1.0 - met2.total_bytes / max(met1.total_bytes, 1)
+        return TopKResult(
+            policy=pol.name, backend=self.backend, k=k,
+            backend_used=used, topology=top.kind,
+            latency_model=p.latency_model, metrics=_batch_of_one(met2),
+            run_s=time.perf_counter() - t_start,
+            extras={"metrics_full": met1, "metrics_pruned": met2,
+                    "comm_reduction": reduction, "accuracy": acc,
+                    "z": pol.z})

@@ -37,6 +37,18 @@ RNG mode.  The merge follows ``merge_ref``'s tie rule (list ``a`` first,
 then the lower position) everywhere; on distinct scores — what f64
 uniform draws give — every merge rule selects the same lists.
 
+Reduced precision (``precision="f32"`` / ``"bf16"``) narrows every
+draw the sweeps read once on the host (``engine.precision.host_cast``)
+and uploads it in that dtype; the sweeps then run end to end in it
+through the same kernels, and every float operand of a sweep must share
+that one dtype (a float64 operand would silently promote the op).  The
+level outputs come back widened to float64 (exact) for the shared numpy
+epilogue, whose ground-truth top-k is rebuilt from the cast scores, as
+the reference's ``run_entries_jax`` does.  Its urgent post-pass sums a
+child's arrival in the run's dtype, as the sweep did, so each list is
+on time or late once; ``run_entries_jax`` sums it again in float64 and
+can merge a list and send it urgent both.
+
 Entry rows are independent and PyTorch runs eagerly, so there is no
 power-of-two padding of entry groups (the reference pads only to bound
 its jit cache).
@@ -50,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine.plan import DepthSlices, NetworkPlan
+from repro_torch.engine.precision import host_cast
 from repro_torch.kernels.merge.ops import merge_scorelists
 from repro_torch.kernels.sweep.ops import level_arrivals, wait_propagate
 from repro_torch.p2psim.metrics import ENTRY_BYTES_PAPER
@@ -155,6 +168,16 @@ def _arrivals(dn_term, levels, E, dt, dev):
     return t_qs
 
 
+def _one_dtype(*ts):
+    """The one float dtype of the sweep operands ``ts`` (None entries
+    skipped); raises when they differ."""
+    dts = {t.dtype for t in ts if t is not None}
+    if len(dts) != 1:
+        raise TypeError("sweep operands mix float dtypes "
+                        f"{sorted(map(str, dts))}")
+    return dts.pop()
+
+
 def _fd_sweep(scores, t_exec, up_term, dn_term, wt, tqf, lam, levels,
               els, *, k: int, with_st1: bool, death=None, rr=None):
     """Forward + merge-and-backward sweeps of one origin's tree.
@@ -172,12 +195,17 @@ def _fd_sweep(scores, t_exec, up_term, dn_term, wt, tqf, lam, levels,
     grandchild slots: a grandchild's list reaches its grandparent iff
     its parent died (its own death is already in its -inf rows).
 
+    Every float operand shares one dtype (f64, f32 or bf16), and so does
+    every intermediate: buffers are made in it and Python scalars keep
+    it.
+
     Returns per-level send times, merged values (E, L, k) and owners,
     the Strategy-1 skip count per entry (None for FD-Basic), and the
     per-level liveness masks (None without churn).
     """
     E = t_exec.shape[0]
-    dt, dev = t_exec.dtype, t_exec.device
+    dt = _one_dtype(scores, t_exec, up_term, dn_term, wt, tqf, lam, death)
+    dev = t_exec.device
     K = _next_pow2(k)
     dmax = len(levels) - 1
     with_churn = death is not None
@@ -265,8 +293,8 @@ def _fd_sweep(scores, t_exec, up_term, dn_term, wt, tqf, lam, levels,
 def _cn_sweep(t_exec, dn_term, levels):
     """CN / CN* need only the arrival sweep: each level's execution-done
     times ``t_q + t_exec``."""
-    t_qs = _arrivals(dn_term, levels, t_exec.shape[0], t_exec.dtype,
-                     t_exec.device)
+    t_qs = _arrivals(dn_term, levels, t_exec.shape[0],
+                     _one_dtype(t_exec, dn_term), t_exec.device)
     return [tq + t_exec[:, lv["vv"]] for tq, lv in zip(t_qs, levels)]
 
 
@@ -276,10 +304,25 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _entry_rows(a: np.ndarray, es: np.ndarray, device) -> torch.Tensor:
-    """Rows ``es`` of a per-entry (E, ...) host array on ``device``; when
-    ``es`` is the whole batch (then ``es == arange(E)``) no gather."""
-    return _to_device(a if len(es) == a.shape[0] else a[es], device)
+def _upload(a: np.ndarray, precision: str, device) -> torch.Tensor:
+    """A float64 host array cast to ``precision`` on the host, then put
+    on ``device`` in that dtype."""
+    return host_cast(a, precision).to(device)
+
+
+def _entry_rows(t: torch.Tensor, es: np.ndarray, device) -> torch.Tensor:
+    """Rows ``es`` of a per-entry (E, ...) host tensor, already in the
+    run's dtype, put on ``device``; when ``es`` is the whole batch (then
+    ``es == arange(E)``) no gather."""
+    return (t if len(es) == t.shape[0] else t[torch.from_numpy(es)]).to(
+        device)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A level output as a host array; floats widened to float64
+    (exact) for the shared numpy epilogue."""
+    t = t.cpu()
+    return (t.to(torch.float64) if t.is_floating_point() else t).numpy()
 
 
 def _conv_slice_field(f, v, device):
@@ -350,15 +393,17 @@ def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
                       ent_origin: np.ndarray, seeds, n: int, p: SimParams,
                       algorithm: str, dynamic: bool, lifetime_mean_s: float,
                       independent: bool, device: torch.device,
-                      replicas=None) -> dict:
+                      replicas=None, precision: str = "f64") -> dict:
     """FD (with or without churn) or CN / CN* over a flattened (E,) entry
     batch on ``device``.
 
-    The counterpart of the reference's ``run_entries_jax`` in f64: the
-    same per-entry output dict (metric arrays, the origin's merged
+    The counterpart of the reference's ``run_entries_jax``: the same
+    per-entry output dict (metric arrays, the origin's merged
     ``values`` / ``owners``), plus ``compile_s`` — the wall time of the
     depth-slice compiles, reroute extensions and uploads this call had
-    to do (0.0 on a warm plan).
+    to do (0.0 on a warm plan).  ``precision="f32"`` / ``"bf16"`` runs
+    the sweeps in that dtype on draws cast once on the host (tolerance
+    contract); ``"f64"`` gives the reference's bits.
     """
     churn = not math.isinf(lifetime_mean_s)
     E = len(seeds)
@@ -372,6 +417,13 @@ def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
                               independent, par_lat, origin_lat)
     out = _empty_out(E, k)
     out["compile_s"] = 0.0
+    cast: dict = {}
+
+    def _lo(name):
+        """A per-entry draw narrowed to the run's dtype, once a run."""
+        if name not in cast:
+            cast[name] = host_cast(getattr(draws, name), precision)
+        return cast[name]
 
     # ---- CN / CN*: arrival sweep on the device, baseline math shared ----
     if algorithm in ("cn", "cn_star"):
@@ -381,10 +433,10 @@ def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
         for si, st in enumerate(sts):
             es = ent_of_st[si]
             sl, levels, _, _ = _slices(plan, st, device, False, out)
-            ted = _cn_sweep(_entry_rows(draws.t_exec, es, device),
-                            _entry_rows(draws.dn_term, es, device), levels)
+            ted = _cn_sweep(_entry_rows(_lo("t_exec"), es, device),
+                            _entry_rows(_lo("dn_term"), es, device), levels)
             for d, lv in enumerate(sl.levels):
-                t_ex_done[np.ix_(es, lv["vv"])] = ted[d].cpu().numpy()
+                t_ex_done[np.ix_(es, lv["vv"])] = _host(ted[d])
         _cn_entries(out, draws, sts, ent_st, ent_origin, t_ex_done, p,
                     algorithm)
         return out
@@ -398,31 +450,30 @@ def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
     for si, st in enumerate(sts):
         es = ent_of_st[si]
 
-        def _take(a):
-            return _entry_rows(a, es, device)
+        def _take(name):
+            return _entry_rows(_lo(name), es, device)
 
         sl, levels, els, rr = _slices(plan, st, device, with_reroute, out)
         with_st1 = st.fw_strategy != "basic"
         tqf = lam = None
         if with_st1:
-            tqf = _to_device(np.where(st.depth >= 0,
-                                      st.depth * p.t_qsnd_s, np.inf),
-                             device)
-            lam = _take(draws.lam)
+            tqf = _upload(np.where(st.depth >= 0, st.depth * p.t_qsnd_s,
+                                   np.inf), precision, device)
+            lam = _take("lam")
         send_d, mv_d, mo_d, skip, alive_d = _fd_sweep(
-            _take(draws.scores), _take(draws.t_exec),
-            _take(draws.up_term), _take(draws.dn_term),
-            _to_device(wait_time(st.ttl_rem, p), device), tqf, lam,
+            _take("scores"), _take("t_exec"), _take("up_term"),
+            _take("dn_term"),
+            _upload(wait_time(st.ttl_rem, p), precision, device), tqf, lam,
             levels, els, k=k, with_st1=with_st1,
-            death=_take(draws.death) if churn else None,
+            death=_take("death") if churn else None,
             rr=rr if with_reroute else None)
         for d, lv in enumerate(sl.levels):
             rows = np.ix_(es, lv["vv"])
-            send_t[rows] = send_d[d].cpu().numpy()
-            mvals[rows] = mv_d[d].cpu().numpy()
-            mown[rows] = mo_d[d].cpu().numpy()
+            send_t[rows] = _host(send_d[d])
+            mvals[rows] = _host(mv_d[d])
+            mown[rows] = _host(mo_d[d])
             if churn:
-                valid[rows] = alive_d[d].cpu().numpy()
+                valid[rows] = _host(alive_d[d])
         out["m_fw"][es] = (st.fw_static + sl.n_els
                            - skip.cpu().numpy().astype(np.int64)
                            if with_st1 else st.m_basic)
@@ -450,7 +501,12 @@ def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
             if len(ch) == 0:
                 continue
             pr = st.parent[ch]
-            a = send_t[np.ix_(es, ch)] + draws.up_term[np.ix_(es, ch)]
+            # the sweep's own sum in its dtype (widened exactly), so a
+            # list is either on time at its parent or late, never both
+            rows = np.ix_(es, ch)
+            a = (host_cast(send_t[rows], precision)
+                 + _lo("up_term")[tuple(map(torch.from_numpy, rows))]
+                 ).double().numpy()
             late = a > send_t[np.ix_(es, pr)]
             if churn:
                 # a dead child never went urgent; a dead parent's
@@ -475,7 +531,10 @@ def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
             out["m_bw"][es] += cnt
             out["b_bw"][es] += cnt * list_bytes
 
-    top_true_all = _true_topk_by_origin(draws.scores, sts, ent_of_st, k)
+    # ground truth from the scores as the sweep saw them (widened
+    # exactly): in f64 the very array the sweep read
+    truth_scores = _lo("scores").double().numpy()
+    top_true_all = _true_topk_by_origin(truth_scores, sts, ent_of_st, k)
     t_merge_done = send_t[np.arange(E), ent_origin] + p.merge_s
     _accept_urgent_origin(urgent, ent_origin, t_merge_done, mvals, mown,
                           valid, k)

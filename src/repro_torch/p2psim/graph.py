@@ -1,10 +1,13 @@
-"""Overlay topologies: the BA generator and the CSR / BFS helpers.
+"""Overlay topologies: the flat generators and the CSR / BFS helpers.
 
-A copy of the pieces of the reference package's ``p2psim.graph`` that
-the overlay sweeps read: :class:`Topology`, the Barabási–Albert
-generator (BRITE "BA", the same construction and RNG stream, so a seed
-gives the same overlay in both packages), the CSR view and the
-vectorized first-touch BFS.
+A copy of the reference package's ``p2psim.graph``: :class:`Topology`,
+the Barabási–Albert (BRITE "BA") and Waxman (BRITE "RTWaxman")
+generators with the same constructions and RNG streams, so a seed gives
+the same overlay (adjacency and coordinates) in both packages, the CSR
+view, the vectorized first-touch BFS and the scalar flood
+(``bfs_tree``, ``eccentricity_ttl``) that the scalar reference run
+reads.  The rest of the family is in
+:mod:`repro_torch.p2psim.topologies`.
 
 :func:`topology_from_arrays` carries an overlay built elsewhere (the
 reference package's, handed over as numpy arrays) into this package.
@@ -66,7 +69,7 @@ class Topology:
             raise ValueError(
                 f"topology {self.kind!r} has no node coordinates; the "
                 "per-edge latency model needs a coordinate-carrying "
-                "generator")
+                "generator (see repro_torch.p2psim.topologies)")
         cu = self.coords[u]
         cv = self.coords[v]
         d = np.sqrt(((cu - cv) ** 2).sum(axis=-1))
@@ -118,6 +121,72 @@ def barabasi_albert(n: int, m: int = 2, seed: int = 0) -> Topology:
     """BA preferential attachment; avg degree -> 2m (paper's d(G)=4)."""
     rng = np.random.default_rng(seed)
     return _to_topology(_ba_adj(n, m, rng), "ba")
+
+
+def _waxman_adj(pos: np.ndarray, alpha: float, beta: float,
+                avg_degree: float, rng: np.random.Generator) -> List[set]:
+    """Waxman adjacency sets over GIVEN positions (``waxman``'s exact
+    edge-draw + nearest-pair bridging, reusable for the AS level of the
+    hierarchical generator).  O(n^2) memory — flat-overlay scale only.
+    """
+    n = len(pos)
+    d = np.sqrt(((pos[:, None] - pos[None]) ** 2).sum(-1))
+    L = np.sqrt(2.0)
+    p = beta * np.exp(-d / (alpha * L))
+    np.fill_diagonal(p, 0.0)
+    target_edges = avg_degree * n / 2.0
+    p *= target_edges / max(p.sum() / 2.0, 1e-300)
+    upper = np.triu(rng.random((n, n)) < p, k=1)
+    adj: List[set] = [set() for _ in range(n)]
+    for u, v in zip(*np.nonzero(upper)):
+        adj[int(u)].add(int(v))
+        adj[int(v)].add(int(u))
+    # connect components along nearest pairs
+    comp = _components(adj)
+    while len(set(comp)) > 1:
+        c0 = np.flatnonzero(comp == comp[0])
+        c1 = np.flatnonzero(comp != comp[0])
+        dd = d[np.ix_(c0, c1)]
+        i, j = np.unravel_index(np.argmin(dd), dd.shape)
+        u, v = int(c0[i]), int(c1[j])
+        adj[u].add(v)
+        adj[v].add(u)
+        comp = _components(adj)
+    return adj
+
+
+def waxman(n: int, alpha: float = 0.15, beta: float = 0.2,
+           avg_degree: float = 4.0, seed: int = 0) -> Topology:
+    """Waxman: P(u~v) = beta * exp(-d(u,v) / (alpha * L)).
+
+    Edge probability is globally rescaled to hit ``avg_degree``; the
+    result is connected by bridging components along nearest pairs.
+    The draw positions are kept as ``coords``, so Waxman overlays
+    support the per-edge latency model.
+    """
+    rng = np.random.default_rng(seed)
+    pos = rng.random((n, 2))
+    adj = _waxman_adj(pos, alpha, beta, avg_degree, rng)
+    return _to_topology(adj, "waxman", coords=pos)
+
+
+def _components(adj: List[set]) -> np.ndarray:
+    n = len(adj)
+    comp = -np.ones(n, dtype=np.int64)
+    cur = 0
+    for s in range(n):
+        if comp[s] >= 0:
+            continue
+        stack = [s]
+        comp[s] = cur
+        while stack:
+            u = stack.pop()
+            for v in adj[u]:
+                if comp[v] < 0:
+                    comp[v] = cur
+                    stack.append(v)
+        cur += 1
+    return comp
 
 
 def topology_from_arrays(n: int, neighbors: Sequence[np.ndarray],
@@ -312,3 +381,33 @@ def bfs_tree_csr_multi(indptr: np.ndarray, indices: np.ndarray,
     if return_rank:
         return parent, depth, depth >= 0, rank
     return parent, depth, depth >= 0
+
+
+def bfs_tree(top: Topology, origin: int, ttl: int):
+    """(parent, depth, reached): the implicit spanning tree of the flood.
+
+    parent[origin] = -1; unreached peers have depth = -1.
+    """
+    n = top.n
+    parent = -np.ones(n, dtype=np.int64)
+    depth = -np.ones(n, dtype=np.int64)
+    depth[origin] = 0
+    frontier = [origin]
+    lvl = 0
+    while frontier and lvl < ttl:
+        nxt = []
+        for u in frontier:
+            for v in top.neighbors[u]:
+                if depth[v] < 0:
+                    depth[v] = lvl + 1
+                    parent[v] = u
+                    nxt.append(int(v))
+        frontier = nxt
+        lvl += 1
+    return parent, depth, depth >= 0
+
+
+def eccentricity_ttl(top: Topology, origin: int) -> int:
+    """Smallest TTL reaching every peer (paper: TTL=12 reaches 10k)."""
+    _, depth, _ = bfs_tree(top, origin, top.n)
+    return int(depth.max())

@@ -17,7 +17,11 @@ alone.
     the origin (§4.1), the §4.2 reroute message count, ground-truth
     top-k, and the retrieval phase with optional replica placement;
   * the CN / CN* baselines given the sweep's arrival times
-    (``_cn_entries``).
+    (``_cn_entries``);
+  * the scalar reference run (``run_query_reference``, with the forward
+    message count ``forward_messages``), which the two-round
+    ``fd-stats`` heuristic runs on the host, and the latency-model
+    helpers (``_latency_mode``, ``_tree_edge_latency``).
 """
 from __future__ import annotations
 
@@ -27,8 +31,9 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.p2psim.graph import Topology, bfs_tree_csr
-from repro_torch.p2psim.metrics import ENTRY_BYTES_PAPER, QUERY_BYTES
+from repro_torch.p2psim.graph import Topology, as_csr, bfs_tree, bfs_tree_csr
+from repro_torch.p2psim.metrics import (ENTRY_BYTES_PAPER, QUERY_BYTES,
+                                        QueryMetrics)
 
 
 @dataclasses.dataclass
@@ -74,11 +79,35 @@ class SimParams:
     replication_placement: str = "random"
 
 
+# --------------------------------------------------------------------------
+# local query execution: exact top-k order statistics of n uniforms
+# --------------------------------------------------------------------------
+
+def local_topk_scores(n_tuples: np.ndarray, k: int,
+                      rng: np.random.Generator) -> np.ndarray:
+    """(P, k) descending top-k of n_i U[0,1] scores, sampled exactly:
+    top-1 = U^(1/n); successive gaps via the Rényi representation."""
+    p = len(n_tuples)
+    u = rng.random((p, k))
+    out = np.empty((p, k))
+    cur = np.ones(p)
+    remaining = n_tuples.astype(np.float64)
+    for j in range(k):
+        cur = cur * u[:, j] ** (1.0 / np.maximum(remaining, 1.0))
+        out[:, j] = cur
+        remaining -= 1.0
+    return out
+
+
 def wait_time(ttl_rem: np.ndarray, p: SimParams) -> np.ndarray:
     """Appendix A formula (2)."""
     t = ttl_rem.astype(np.float64)
     return (t * p.t_qsnd_s + p.t_exec_max_s + t * p.t_slsnd_s
             + np.maximum(t - 1.0, 0.0) * p.merge_s)
+
+
+def _link_time(nbytes: float, lat: np.ndarray, bw: np.ndarray) -> np.ndarray:
+    return lat + nbytes / bw
 
 
 def _draw_link(rng, p: SimParams, size):
@@ -99,6 +128,29 @@ def _draw_bw(rng, p: SimParams, size):
     """
     return np.maximum(rng.normal(p.bw_mean_Bps, math.sqrt(p.bw_var), size),
                       1_000.0)
+
+
+def _latency_mode(top: Topology, p: SimParams) -> bool:
+    """Validate ``p.latency_model`` against ``top``; True = edge mode."""
+    if p.latency_model not in ("iid", "edge"):
+        raise ValueError(
+            f"latency_model must be 'iid' or 'edge', "
+            f"got {p.latency_model!r}")
+    if p.latency_model == "edge" and top.coords is None:
+        raise ValueError(
+            f"latency_model='edge' needs node coordinates; topology "
+            f"{top.kind!r} has none (use a coordinate-carrying "
+            "generator from repro_torch.p2psim.topologies)")
+    return p.latency_model == "edge"
+
+
+def _tree_edge_latency(top: Topology, parent: np.ndarray) -> np.ndarray:
+    """(n,) latency of each node's tree edge v <-> parent(v) from the
+    embedding (positions without a parent hold the floor value — never
+    read by the sweeps)."""
+    safe = np.maximum(parent, 0)
+    lat = top.pair_latency(np.arange(top.n), safe)
+    return np.where(parent >= 0, lat, top.lat_base_s)
 
 
 # --------------------------------------------------------------------------
@@ -192,6 +244,344 @@ def _serving_peers(owners: np.ndarray, replicas, death_row: np.ndarray,
             first = reps[np.arange(len(reps)), ok.argmax(axis=1)]
             served[need] = np.where(has, first, -1)
     return served
+
+
+# --------------------------------------------------------------------------
+# forward-phase message counting
+# --------------------------------------------------------------------------
+
+def forward_messages(top: Topology, origin: int, parent, depth, reached,
+                     strategy: str, p: SimParams,
+                     rng: np.random.Generator,
+                     child_allowed: Optional[np.ndarray] = None) -> int:
+    """Count forward messages for basic / st1 / st1+2.
+
+    ``child_allowed``: bool (n,) — statistics-heuristic pruning: peers a
+    parent refuses to forward to (their subtree never receives Q) must be
+    handled by the caller re-running bfs on the pruned graph; here it only
+    restricts the counting.
+    """
+    n = top.n
+    ttl = p.ttl
+    ttl_rem = ttl - depth
+    if strategy == "basic":
+        m = 0
+        for u in range(n):
+            if not reached[u] or ttl_rem[u] <= 0:
+                continue
+            deg = len(top.neighbors[u])
+            m += deg if u == origin else deg - 1
+        return m
+    # strategy 1 / 1+2: randomized λ per peer; send only to neighbors not
+    # yet heard from
+    lam = rng.random(n) * p.lam_max_s
+    t_q = np.where(depth >= 0, depth * p.t_qsnd_s, np.inf)  # coarse arrival
+    send_at = t_q + lam
+    m = 0
+    for u in range(n):
+        if not reached[u] or ttl_rem[u] <= 0:
+            continue
+        pu = parent[u]
+        plist: set = set()
+        if strategy == "st1+2" and pu >= 0:
+            plist = set(int(x) for x in top.neighbors[pu])
+            plist.add(int(pu))
+        for v in top.neighbors[u]:
+            v = int(v)
+            if v == pu:
+                continue
+            if not reached[v]:
+                m += 1          # edge to a peer beyond TTL still costs
+                continue
+            if strategy == "st1+2" and v in plist:
+                continue        # Strategy 2: v provably has Q already
+            # Strategy 1: u sends unless it heard v's copy first
+            if parent[v] == u:
+                m += 1          # tree edge: u is v's first sender
+            elif send_at[v] < send_at[u] and (parent[u] == v
+                                              or depth[v] <= depth[u]):
+                # v sent earlier and u would have received it: skip
+                continue
+            else:
+                m += 1
+    return m
+
+
+# --------------------------------------------------------------------------
+# full query simulation
+# --------------------------------------------------------------------------
+
+def run_query_reference(top: Topology, origin: int = 0,
+                        params: Optional[SimParams] = None,
+                        *, algorithm: str = "fd", strategy: str = "st1+2",
+                        dynamic: bool = True,
+                        lifetime_mean_s: float = float("inf"),
+                        child_mask: Optional[np.ndarray] = None,
+                        return_state: bool = False):
+    """Simulate one Top-k query — the scalar REFERENCE implementation.
+
+    The reference package's executable spec, copied line for line (it
+    draws from ``np.random.default_rng(p.seed)`` in a fixed order): the
+    batched draws below reproduce it bit for bit, and the two-round
+    ``fd-stats`` heuristic (``SimEngine._run_stats``) runs it twice.
+    Returns QueryMetrics (+ state dict).
+
+    algorithm: "fd" | "cn" | "cn_star".
+    strategy (fd): "basic" | "st1" | "st1+2" (forward-phase counting).
+    dynamic (fd): urgent score-lists + rerouting (§4) on/off.
+    child_mask: bool (n,) — peers excluded from forwarding (statistics
+    heuristic §3.3); excluded subtrees never receive Q.
+    """
+    p = params if params is not None else SimParams()
+    edge_lat = _latency_mode(top, p)
+    rng = np.random.default_rng(p.seed)
+    n = top.n
+    pre_bfs = None
+    if p.ttl == 0:
+        if child_mask is None:
+            # auto TTL = eccentricity: the full-depth BFS *is* the
+            # TTL-limited BFS at that TTL, so resolve and reuse in one pass
+            pre_bfs = bfs_tree(top, origin, n)
+            p = dataclasses.replace(p, ttl=int(pre_bfs[1].max()))
+        else:
+            from repro_torch.p2psim.graph import eccentricity_ttl
+            p = dataclasses.replace(p, ttl=eccentricity_ttl(top, origin))
+
+    # ---- reach set (optionally pruned) ---------------------------------
+    if child_mask is not None:
+        pruned = Topology(n, [top.neighbors[u][child_mask[top.neighbors[u]]]
+                              if child_mask[u] or u == origin
+                              else np.array([], np.int32)
+                              for u in range(n)], top.kind)
+        parent, depth, reached = bfs_tree(pruned, origin, p.ttl)
+        count_top = pruned
+    else:
+        parent, depth, reached = (pre_bfs if pre_bfs is not None
+                                  else bfs_tree(top, origin, p.ttl))
+        count_top = top
+    idx = np.flatnonzero(reached)
+    n_r = len(idx)
+    ttl_rem = np.maximum(p.ttl - depth, 0)
+
+    # ---- local data ----------------------------------------------------
+    n_tuples = rng.integers(p.tuples_lo, p.tuples_hi + 1, n)
+    scores = local_topk_scores(n_tuples, p.k, rng)          # (n, k)
+    t_exec = n_tuples * p.exec_s_per_tuple
+
+    # ---- per-edge link draws (tree edges) ------------------------------
+    if edge_lat:
+        # BRITE distance-proportional latency: deterministic per edge
+        # and symmetric (one physical link), bandwidth still drawn per
+        # direction in the iid draw's stream positions
+        par_lat = _tree_edge_latency(top, parent)
+        lat_up, bw_up = par_lat, _draw_bw(rng, p, n)   # v -> parent(v)
+        lat_dn, bw_dn = par_lat, _draw_bw(rng, p, n)   # parent(v) -> v
+    else:
+        lat_up, bw_up = _draw_link(rng, p, n)   # v -> parent(v)
+        lat_dn, bw_dn = _draw_link(rng, p, n)   # parent(v) -> v
+
+    # query arrival times down the tree
+    t_q = np.full(n, np.inf)
+    t_q[origin] = 0.0
+    order = idx[np.argsort(depth[idx])]
+    for v in order:
+        if v == origin:
+            continue
+        t_q[v] = t_q[parent[v]] + _link_time(QUERY_BYTES, lat_dn[v], bw_dn[v])
+    t_ex_done = t_q + t_exec
+
+    # ---- churn ----------------------------------------------------------
+    if math.isinf(lifetime_mean_s):
+        death = np.full(n, np.inf)
+    else:
+        death = rng.exponential(lifetime_mean_s, n)
+        death[origin] = np.inf
+
+    met = QueryMetrics(algorithm=algorithm)
+    met.n_reached = n_r
+    sub = set(int(i) for i in idx)
+    met.n_edges_pq = sum(
+        1 for u in idx for v in top.neighbors[u] if u < v and int(v) in sub)
+    met.avg_degree = float(np.mean([len(top.neighbors[u]) for u in idx]))
+
+    list_bytes = p.k * ENTRY_BYTES_PAPER
+    item_sizes = np.maximum(
+        rng.normal(p.item_mean_B, p.item_std_B, (n, p.k)), 64.0)
+
+    # ---- CN / CN* baselines --------------------------------------------
+    if algorithm in ("cn", "cn_star"):
+        if edge_lat:
+            # direct originator links: embedding distance origin -> v
+            lat_o = top.pair_latency(origin, np.arange(n))
+            bw_o = _draw_bw(rng, p, n)
+        else:
+            lat_o, bw_o = _draw_link(rng, p, n)
+        per_peer = (item_sizes[:, :p.k].sum(1) if algorithm == "cn"
+                    else np.full(n, float(list_bytes)))
+        alive = death > t_ex_done
+        senders = idx[alive[idx]]
+        senders = senders[senders != origin]
+        met.m_fw = forward_messages(count_top, origin, parent, depth,
+                                    reached, "basic", p, rng)
+        met.b_fw = met.m_fw * QUERY_BYTES
+        met.m_bw = len(senders)
+        met.b_bw = int(per_peer[senders].sum())
+        # originator bandwidth contention: serialized arrival
+        own_bw = max(p.bw_mean_Bps, 1.0)
+        t_arrive = t_ex_done[senders] + lat_o[senders]
+        t_resp = (np.max(t_arrive) if len(senders) else 0.0) \
+            + per_peer[senders].sum() / own_bw
+        if algorithm == "cn_star":
+            # retrieval of actual items still needed
+            true_full = np.full((n, p.k), -np.inf)
+            true_full[idx] = scores[idx]
+            flat = true_full.reshape(-1)
+            top_idx = np.argpartition(flat, -p.k)[-p.k:]
+            owners = np.unique(top_idx // p.k)
+            met.m_rt = 2 * len(owners)
+            met.b_rt = int(met.m_rt / 2 * p.request_B
+                           + item_sizes.reshape(-1)[top_idx].sum())
+            t_resp += 2 * p.latency_mean_s + met.b_rt / own_bw
+        met.response_time_s = float(t_resp)
+        delivered = np.zeros(n, bool)
+        delivered[senders] = True
+        delivered[origin] = True
+        met.accuracy = _accuracy(scores, idx, delivered, p.k)
+        return (met, None) if not return_state else (met, {
+            "parent": parent, "depth": depth, "reached": reached})
+
+    # ---- FD: merge-and-backward ----------------------------------------
+    met.m_fw = forward_messages(count_top, origin, parent, depth, reached,
+                                strategy, p, rng)
+    met.b_fw = met.m_fw * QUERY_BYTES
+
+    deadline = t_q + wait_time(ttl_rem, p)
+    children: list = [[] for _ in range(n)]
+    for v in idx:
+        if parent[v] >= 0:
+            children[parent[v]].append(int(v))
+
+    # bottom-up: actual send time, delivered lists, merged content
+    send_t = np.zeros(n)
+    merged_scores = [None] * n       # (k,) arrays
+    merged_owner = [None] * n
+    delivered = np.zeros(n, bool)    # peer's own top-k reached its parent
+    late_urgent: list = []           # (arrival_at_origin_estimate, peer)
+
+    for v in order[::-1]:
+        ch = children[v]
+        arrivals = []
+        for c in ch:
+            a = send_t[c] + _link_time(list_bytes, lat_up[c], bw_up[c])
+            arrivals.append((a, c))
+        own_ready = t_ex_done[v]
+        all_in = max([a for a, _ in arrivals], default=0.0)
+        s = min(max(own_ready, all_in), max(deadline[v], own_ready))
+        if death[v] < s:
+            # peer left before sending: its subtree's merged list is lost
+            # unless dynamic rerouting saves the CHILDREN's lists (they
+            # reroute around the dead parent, §4.2)
+            send_t[v] = np.inf
+            merged_scores[v] = None
+            continue
+        send_t[v] = s
+        # merge own + children lists that arrived in time (or urgent)
+        mats = [scores[v]]
+        owners = [np.full(p.k, v, dtype=np.int64)]
+        for a, c in arrivals:
+            if merged_scores[c] is None:
+                # dead child subtree
+                if dynamic:
+                    for cc in children[c]:
+                        if merged_scores[cc] is not None and \
+                                send_t[cc] < np.inf:
+                            mats.append(merged_scores[cc])
+                            owners.append(merged_owner[cc])
+                            met.m_bw += 1
+                            met.b_bw += list_bytes
+                continue
+            if a <= s:
+                mats.append(merged_scores[c])
+                owners.append(merged_owner[c])
+            else:
+                if dynamic:
+                    # urgent list: bubbles without wait; reaches origin
+                    hops = depth[v]
+                    eta = a + hops * (p.latency_mean_s
+                                      + list_bytes / p.bw_mean_Bps)
+                    late_urgent.append((eta, c))
+                    met.m_bw += int(hops)
+                    met.b_bw += int(hops) * list_bytes
+        allm = np.concatenate(mats)
+        allo = np.concatenate(owners)
+        sel = np.argsort(allm)[::-1][:p.k]
+        merged_scores[v] = allm[sel]
+        merged_owner[v] = allo[sel]
+        if v != origin:
+            met.m_bw += 1
+            met.b_bw += list_bytes
+
+    # urgent lists accepted if they arrive before retrieval starts
+    t_merge_done = send_t[origin] + p.merge_s
+    extra = []
+    for eta, c in late_urgent:
+        if eta <= t_merge_done and merged_scores[c] is not None:
+            extra.append((merged_scores[c], merged_owner[c]))
+    if extra and merged_scores[origin] is not None:
+        allm = np.concatenate([merged_scores[origin]]
+                              + [e[0] for e in extra])
+        allo = np.concatenate([merged_owner[origin]]
+                              + [e[1] for e in extra])
+        sel = np.argsort(allm)[::-1][:p.k]
+        merged_scores[origin] = allm[sel]
+        merged_owner[origin] = allo[sel]
+
+    # ---- data retrieval --------------------------------------------------
+    # a dead owner's items are fetched from its first alive replica
+    # (replication_factor > 0); `served[i]` is the peer that serves
+    # final owner i's items, or -1 when owner and all replicas are gone
+    final_owners = np.unique(merged_owner[origin])
+    replicas = None
+    if p.replication_factor > 0:
+        ip_, ix_ = as_csr(top)
+        replicas = build_replica_table(ip_, ix_, p.replication_factor,
+                                       p.replication_placement)
+    served = _serving_peers(final_owners, replicas, death, t_merge_done)
+    srv = served >= 0
+    met.m_rt = 2 * int(srv.sum())
+    if edge_lat:
+        lat_o = top.pair_latency(origin,
+                                 np.where(srv, served, final_owners))
+        bw_o = _draw_bw(rng, p, len(final_owners))
+    else:
+        lat_o, bw_o = _draw_link(rng, p, len(final_owners))
+    per_owner_counts = np.array(
+        [(merged_owner[origin] == o).sum() for o in final_owners])
+    fetch_bytes = per_owner_counts * p.item_mean_B
+    met.b_rt = int(srv.sum() * p.request_B + fetch_bytes[srv].sum())
+    t_fetch = (2 * lat_o + (p.request_B + fetch_bytes) / bw_o)
+    t_fetch = t_fetch[srv]
+    met.response_time_s = float(
+        t_merge_done + (t_fetch.max() if len(t_fetch) else 0.0))
+
+    # ---- accuracy ---------------------------------------------------------
+    # delivered set: owners present in the final list are by construction
+    # delivered; accuracy compares final list vs true top-k of reached set
+    true_scores = scores[idx].reshape(-1)
+    top_true = np.sort(true_scores)[::-1][:p.k]
+    got = np.sort(merged_scores[origin])[::-1]
+    # intersection by value (scores a.s. distinct)
+    inter = np.intersect1d(top_true, got).size
+    # retrieval failures (owner + every replica dead) lose their items
+    lost_owned = np.isin(merged_owner[origin], final_owners[~srv])
+    inter = max(0, inter - int(np.isin(
+        merged_scores[origin][lost_owned], top_true).sum()))
+    met.accuracy = inter / p.k
+
+    state = {"parent": parent, "depth": depth, "reached": reached,
+             "merged_scores": merged_scores, "merged_owner": merged_owner,
+             "children": children, "scores": scores}
+    return (met, state) if return_state else (met, None)
 
 
 # --------------------------------------------------------------------------

@@ -9,6 +9,7 @@ PyTorch version.  Every comparison is exact: ``values``, ``indices`` and
 every ``BatchMetrics`` field.
 """
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -19,6 +20,8 @@ import repro.engine as ref_engine
 from repro.p2psim import SimParams as RefParams
 from repro.p2psim import barabasi_albert as ref_ba
 from repro.p2psim import run_query_reference
+from repro.engine.precision import check_tolerance as ref_check_tolerance
+from repro.p2psim.topologies import hierarchical as ref_hierarchical
 from repro_torch.engine import QuerySpec, SimEngine, get_policy
 from repro_torch.p2psim import SimParams, topology_from_arrays
 
@@ -140,6 +143,19 @@ def test_random_overlays_match_reference_bits(n, m, seed, pol, rng):
                  f"n={n} m={m} seed={seed} {POLICIES[pol]}")
 
 
+# a coordinate-carrying overlay, so the latency_model="edge" cases run
+REF_HTOP = ref_hierarchical(220, seed=7)
+HTOP = topology_from_arrays(REF_HTOP.n, REF_HTOP.neighbors, REF_HTOP.kind,
+                            REF_HTOP.coords)
+
+
+def _ref_policy(policy):
+    if isinstance(policy, str):
+        return policy
+    return ref_engine.Policy(**{f.name: getattr(policy, f.name)
+                                for f in dataclasses.fields(policy)})
+
+
 @pytest.mark.parametrize("policy,spec", [
     (get_policy("fd-stats").variant(lifetime_mean_s=30.0), QuerySpec()),
     ("cn", QuerySpec(precision="f32")),
@@ -150,9 +166,39 @@ def test_random_overlays_match_reference_bits(n, m, seed, pol, rng):
     ("fd-basic", QuerySpec(precision="bf16")),
 ])
 def test_unported_policies_and_options_raise(policy, spec):
-    engine = SimEngine(TOP, PA, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        engine.run(spec, policy)
+    """The policies and options earlier slices of the port refused
+    (fd-stats, per-edge latencies, f32 / bf16) now run and are held to
+    the reference package: its bits in f64 (fd-stats: both rounds'
+    metrics, the traffic cut and the accuracy), the tolerance contract
+    against its f64 answer in f32 / bf16."""
+    port = SimEngine(HTOP, PA, device="cpu")
+    ref = ref_engine.SimEngine(REF_HTOP, REF_PA)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # fd-stats: host
+        got = port.run(spec, policy)
+    prec = spec.precision or "f64"
+    want = ref.run(_ref_spec(dataclasses.replace(spec, precision=None)),
+                   _ref_policy(policy))
+    assert got.precision == prec and got.latency_model == want.latency_model
+    if prec != "f64":
+        assert got.extras["tolerance"]["ok"], got.extras["tolerance"]
+        assert ref_check_tolerance(
+            prec, *(a.reshape(-1, got.k) for a in (
+                got.values, got.indices, want.values, want.indices))).ok
+        return
+    if got.policy.startswith("fd-stats"):
+        assert got.backend_used == "sim" and want.backend_used == "sim"
+        for key in ("metrics_full", "metrics_pruned"):
+            assert (dataclasses.asdict(got.extras[key])
+                    == dataclasses.asdict(want.extras[key])), key
+        for key in ("comm_reduction", "accuracy", "z"):
+            assert got.extras[key] == want.extras[key], key
+        for f in FIELDS:
+            np.testing.assert_array_equal(getattr(got.metrics, f),
+                                          getattr(want.metrics, f),
+                                          err_msg=f)
+        return
+    _assert_same(got, want, f"{got.policy} {spec}")
 
 
 def test_overlay_and_device_resolution_raise(monkeypatch):

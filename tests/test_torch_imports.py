@@ -1,9 +1,11 @@
-"""The port stands alone: no JAX and nothing of the reference package.
+"""The port stands alone: no JAX, nothing of the reference package, and
+no ``ml_dtypes`` (a package that ships with JAX, absent where the card
+is).
 
 Importing every module of ``repro_torch`` in a fresh interpreter leaves
-``jax`` and ``repro`` out of ``sys.modules``; a scan of the sources (and
-of ``chip_smoke.py`` and the tools that drive the port on the card)
-finds no import of either; and ``chip_smoke.py``
+``jax``, ``repro`` and ``ml_dtypes`` out of ``sys.modules``; a scan of
+the sources (and of ``chip_smoke.py`` and the tools that drive the port
+on the card) finds no import of any of them; and ``chip_smoke.py``
 fails, printing no result, where no CUDA device is present.
 """
 import os
@@ -15,7 +17,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$|,)", re.MULTILINE)
+    r"^\s*(?:import|from)\s+(?:jax|repro|ml_dtypes)(?:\.|\s|$|,)",
+    re.MULTILINE)
+_FORBIDDEN_MODULES = ("jax", "repro", "ml_dtypes")
 
 
 def _modules():
@@ -31,9 +35,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'repro' or "
-            "m.startswith('repro.'))\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{_FORBIDDEN_MODULES!r})\n"
             "print('BAD', bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -51,6 +54,8 @@ def test_sources_import_neither_jax_nor_reference():
     # the scan itself catches what it must
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from repro.engine import SimEngine")
+    assert _FORBIDDEN.search("import ml_dtypes")
+    assert _FORBIDDEN.search("    from ml_dtypes import bfloat16")
     assert not _FORBIDDEN.search("from repro_torch.engine import x")
 
 

@@ -94,11 +94,16 @@ def test_warmed_server_dispatches_without_compile():
 
 
 def test_engine_failure_is_counted_not_hidden():
-    """An unported policy fails its request: the handle raises and the
-    server's ``failed`` counter says so."""
+    """A request the engine refuses (fd-stats over two trials, which the
+    reference refuses too) fails: the handle raises and the server's
+    ``failed`` counter says so."""
+    bad = QuerySpec(origins=(0,), n_trials=2)
+    with pytest.raises(ValueError):
+        ref_engine.SimEngine(REF_TOP, REF_PA).run(
+            ref_engine.QuerySpec(origins=(0,), n_trials=2), "fd-stats")
     with QueryServer(SimEngine(TOP, PA, device="cpu")) as server:
-        h = server.submit(QuerySpec(origins=(0,)), "fd-stats")
-        with pytest.raises(NotImplementedError):
+        h = server.submit(bad, "fd-stats")
+        with pytest.raises(ValueError, match="one origin x one trial"):
             h.result(timeout=60)
         m = server.metrics()
     assert m.failed == 1 and m.served == 0
