@@ -14,7 +14,13 @@ result line) when any phase fails:
      top-k) bit-equal to its plain PyTorch version on the card, in f64,
      f32 and bf16 (top-k: f32, bf16, f16), on inputs with ties, -inf
      tails, signed zeros and NaNs of both signs where the kernel orders
-     scores, and for the top-k the inputs that break selections by
+     scores; for the merge the library's launch plan equal to the
+     wrapper's (``merge_plan``) and refusal of any other, its own plan
+     and every route that can take the lists (bulk, direct, row) at k
+     of 1 to 4096, at a tile's rows and one off and 70,001 rows, on views one row into a larger tensor, with
+     masks, and f16 and int32 values through the promotion to f32, into
+     outputs filled with NaN; and for the top-k the inputs that break
+     selections by
      counting (ties at the k-th key across tiles, one repeated value,
      rows of the tile width and one off, n == k, specials at the
      threshold, all -inf), for the arrivals kernel the library's
@@ -71,7 +77,9 @@ result line) when any phase fails:
   6. time each kernel (the churn variant at the churn sweep's level
      shapes) at the shapes its path gives it (CUDA events,
      median of several runs) beside its plain version, one PyTorch
-     library call where one computes the same function, and its bound
+     library call where one computes the same function (the merge:
+     ``torch.sort`` stable, and ``torch.topk`` of the concatenation as a
+     second yardstick, whose tie order differs), and its bound
      (bytes over the card's memory rate); ``device_ms`` is the kernel's
      own device time per timed call from one ``torch.profiler`` window
      (``library_device_ms`` the library call's), free of host gaps; the
@@ -288,10 +296,115 @@ def _sorted_lists(shape, k, dtype, gen, dev, ties=True, specials=False):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _check_merge(gen, dev, errs):
+def _check_merge_plan(dev):
+    """The library plans as the wrapper does (``merge_plan``) for every
+    route request, element size and alignment at the plan's edges (the
+    tile rows and one off, the bulk threshold, more rows than the grid
+    takes), and its launcher refuses any other plan."""
+    import ctypes
     import torch
-    from repro_torch.kernels.merge import merge_cuda, merge_ref
+    import repro_torch.kernels.merge.merge as wrapper
+    from repro_torch.kernels import _build
+    LL, I = ctypes.c_longlong, ctypes.c_int
+    plan_fn = _build.function("merge", "repro_merge_plan",
+                              [LL, LL, I, I, I, ctypes.c_void_p])
+    buf = (LL * 8)()
     n = 0
+    for rows in (1, 15, 17, 23, 25, 31, 33, 2047, 2048, 4223, 4224, 6400,
+                 32767, 32768, 70_001, 95_999, 96_000, 670_976, 2 ** 31 + 5,
+                 2 ** 33):
+        for k in (1, 3, 20, 32, 33, 512, 513, 4096):
+            for size in (8, 4, 2):
+                for aligned in (True, False):
+                    for route, flag in ((None, -1), (wrapper.BULK, 0),
+                                        (wrapper.DIRECT, 1), (wrapper.ROW, 2)):
+                        try:
+                            want = tuple(int(x) for x in wrapper.merge_plan(
+                                rows, k, size, () if aligned else (8,),
+                                route=route))
+                        except ValueError:
+                            want = None
+                        code = plan_fn(rows, k, size, int(aligned), flag,
+                                       ctypes.cast(buf, ctypes.c_void_p))
+                        got = None if code else tuple(buf)
+                        _require(got == want, f"merge plan rows={rows} k={k}"
+                                 f" itemsize={size} aligned={aligned} route="
+                                 f"{route}: library {got}, wrapper {want}")
+                        n += 1
+    # the launcher refuses a plan other than its own
+    fn = _build.function("merge", "repro_merge_f32", wrapper._ARGTYPES)
+    rows = 100_000
+    v = torch.zeros((rows + 1, 32), dtype=torch.float32, device=dev)
+    o = torch.zeros((rows + 1, 32), dtype=torch.int32, device=dev)
+    p = wrapper.merge_plan(rows, 32, 4)
+    _require(p.route == wrapper.BULK, f"merge plan of a large f32 launch: "
+             f"{p}")
+    st = torch.cuda.current_stream().cuda_stream
+    for what, base, route, R, grid in (
+            ("rows a tile", 0, p.route, p.rows_per_tile + 1, p.grid),
+            ("grid", 0, p.route, p.rows_per_tile, p.grid - 1),
+            ("route", 0, 3, p.rows_per_tile, p.grid),
+            ("bulk route off 16 bytes", 4, p.route, p.rows_per_tile, p.grid)):
+        va = v.data_ptr() + base
+        code = fn(va, o.data_ptr(), va, o.data_ptr(), None, None, va,
+                  o.data_ptr(), rows, 32, route, R, grid, st)
+        _require(code != 0, f"merge launcher took another {what}")
+        n += 1
+    return n
+
+
+def _nan_out(shape, dt, dev):
+    """Outputs filled with NaN / -7, so that a skipped element shows."""
+    import torch
+    return (torch.full(shape, float("nan"), dtype=dt, device=dev),
+            torch.full(shape, -7, dtype=torch.int32, device=dev))
+
+
+def _one_row_in(t):
+    """``t`` as a contiguous view one row into a larger tensor."""
+    import torch
+    big = torch.empty((t.shape[0] + 1,) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    big[1:].copy_(t)
+    return big[1:]
+
+
+def _merge_lists(rows, k, dt, gen, dev):
+    """Two descending (values, owners) list sets for phase 2: lattice
+    values with ties, -inf tails and specials for the float types, small
+    integers (ties) for int32."""
+    import torch
+    out = []
+    for _ in range(2):
+        if dt == torch.int32:
+            v = torch.randint(-50, 50, (rows, k), generator=gen, device=dev,
+                              dtype=torch.int32).sort(
+                                  dim=-1, descending=True).values
+            o = torch.randint(0, 1 << 30, (rows, k), generator=gen,
+                              device=dev, dtype=torch.int32)
+        else:
+            v, o = _sorted_lists((rows,), k, dt, gen, dev, specials=True)
+        out += [v.contiguous(), o]
+    return out
+
+
+def _check_merge(gen, dev, errs):
+    """The merge bit-equal to ``merge_ref``, into outputs filled with NaN:
+    lattice lists with specials and masks at (3, 37); then at k of 1, 3,
+    20, 32, 33, 512, 513 and 4096, at rows of 1, a tile's rows R - 1 and
+    R + 1 (the ring's at k = 32, else the plan's) and 70,001 (k <= 64;
+    1,000 to k = 513 and 65 at 4096), on fresh tensors with and without
+    masks and on contiguous views one row into a larger tensor (bases
+    off 16 bytes where a row is not a multiple of 16 bytes): in f64, f32
+    and bf16 the wrapper's own plan (every error raised) and each route
+    (bulk, direct, row) that ``merge_plan`` says can take the lists, and
+    f16 and int32 through the promotion to f32, at least one case each
+    k and type; an f16 list with an f32 one, both with NaNs of both
+    signs; and the refusal of f32 lists with f64 or bf16 ones."""
+    import torch
+    import repro_torch.kernels.merge.merge as wrapper
+    from repro_torch.kernels.merge import merge_cuda, merge_ref
+    n = _check_merge_plan(dev)
     for k in (1, 7, 20, 32, 64, 256):
         for dt in (torch.float64, torch.float32, torch.bfloat16):
             lead = (3, 37)
@@ -304,7 +417,8 @@ def _check_merge(gen, dev, errs):
                 mb = torch.rand(lead, generator=gen, device=dev) < 0.7
                 for masks in ({}, {"valid_a": ma, "valid_b": mb},
                               {"valid_b": mb}):
-                    v1, i1 = merge_cuda(va, ia, vb, ib, **masks)
+                    v1, i1 = merge_cuda(va, ia, vb, ib, **masks,
+                                        out=_nan_out(va.shape, dt, dev))
                     v2, i2 = merge_ref(va, ia, vb, ib, **masks)
                     err = _max_abs_err(v1, v2)
                     errs["merge"] = max(errs["merge"], err)
@@ -313,6 +427,75 @@ def _check_merge(gen, dev, errs):
                              f"specials={specials}: kernel != plain "
                              f"version (max abs err {err})")
                     n += 1
+    for k in (1, 3, 20, 32, 33, 512, 513, 4096):
+        for dt in (torch.float64, torch.float32, torch.bfloat16,
+                   torch.float16, torch.int32):
+            promoted = dt in (torch.float16, torch.int32)
+            cdt = torch.float32 if promoted else dt
+            R = wrapper.merge_plan(
+                1 << 20, k, cdt,
+                route=wrapper.BULK if k == wrapper.BULK_K else None
+            ).rows_per_tile
+            big = 70_001 if k <= 64 else 1_000 if k <= 513 else 65
+            compared = 0
+            for rows in sorted({1, max(R - 1, 1), R + 1, big}):
+                va, ia, vb, ib = _merge_lists(rows, k, dt, gen, dev)
+                ma = torch.rand(rows, generator=gen, device=dev) < 0.7
+                mb = torch.rand(rows, generator=gen, device=dev) < 0.7
+                layouts = (("fresh", (va, ia, vb, ib), {}),
+                           ("fresh, masked", (va, ia, vb, ib),
+                            {"valid_a": ma, "valid_b": mb}),
+                           ("one row in, masked",
+                            tuple(_one_row_in(t) for t in (va, ia, vb, ib)),
+                            {"valid_a": ma, "valid_b": mb}))
+                for what, lists, masks in layouts:
+                    v2, i2 = merge_ref(*lists, **masks)
+                    # the wrapper's own plan, then each route forced where
+                    # the plan says it can take these lists (promoted
+                    # lists are cast inside the wrapper: their own plan)
+                    for route in (None,) if promoted else (
+                            None, wrapper.BULK, wrapper.DIRECT, wrapper.ROW):
+                        out = _nan_out(v2.shape, v2.dtype, dev)
+                        if route is not None:
+                            ptrs = [t.data_ptr() for t in (*lists, *out)]
+                            try:
+                                wrapper.merge_plan(rows, k, cdt, ptrs,
+                                                   route=route)
+                            except ValueError:
+                                continue        # a route these cannot take
+                        v1, i1 = wrapper._merge(
+                            *lists, masks.get("valid_a"),
+                            masks.get("valid_b"), route, out)
+                        err = _max_abs_err(v1, v2)
+                        errs["merge"] = max(errs["merge"], err)
+                        _require(_same(v1, v2) and _same(i1, i2),
+                                 f"merge k={k} {dt} rows={rows} {what} "
+                                 f"route={route}: kernel != plain version "
+                                 f"(max abs err {err})")
+                        compared += 1
+            _require(compared > 0, f"merge k={k} {dt}: no case compared")
+            n += compared
+    # an f16 list with an f32 one merges in f32; lists of two types that
+    # do not promote to one are refused
+    for k in (20, 32):
+        (va, ia), (vb, ib) = (
+            _sorted_lists((4_001,), k, t, gen, dev, specials=True)
+            for t in (torch.float16, torch.float32))
+        for a, b in (((va, ia), (vb, ib)), ((vb, ib), (va, ia))):
+            v2, i2 = merge_ref(*a, *b)
+            v1, i1 = merge_cuda(*a, *b, out=_nan_out(v2.shape, v2.dtype,
+                                                     dev))
+            _require(v1.dtype == torch.float32 and _same(v1, v2)
+                     and _same(i1, i2), f"merge k={k} f16 with f32: "
+                     f"kernel != plain version")
+            n += 1
+        for t in (torch.float64, torch.bfloat16):
+            try:
+                merge_cuda(vb, ib, vb.to(t), ib)
+            except ValueError:
+                n += 1
+            else:
+                _require(False, f"merge took f32 with {t} lists")
     return n
 
 
@@ -1366,7 +1549,8 @@ def _merge_row(name, merge, errs, note):
     import torch
     from repro_torch.kernels.merge import merge_cuda, merge_ref
     for va, ia, vb, ib, ma, mb in merge:
-        v1, i1 = merge_cuda(va, ia, vb, ib, valid_a=ma, valid_b=mb)
+        v1, i1 = merge_cuda(va, ia, vb, ib, valid_a=ma, valid_b=mb,
+                            out=_nan_out(va.shape, va.dtype, va.device))
         v2, i2 = merge_ref(va, ia, vb, ib, valid_a=ma, valid_b=mb)
         errs["merge"] = max(errs["merge"], _max_abs_err(v1, v2))
         _require(_same(v1, v2) and _same(i1, i2),
@@ -1384,7 +1568,9 @@ def _merge_row(name, merge, errs, note):
             lambda: [merge_ref(va, ia, vb, ib, valid_a=ma, valid_b=mb)
                      for va, ia, vb, ib, ma, mb in merge],
             lambda: [torch.sort(c, dim=-1, descending=True, stable=True)
-                     for c in cats], "merge", note)
+                     for c in cats], "merge", note,
+            lambda: [torch.topk(c, va.shape[-1], dim=-1)
+                     for c, (va, *_) in zip(cats, merge)])
 
 
 def _times(levels, rr, dev, gen, errs, launches):
@@ -1411,14 +1597,14 @@ def _times(levels, rr, dev, gen, errs, launches):
                 sum(dn.numel() for _, dn, _ in arr),
                 lambda: [arrivals_cuda(*c) for c in arr],
                 lambda: [arrivals_ref(*c) for c in arr], None, "arrivals",
-                static_note))
+                static_note, None))
     w_bytes = sum(4 * nb(o) for o, _, _ in wait)
     out.append(("wait", "src/repro_torch/kernels/csrc/sweep.cu",
                 "src/repro/kernels/sweep/sweep.py:98", len(wait), w_bytes,
                 sum(4 * o.numel() for o, _, _ in wait),
                 lambda: [wait_cuda(*c) for c in wait],
                 lambda: [wait_ref(*c) for c in wait], None, "wait",
-                static_note))
+                static_note, None))
     for c in wait_churn:
         s1, snd1 = wait_cuda(*c)
         s2, snd2 = wait_ref(*c)
@@ -1434,10 +1620,10 @@ def _times(levels, rr, dev, gen, errs, launches):
                 sum(6 * c[0].numel() for c in wait_churn),
                 lambda: [wait_cuda(*c) for c in wait_churn],
                 lambda: [wait_ref(*c) for c in wait_churn], None,
-                "wait_churn", churn_note))
+                "wait_churn", churn_note, None))
     rows = []
     for (name, source, replaces, calls, nbytes, nops, kern, plain,
-         lib, counter, note) in out:
+         lib, counter, note, lib2) in out:
         # the device time of this kernel's own launches in one sweep
         dev_ms = _device_ms(kern, match=(f"{counter}_kernel",))
         # plain, kernel, kernel, plain: take the lower of each pair
@@ -1462,6 +1648,11 @@ def _times(levels, rr, dev, gen, errs, launches):
             "library_device_ms": None if lib is None else _device_ms(lib),
             "calls_per_sweep": calls, "bytes_per_sweep": nbytes,
             "shape_note": note})
+        if lib2 is not None:
+            # torch.topk of the concatenation: a yardstick only (its tie
+            # order is not the merge's)
+            rows[-1]["library_topk_ms"] = _cuda_ms(lib2)
+            rows[-1]["library_topk_device_ms"] = _device_ms(lib2)
     # the arrivals level by level: the small levels are bound by their
     # launches, the large ones by their bytes
     each = _device_ms_each(lambda: [arrivals_cuda(*c) for c in arr],
@@ -1497,7 +1688,8 @@ def _dtype_times(levels, dev, gen, errs):
         merge = _merge_calls(_merge_pairs(levels), dev, gen, dt)
         arr, wait, wait_churn = _level_calls(levels, dev, gen, dt)
         for va, ia, vb, ib, ma, mb in merge:
-            v1, i1 = merge_cuda(va, ia, vb, ib, valid_a=ma, valid_b=mb)
+            v1, i1 = merge_cuda(va, ia, vb, ib, valid_a=ma, valid_b=mb,
+                                out=_nan_out(va.shape, dt, dev))
             v2, i2 = merge_ref(va, ia, vb, ib, valid_a=ma, valid_b=mb)
             errs["merge"] = max(errs["merge"], _max_abs_err(v1, v2))
             _require(_same(v1, v2) and _same(i1, i2),
