@@ -29,10 +29,17 @@ result line) when any phase fails:
      shapes and the plan's edges (one row, one column, one parent, odd
      widths, dn off 16-byte alignment, 70,000 rows, int64 positions,
      repeated parents) with signed zeros, infinities and NaNs in
-     tq_prev and dn, and for the wait kernel's churn variant deaths
-     exactly at the send time, infinite deaths and all-dead rows
+     tq_prev and dn; for both wait kernels the library's launch plan
+     equal to the wrapper's (``wait_plan``) and refusal of any other,
+     on each route, at the level shapes and odd sizes with 2% specials in
+     every operand (death too), as views one element in (the scalar
+     route) and on every quad of {+0, -0, 0.5, +inf, -inf, NaN}, and for
+     the churn variant deaths exactly at the send time, infinite deaths
+     and all-dead rows; for the top-k's select route (k > 256) its
+     library plan equal to the wrapper's and refusal of any other, and
+     k = 257, 512, 1,280 and 4096 and n == k on the inputs above
      (tolerance: exact — equal bits of values and owners; the
-     arrivals write into outputs filled with NaN);
+     arrivals and the waits write into outputs filled with NaN);
   3. serve 32 independent-stream ``fd-dynamic`` requests from 8 client
      threads plus one ``fd-basic``, ``fd-st1`` and ``fd-st1+2`` request
      on a 100,000-peer Barabási–Albert overlay (the reference package's
@@ -60,7 +67,9 @@ result line) when any phase fails:
      ``fd-dynamic`` under each schedule (32 stacked requests through
      ``run_many``, and the row gather), ``cn`` and ``cn-star``; check
      that the top-k and merge counters moved and that the first 4
-     queries equal the port's CPU path bit for bit;
+     queries equal the port's CPU path bit for bit; and one stacked
+     ``fd-dynamic`` halving call of 4 queries at k = 512 (the top-k's
+     select route), equal to the CPU path bit for bit;
   7. every registered topology family (the reference's full-size
      ``topology_sweep``: hierarchical at 100,000 peers, Waxman at 2,000,
      the others at 20,000, seed 7) under its native latency model
@@ -87,7 +96,10 @@ result line) when any phase fails:
      it, ``bound_ms_whole_parent_level`` counts all of tq_prev), and its
      row lists each level's device time beside its bounds (``levels``);
      each sim kernel's row adds its f32 and bf16 times and bytes bound
-     at the same shapes (``by_dtype``).
+     at the same shapes (``by_dtype``), and the waits' rows their f64
+     device time by level; the select route's row times it at (2048,
+     20000) k = 512 and 4096 and (32, 1,280,000) k = 1,280 beside
+     ``torch.topk``.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -120,6 +132,8 @@ E_MAIN = 32
 DEV_PEERS = 64
 DEV_LOCAL = 20_000
 DEV_K = 20
+# a k above the top-k's tile route (MAX_K = 256): the select route
+DEV_K_LARGE = 512
 DEV_D = 16
 DEV_B = 32
 
@@ -197,6 +211,7 @@ def _device_ms_each(fn, n_launch, match, reps=10):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)                 # the tracer up before the first
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -204,6 +219,8 @@ def _device_ms_each(fn, n_launch, match, reps=10):
                 for ev in prof.events()
                 if ev.device_type == DeviceType.CUDA and match in ev.name)
     if len(ks) != n_launch * reps:
+        print(f"[times] profiler saw {len(ks)} {match} kernels of "
+              f"{n_launch * reps}")
         return None
     return [statistics.fmean(us for _, us in ks[i::n_launch]) / 1e3
             for i in range(n_launch)]
@@ -553,6 +570,7 @@ def _topk_adversarial(dtype, gen, dev):
 def _check_topk_plan(dev):
     """The built library tiles as the wrapper plans, and its launcher
     refuses any other plan (the wrapper computes tiles and scratch)."""
+    import ctypes
     import torch
     import repro_torch.kernels.topk.topk as wrapper
     from repro_torch.kernels import _build
@@ -571,29 +589,80 @@ def _check_topk_plan(dev):
                   io.data_ptr(), torch.cuda.current_stream().cuda_stream)
         _require(code != 0, f"topk launcher took {tiles} tiles for n={n} "
                  f"(scratch {'given' if c is not None else 'missing'})")
-    return 3
+    # the select route (k > MAX_K): its library plans as the wrapper
+    # does, and its launcher refuses other tiles, no scratch, and a k
+    # the tile route takes
+    LL = ctypes.c_longlong
+    sel_plan = _build.function("topk_select", "repro_topk_select_plan",
+                               [LL, ctypes.c_int, ctypes.c_void_p])
+    buf = (LL * 2)()
+    n_checks = 3
+    for n in (1, 256, 257, 4096, 16_384, 16_385, 20_000, 1_280_000,
+              2 ** 31 - 1):
+        for k in (1, 256, 257, 512, 1_280, 4096, 20_000):
+            want = None
+            if wrapper.MAX_K < k <= n:
+                want = tuple(wrapper.plan(n, k)[1:])
+            code = sel_plan(n, k, ctypes.cast(buf, ctypes.c_void_p))
+            got = None if code else tuple(buf)
+            _require(got == want, f"topk select plan n={n} k={k}: library "
+                     f"{got}, wrapper {want}")
+            n_checks += 1
+    sel = _build.function("topk_select", "repro_topk_select_f32",
+                          wrapper._ARGTYPES)
+    n = 40_000
+    x = torch.zeros((1, n), device=dev)
+    _require(wrapper.plan(n, 512).tiles == 3, "topk select plan of "
+             f"n={n}: {wrapper.plan(n, 512)}")
+    for k, tiles, given in ((512, 3, False), (512, 4, True),
+                            (256, 3, True)):
+        scratch = torch.empty((1, 2 * k + 4096), dtype=torch.int64,
+                              device=dev)
+        vo = torch.empty((1, k), device=dev)
+        io = torch.empty((1, k), dtype=torch.int32, device=dev)
+        code = sel(x.data_ptr(), 1, n, k, 0, tiles,
+                   scratch.data_ptr() if given else None, vo.data_ptr(),
+                   io.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _require(code != 0, f"topk select launcher took k={k}, {tiles} "
+                 f"tiles for n={n} (scratch "
+                 f"{'given' if given else 'missing'})")
+        n_checks += 1
+    return n_checks
+
+
+_TOPK_KS = (1, 8, 20, 64, 256, 257, 512, 4096)
+
+
+def _check_topk_case(what, x, k, off, errs):
+    """The top-k kernel of k's route bit-equal to ``topk_ref``."""
+    from repro_torch.kernels.topk import topk_cuda, topk_ref
+    from repro_torch.kernels.topk.topk import MAX_K
+    v1, i1 = topk_cuda(x, k, index_offset=off)
+    v2, i2 = topk_ref(x, k, index_offset=off)
+    err = _max_abs_err(v1, v2)
+    name = "topk" if k <= MAX_K else "topk_select"
+    errs[name] = max(errs[name], err)
+    _require(_same(v1, v2) and _same(i1, i2),
+             f"topk {what} k={k} {x.dtype}: kernel != plain version "
+             f"(max abs err {err})")
 
 
 def _check_topk(gen, dev, errs):
+    """Both routes (tiles to k = 256, select above) on the inputs that
+    break selections by counting, n == k, and the device path's widths
+    with specials and ties, at k to 4096."""
     import torch
-    from repro_torch.kernels.topk import topk_cuda, topk_ref
     n_checks = _check_topk_plan(dev)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         cases = _topk_adversarial(dt, gen, dev)
-        for k in (1, 8, 20, 64, 256):
+        for k in _TOPK_KS:
             # n == k: the row is its own top-k
             cases.append((f"n == k={k}", _topk_input(3, k, dt, gen, dev)))
         for what, x in cases:
-            for k in (1, 8, 20, 64, 256):
+            for k in _TOPK_KS:
                 if k > x.shape[-1]:
                     continue
-                v1, i1 = topk_cuda(x, k, index_offset=7)
-                v2, i2 = topk_ref(x, k, index_offset=7)
-                err = _max_abs_err(v1, v2)
-                errs["topk"] = max(errs["topk"], err)
-                _require(_same(v1, v2) and _same(i1, i2),
-                         f"topk {what} k={k} {dt}: kernel != plain version "
-                         f"(max abs err {err})")
+                _check_topk_case(what, x, k, 7, errs)
                 n_checks += 1
     # 20,485 leaves a last tile of 5 scores, fewer than k (empty slots
     # in the candidates); 1,280,000 is the CN shape of the device path
@@ -601,17 +670,10 @@ def _check_topk(gen, dev, errs):
                     (20_000, 8), (20_485, 4), (1_280_000, 2)):
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             x = _topk_input(rows, n, dt, gen, dev)
-            for k in (1, 8, 20, 64, 256):
+            for k in _TOPK_KS + (1_280,):
                 if k > n:
                     continue
-                off = 1000 * k
-                v1, i1 = topk_cuda(x, k, index_offset=off)
-                v2, i2 = topk_ref(x, k, index_offset=off)
-                err = _max_abs_err(v1, v2)
-                errs["topk"] = max(errs["topk"], err)
-                _require(_same(v1, v2) and _same(i1, i2),
-                         f"topk n={n} k={k} {dt}: kernel != plain version "
-                         f"(max abs err {err})")
+                _check_topk_case(f"n={n}", x, k, 1000 * k, errs)
                 n_checks += 1
     return n_checks
 
@@ -709,6 +771,70 @@ def _check_arrivals_plan(dev):
     return n
 
 
+def _check_wait_plan(dev):
+    """The library plans the wait as the wrapper does (``wait_plan``) at
+    the path's level sizes, one 16-byte vector and one off, totals past
+    2**31, the grid's edge and requests that cannot be planned, for
+    every element size, operand count, alignment and route request, and
+    its launchers
+    refuse any other plan (a route taken as given, the rest
+    recomputed)."""
+    import ctypes
+    import itertools
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sweep.sweep import (_WAIT_ARGTYPES,
+                                                 _WAIT_CHURN_ARGTYPES,
+                                                 WAIT_VEC_MIN_BYTES,
+                                                 wait_plan)
+    LL, I = ctypes.c_longlong, ctypes.c_int
+    plan_fn = _build.function("sweep", "repro_wait_plan",
+                              [LL, I, I, I, I, ctypes.c_void_p])
+    buf = (LL * 3)()
+    totals = ([E_MAIN * L for L in (1, 308, 3837, 24120, 51529, 19690, 515)]
+              + [0, 1, 7, 8, 9, 3_000_001, 2 ** 31 - 1, 2 ** 31,
+                 2 ** 33 + 5, 2 ** 39 - 256, 2 ** 39 - 255])
+    n = 0
+    for total in totals + [WAIT_VEC_MIN_BYTES // 4 + d for d in (-1, 0)]:
+        for size, ops, aligned, vector in itertools.product(
+                (8, 4, 2, 3), (3, 4, 5), (True, False), (None, True, False)):
+            try:
+                want = tuple(int(x) for x in wait_plan(
+                    total, size, ops, aligned=aligned, vector=vector))
+            except ValueError:
+                want = None
+            code = plan_fn(total, size, ops, int(aligned),
+                           -1 if vector is None else int(vector),
+                           ctypes.cast(buf, ctypes.c_void_p))
+            got = None if code else tuple(buf)
+            _require(got == want, f"wait plan total={total} itemsize={size} "
+                     f"operands={ops} aligned={aligned} vector={vector}: "
+                     f"library {got}, wrapper {want}")
+            n += 1
+    # the launchers refuse a plan other than their own
+    fn = _build.function("sweep", "repro_wait_f64", _WAIT_ARGTYPES)
+    churn = _build.function("sweep", "repro_wait_churn_f64",
+                            _WAIT_CHURN_ARGTYPES)
+    total = E_MAIN * 24120
+    x = torch.zeros(total + 2, dtype=torch.float64, device=dev)
+    out = torch.empty_like(x)
+    p = wait_plan(total, 8)
+    _require(p.vec == 2, f"wait plan of a wide f64 level: {p}")
+    st = torch.cuda.current_stream().cuda_stream
+    for what, base, vec, grid in (
+            ("vector width", 0, 4, p.grid),
+            ("scalar grid", 0, 1, p.grid // 2),
+            ("grid", 0, p.vec, p.grid + 1),
+            ("vector route off 16 bytes", 8, p.vec, p.grid)):
+        xa, oa = x.data_ptr() + base, out.data_ptr() + base
+        code = fn(xa, xa, xa, oa, total, vec, grid, st)
+        code2 = churn(xa, xa, xa, xa, oa, oa, total, vec, grid, st)
+        _require(code != 0 and code2 != 0, f"wait launcher took another "
+                 f"{what}")
+        n += 2
+    return n
+
+
 def _check_arrivals_at(what, tq, dn, pp, errs):
     """The arrivals kernel each way the parent row allows (gathering;
     staging where it fits shared memory), written into NaN outputs so a
@@ -731,19 +857,63 @@ def _check_arrivals_at(what, tq, dn, pp, errs):
 
 
 def _check_wait_at(what, own, all_in, dl, death, errs):
-    """Both wait variants bit-equal to ``wait_ref``; the churn
-    variant's send times as the kernel wrote them."""
-    from repro_torch.kernels.sweep import wait_cuda, wait_ref
-    s1, s2 = wait_cuda(own, all_in, dl), wait_ref(own, all_in, dl)
-    errs["wait"] = max(errs["wait"], _max_abs_err(s1, s2))
-    c1, snd1 = wait_cuda(own, all_in, dl, death)
+    """Both wait variants bit-equal to ``wait_ref``, as planned and on
+    each route the operands allow (vector where they are 16-byte
+    aligned, scalar), written into outputs filled with
+    NaN so that a skipped element shows; returns the churn variant's
+    send times as the kernel wrote them."""
+    import torch
+    from repro_torch.kernels.sweep import wait_ref
+    from repro_torch.kernels.sweep.sweep import VEC_BYTES, _wait
+    s2 = wait_ref(own, all_in, dl)
     c2, snd2 = wait_ref(own, all_in, dl, death)
-    errs["wait_churn"] = max(errs["wait_churn"], _max_abs_err(c1, c2),
-                             _max_abs_err(snd1, snd2))
-    _require(_same(s1, s2), f"wait {what}: kernel != plain")
-    _require(_same(c1, c2) and _same(snd1, snd2),
-             f"wait (churn variant) {what}: kernel != plain")
+    aligned = all(t.data_ptr() % VEC_BYTES == 0
+                  for t in (own, all_in, dl, death))
+    for vector in (None, False) + ((True,) if aligned else ()):
+        how = f"{what} vector={vector}"
+        s1 = _wait(own, all_in, dl, None, vector,
+                   out=torch.full_like(own, float("nan")))
+        c1, snd1 = _wait(own, all_in, dl, death, vector,
+                         out=tuple(torch.full_like(own, float("nan"))
+                                   for _ in range(2)))
+        errs["wait"] = max(errs["wait"], _max_abs_err(s1, s2))
+        errs["wait_churn"] = max(errs["wait_churn"], _max_abs_err(c1, c2),
+                                 _max_abs_err(snd1, snd2))
+        _require(_same(s1, s2), f"wait {how}: kernel != plain")
+        _require(_same(c1, c2) and _same(snd1, snd2),
+                 f"wait (churn variant) {how}: kernel != plain")
     return snd1
+
+
+def _one_elem_in(t):
+    """``t`` as a contiguous view one element into a larger tensor (off
+    the 16-byte boundary: the wait's scalar route)."""
+    import torch
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:].copy_(t.reshape(-1))
+    return flat[1:].view(t.shape)
+
+
+def _special_grid(dt, dev):
+    """Every quad of {+0, -0, 0.5, +inf, -inf, NaN} as (own, all_in,
+    deadline, death), (36, 36) each: the first three hold every one of
+    the 216 triples, six times; each operand's NaN has bits of its own,
+    so a NaN that comes out names its operand."""
+    import itertools
+    import torch
+    bits = getattr(torch, _BITS[torch.empty(0, dtype=dt).element_size()])
+    table = _SPECIALS[str(dt)]
+    # +0, -0, +inf, -inf as bits; 0.5 and the NaNs set below
+    half = torch.tensor(0.5, dtype=dt).view(bits).item()
+    combos = torch.tensor(list(itertools.product(range(6), repeat=4)),
+                          device=dev)
+    ops = []
+    for j in range(4):
+        nan = table[4 + (j % 3)] if j < 3 else table[4]
+        vals = torch.tensor([table[0], table[1], half, table[2], table[3],
+                             nan], dtype=bits, device=dev)
+        ops.append(vals[combos[:, j]].view(dt).reshape(36, 36))
+    return ops
 
 
 def _rand(shape, dt, gen, dev, specials=0.0):
@@ -783,7 +953,7 @@ def _check_sweep(levels, gen, dev, errs):
     and the churn variant at its death edges."""
     import torch
     from repro_torch.kernels.sweep import wait_ref
-    n = _check_arrivals_plan(dev)
+    n = _check_arrivals_plan(dev) + _check_wait_plan(dev)
     cases = _arrivals_cases(levels, gen, dev)
     for dt in (torch.float64, torch.float32, torch.bfloat16):
         for what, E, Lp, pp in cases:
@@ -795,6 +965,20 @@ def _check_sweep(levels, gen, dev, errs):
                 dn.copy_(_rand((E, L), dt, gen, dev, 0.02))
                 n += _check_arrivals_at(f"{what} {dt} dn offset {offset}",
                                         tq, dn, pp, errs)
+        # the wait at the level shapes and odd sizes (a ragged tail past
+        # the last 16-byte vector), with 2% specials in every operand,
+        # also as views one element in (the scalar route); and the grid
+        # of every special quad
+        shapes = [(E_MAIN, lv["vv"].shape[0]) for lv in levels]
+        for shape in shapes + [(1, 1), (3, 7), (37, 1001)]:
+            ops = [_rand(shape, dt, gen, dev, 0.02) for _ in range(4)]
+            _check_wait_at(f"{shape} {dt} with specials", *ops, errs)
+            _check_wait_at(f"{shape} {dt} with specials, one element in",
+                           *(_one_elem_in(x) for x in ops), errs)
+            n += 2
+        _check_wait_at(f"every special quad {dt}", *_special_grid(dt, dev),
+                       errs)
+        n += 1
         for d, lv in enumerate(levels):
             L = lv["vv"].shape[0]
             own, all_in, dl, death = (_rand((E_MAIN, L), dt, gen, dev)
@@ -1162,11 +1346,16 @@ def _device_path(dev, gen, _build):
             if got is not None:
                 timings[f"{pol}/{sch}/gather#{rep}"] = got.run_s
         out[(sch, pol)] = (res, got)
+    # above the tile route's k: the select route, 4 stacked queries
+    large_spec = QuerySpec(k=DEV_K_LARGE)
+    large = runs[0][2].run_many([large_spec] * 4, "fd-dynamic",
+                                scores=reqs[:4])
+    timings[f"fd-dynamic/halving/run_many k={DEV_K_LARGE}"] = large[0].run_s
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print("[device] launches " + json.dumps(launches))
     print("[device] run_s " + json.dumps(timings))
-    for name in ("topk", "merge"):
+    for name in ("topk", "topk_select", "merge"):
         _require(launches[name] > 0, f"kernel {name} never launched on "
                  "the device path")
     first = out[("halving", "fd-dynamic")][0]
@@ -1202,8 +1391,22 @@ def _device_path(dev, gen, _build):
                      and _same(got.indices[:4].cpu(), g.indices)
                      and _same(got.rows[:4].cpu(), g.rows),
                      f"{pol}/{sch} gather: card != CPU path")
+    ref = DeviceEngine(cpu, schedule="halving").run_many(
+        [large_spec] * 4, "fd-dynamic", scores=list(s4))
+    for b in range(4):
+        v, i = large[b].values, large[b].indices
+        _require(large[b].batch_size == 4 and v.shape == (DEV_K_LARGE,)
+                 and bool((v[:-1] >= v[1:]).all())
+                 and _same(scores[b][i.long()], v),
+                 f"fd-dynamic/halving k={DEV_K_LARGE} query {b}: not the "
+                 "descending top-k of its scores, or not stacked")
+        _require(_same(v.cpu(), ref[b].values)
+                 and _same(i.cpu(), ref[b].indices),
+                 f"fd-dynamic/halving k={DEV_K_LARGE} query {b}: card != "
+                 "CPU path")
     print(f"[device] 5 algorithms x {DEV_B} queries: answers checked; "
-          f"first 4 queries == CPU path bit for bit (CPU "
+          f"first 4 queries == CPU path bit for bit, and 4 at "
+          f"k={DEV_K_LARGE} (CPU "
           f"{time.perf_counter() - t0:.3f} s)")
     return launches, scores, timings
 
@@ -1669,6 +1872,18 @@ def _times(levels, rr, dev, gen, errs, launches):
     row["bound_ms_whole_parent_level"] = sum(
         lv["bound_ms_whole_parent_level"] for lv in row["levels"])
     print("[times] arrivals by level " + json.dumps(row["levels"]))
+    # the waits level by level: four of the seven levels are small
+    for name, calls, arrays in (("wait", wait, 4),
+                                ("wait_churn", wait_churn, 6)):
+        each = _device_ms_each(lambda: [wait_cuda(*c) for c in calls],
+                               len(calls), f"{name}_kernel")
+        row = next(r for r in rows if r["name"] == name)
+        row["levels"] = [
+            {"L": c[0].shape[1], "elements": c[0].numel(),
+             "device_ms": None if each is None else each[i],
+             "bound_ms": arrays * nb(c[0]) / MEM_BYTES_PER_S * 1e3}
+            for i, c in enumerate(calls)]
+        print(f"[times] {name} by level " + json.dumps(row["levels"]))
     return rows
 
 
@@ -1803,6 +2018,79 @@ def _topk_row(scores, errs, launches):
                        f"peers, CN, CN*")}
 
 
+# the select route's shapes: local execution of the device path's
+# queries at two k above the tile route, and CN's gather at the default
+# k_frac = 1e-3 of optim/compress.py (1,280 of 1,280,000)
+_SELECT_SHAPES = (("local execution", 512), ("local execution", 4096),
+                  ("CN", 1_280))
+
+
+def _topk_select_row(scores, errs, launches):
+    """The top-k's select route (k > 256) at ``_SELECT_SHAPES``: each
+    held to its plain version, then timed beside ``torch.topk``."""
+    import torch
+    from repro_torch.kernels.topk import topk_cuda, topk_ref
+    xs = {"local execution": scores.view(DEV_B * DEV_PEERS, DEV_LOCAL),
+          "CN": scores}
+    per = []
+    for what, k in _SELECT_SHAPES:
+        x = xs[what]
+        v1, i1 = topk_cuda(x, k)
+        v2, i2 = topk_ref(x, k)
+        errs["topk_select"] = max(errs["topk_select"], _max_abs_err(v1, v2))
+        _require(_same(v1, v2) and _same(i1, i2),
+                 f"topk select at the {what} shape, k={k}: kernel != plain "
+                 "version")
+        p1 = _cuda_ms(lambda: topk_ref(x, k))
+        k1 = _cuda_ms(lambda: topk_cuda(x, k))
+        k2 = _cuda_ms(lambda: topk_cuda(x, k))
+        p2 = _cuda_ms(lambda: topk_ref(x, k))
+        lib = _cuda_ms(lambda: torch.topk(x, k, dim=-1))
+        dev_ms = _device_ms(lambda: topk_cuda(x, k), match=(
+            "sel_init", "sel_hist", "sel_pick", "sel_count", "sel_ties",
+            "sel_sort"))
+        # the share of the sort of the k winners
+        sort_ms = _device_ms(lambda: topk_cuda(x, k), match=("sel_sort",))
+        lib_dev = _device_ms(lambda: torch.topk(x, k, dim=-1))
+        # each score read once, each (value, index) written once
+        nbytes = x.numel() * x.element_size() + x.shape[0] * k * 8
+        t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+        t_ops = x.numel() / OPS32_PER_S * 1e3    # one compare a score
+        per.append({"what": what, "shape": list(x.shape), "k": k,
+                    "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations",
+                    "library_ms": lib, "device_ms": dev_ms,
+                    "sort_device_ms": sort_ms,
+                    "library_device_ms": lib_dev, "bytes": nbytes})
+        print(f"[times] topk select {what} {tuple(x.shape)} f32 k={k}: "
+              + json.dumps(per[-1]))
+    by_path = {path: n["topk_select"] for path, n in launches.items()}
+    t_bytes = sum(r["bytes"] for r in per) / MEM_BYTES_PER_S * 1e3
+    t_ops = sum(math.prod(r["shape"]) for r in per) / OPS32_PER_S * 1e3
+    dev_ms = _sum_or_none(r["device_ms"] for r in per)
+    return {
+        "name": "topk_select", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk_select.cu",
+        "replaces": "src/repro/kernels/topk/topk.py:120",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": errs["topk_select"],
+        "ms": sum(r["ms"] for r in per),
+        "plain_ms": sum(r["plain_ms"] for r in per),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": sum(r["library_ms"] for r in per),
+        "device_ms": dev_ms,
+        "device_ms_per_launch": None if dev_ms is None else dev_ms / len(per),
+        "library_device_ms": _sum_or_none(r["library_device_ms"]
+                                          for r in per),
+        "shapes": per,
+        "shape_note": "one call at each shape: local execution of the "
+                      f"device path's {DEV_B} queries on {DEV_PEERS} peers "
+                      "at k = 512 and 4096, CN at k = 1,280"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1837,7 +2125,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     errs = {"merge": 0.0, "arrivals": 0.0, "wait": 0.0, "wait_churn": 0.0,
-            "topk": 0.0}
+            "topk": 0.0, "topk_select": 0.0}
     n = (_check_merge(gen, dev, errs) + _check_sweep(levels, gen, dev, errs)
          + _check_topk(gen, dev, errs))
     torch.cuda.synchronize()
@@ -1864,6 +2152,7 @@ def main() -> int:
         if row["name"] in by_dtype:
             row["by_dtype"] = by_dtype[row["name"]]
     rows.append(_topk_row(scores, errs, launches))
+    rows.append(_topk_select_row(scores, errs, launches))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"merge": 0, "arrivals": 0, "wait": 0,
-                            "wait_churn": 0, "topk": 0}
+                            "wait_churn": 0, "topk": 0, "topk_select": 0}
 
 _lock = threading.Lock()
 _libs: Optional[Dict[str, ctypes.CDLL]] = None

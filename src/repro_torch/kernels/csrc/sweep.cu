@@ -6,11 +6,12 @@
 // wait replaces src/repro/kernels/sweep/sweep.py::wait_pallas (bodies
 // _wait_kernel and _wait_churn_kernel):
 //   s = min(max(own, all_in), max(deadline, own)),
-// and the churn variant also writes send = (death >= s) ? s : inf in the
-// same pass.
+// under jnp.maximum / jnp.minimum's rule (a NaN operand gives the first
+// NaN in that order, its bits kept; -0.0 < +0.0), and the churn variant
+// also writes send = (death >= s) ? s : inf in the same pass.
 //
 // Bound: device-memory bytes.  Both do one add or four compares per
-// element against 24 to 40 bytes moved per element in f64.
+// element against 24 to 48 bytes moved per element in f64.
 //
 // arrivals: a 2-D grid, blocks over a row's columns times the rows
 // (y, and z past 65,535 rows), so no thread divides to find its (e, l);
@@ -36,9 +37,43 @@
 // arrivals_plan) computes the plan; the launcher recomputes it
 // (make_plan) and refuses any other.
 //
-// wait: one thread per output element (grid-stride), l fastest, so
-// every load and store coalesces.  The churn variant writes s and send
-// from one read of its inputs.
+// wait: flat over the E * L elements (the rule is elementwise).  Its
+// bound is 4 arrays an element (3 in, 1 out), 6 for the churn variant
+// (4 in, 2 out), over 3.35 TB/s.  The first design (one thread an
+// element, scalar loads, 256-thread blocks over the whole level) held
+// three things against it: (1) a thread kept one element of each operand
+// in flight, about 12 KB an SM in bf16, 24 in f32, 48 in f64, so its
+// share of the bound fell with the element size; (2) a bf16 warp load
+// covered 64 bytes, two sectors; (3) each small level paid a launch of
+// blocks over the whole level.  This design (kernels/sweep/sweep.py::
+// wait_plan computes its plan, make_wait_plan recomputes it, the
+// launcher refuses any other, repro_wait_plan exports it):
+//   vector route, for a level of at least WAIT_VEC_MIN_BYTES an operand
+//     whose operands and outputs all start on a 16-byte boundary, where
+//     a thread's scalar loads (operands x itemsize) are fewer than
+//     WAIT_SCALAR_LOAD_BYTES (the f64 churn variant's 32 bytes already
+//     keep the scalar route level with the vector one, PERF.md): a
+//     thread moves 16 bytes of each operand at a time (2 f64, 4 f32, 8
+//     bf16), every load issued before any compare, through the read-only
+//     path without L1 allocation; 16-byte stores with the default
+//     write-back, so the parent level's gather of send finds it in L2.
+//     Block 0 also takes the ragged tail (fewer than 16 bytes).  That is
+//     16 bytes of each operand a thread in every dtype;
+//   scalar route, for a smaller level (bound by its latency: one element
+//     a thread is the shorter chain, and the first design's launch), the
+//     f64 churn variant, or an operand or output off the 16-byte
+//     boundary (a view one element into a larger tensor): the same walk,
+//     one element a vector;
+//   the rule as a few integer operations on total-order keys, each key
+//     computed once (a vector of bf16 takes it eight times a thread);
+//   grid: blocks of WAIT_THREADS over the whole level, one vector a
+//     thread (a grid of one wave that strides measured slower at f64
+//     level 4, whose last pass runs partly empty, and loading 2 or 4
+//     vectors a thread slower at every level, PERF.md).
+// Offsets are 64-bit (WaitOffset; tools/wait_levels.py measured 32-bit
+// ones no faster over a sweep, PERF.md).  A level's launch floor stays (about 1.1 us
+// of device time a launch, PERF.md): seven launches a sweep, four of
+// them on small levels.
 //
 // Float grouping is exactly the plain version's, f64 adds as torch's
 // FMA with alpha = 1 (the NaN it keeps), and bf16 adds in float and
@@ -86,23 +121,6 @@ struct Num<__nv_bfloat16> {
     return __ushort_as_bfloat16(static_cast<unsigned short>(0x7F80U));
   }
 };
-
-template <typename T>
-__device__ __forceinline__ T vmax(T a, T b) {
-  return Num<T>::key(a) < Num<T>::key(b) ? b : a;
-}
-
-template <typename T>
-__device__ __forceinline__ T vmin(T a, T b) {
-  return Num<T>::key(b) < Num<T>::key(a) ? b : a;
-}
-
-constexpr int kThreads = 256;
-
-long long grid_for(long long total) {
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  return blocks < (1LL << 20) ? blocks : (1LL << 20);
-}
 
 // ---------------------------------------------------------------------------
 // arrivals
@@ -366,59 +384,239 @@ int launch_arrivals(const void* tq_prev, const void* dn, const void* par_pos,
 // wait
 // ---------------------------------------------------------------------------
 
+constexpr int WAIT_THREADS = 256;        // threads of a wait block
+// an operand's bytes from which the plan takes the vector route
+constexpr long long WAIT_VEC_MIN_BYTES = 1LL << 20;
+// a thread's scalar loads (operands x itemsize) from which the plan
+// keeps the scalar route
+constexpr int WAIT_SCALAR_LOAD_BYTES = 32;
+// the wait's element and vector offsets
+using WaitOffset = long long;
+
+// The launch plan of the wait (kernels/sweep/sweep.py::WaitPlan, same
+// fields).
+struct WaitPlan {
+  long long vec, threads, grid;
+};
+
+// The plan of `total` elements of `itemsize` bytes and `operands` inputs
+// (3, or 4 for the churn variant), or false when the request cannot be
+// planned.  vector: 1 the vector route (vec elements a 16-byte access;
+// every operand and output 16-byte aligned), 0 the scalar route (one
+// element), -1 the plan's choice: the vector route where it can be
+// taken, an operand holds at least WAIT_VEC_MIN_BYTES (below that a
+// launch is bound by its latency, and one element a thread is the
+// shorter chain) and a thread's scalar loads are fewer than
+// WAIT_SCALAR_LOAD_BYTES.  The grid covers the level, one vector a
+// thread.
+bool make_wait_plan(long long total, int itemsize, int operands,
+                    bool aligned, int vector, WaitPlan* p) {
+  if (total <= 0 || (itemsize != 2 && itemsize != 4 && itemsize != 8) ||
+      (operands != 3 && operands != 4))
+    return false;
+  if (vector < 0)
+    vector = aligned && total * itemsize >= WAIT_VEC_MIN_BYTES &&
+             operands * itemsize < WAIT_SCALAR_LOAD_BYTES;
+  else if (vector > 1 || (vector == 1 && !aligned))
+    return false;
+  const long long vec = vector ? VEC_BYTES / itemsize : 1;
+  const long long blocks = cdiv(total / vec, WAIT_THREADS);
+  p->vec = vec;
+  p->threads = WAIT_THREADS;
+  p->grid = blocks < 1 ? 1 : blocks;
+  return p->grid < (1LL << 31);
+}
+
+// The total-order key of kernels/order.py (total_order_key): signed
+// integers that order as the IEEE total order, -0.0 below +0.0; a bf16
+// is keyed as the f32 of its bits (bits << 16), which orders the same.
+__device__ __forceinline__ long long okey(double x) {
+  const long long b = __double_as_longlong(x);
+  return b ^ ((b >> 63) & 0x7fffffffffffffffLL);
+}
+__device__ __forceinline__ int okey_bits(int b) {
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+__device__ __forceinline__ int okey(float x) {
+  return okey_bits(__float_as_int(x));
+}
+__device__ __forceinline__ int okey(__nv_bfloat16 x) {
+  return okey_bits(static_cast<int>(
+      static_cast<unsigned>(__bfloat16_as_ushort(x)) << 16));
+}
+
+__device__ __forceinline__ bool is_nan(double x) {
+  return (__double_as_longlong(x) & 0x7fffffffffffffffLL) >
+         0x7ff0000000000000LL;
+}
+__device__ __forceinline__ bool is_nan(float x) {
+  return (__float_as_int(x) & 0x7fffffff) > 0x7f800000;
+}
+__device__ __forceinline__ bool is_nan(__nv_bfloat16 x) {
+  return (__bfloat16_as_ushort(x) & 0x7fffu) > 0x7f80u;
+}
+
+// min(max(own, all_in), max(deadline, own)) under jnp.maximum /
+// jnp.minimum's rule (the plain version's wait_ref): a NaN operand
+// gives the first NaN of (own, all_in, deadline), its bits kept, which
+// is what the rule gives composed; otherwise the total order decides,
+// so -0.0 < +0.0.  Every result is one operand's bits.  Each key is
+// computed once: the rule is a handful of integer operations an
+// element, which a 16-byte vector of bf16 takes eight times.
 template <typename T>
-__global__ void wait_kernel(const T* __restrict__ own,
-                            const T* __restrict__ all_in,
-                            const T* __restrict__ deadline,
-                            T* __restrict__ s_out, long long total) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const T o = own[i];
-    s_out[i] = vmin(vmax(o, all_in[i]), vmax(deadline[i], o));
+__device__ __forceinline__ T wait_rule(T own, T all_in, T deadline) {
+  const auto ko = okey(own), ka = okey(all_in), kd = okey(deadline);
+  const bool a_up = ko < ka, o_up = kd < ko;
+  const T m1 = a_up ? all_in : own;      // max(own, all_in)
+  const T m2 = o_up ? own : deadline;    // max(deadline, own)
+  const auto k1 = a_up ? ka : ko, k2 = o_up ? ko : kd;
+  T s = k2 < k1 ? m2 : m1;               // min(m1, m2)
+  if (is_nan(deadline)) s = deadline;
+  if (is_nan(all_in)) s = all_in;
+  if (is_nan(own)) s = own;
+  return s;
+}
+
+// dead at send time -> an arrival that can never release a parent
+template <typename T>
+__device__ __forceinline__ T churn_send(T death, T s) {
+  return Num<T>::key(death) >= Num<T>::key(s) ? s : Num<T>::inf();
+}
+
+// 16 bytes through the read-only path, not allocated in L1 (each input
+// is read once)
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+__device__ __forceinline__ double ld_one(const double* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_one(const float* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 ld_one(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// VEC elements from one 16-byte read (one element when VEC is 1)
+template <typename T, int VEC>
+__device__ __forceinline__ void ld_wait(const T* p, T (&v)[VEC]) {
+  if constexpr (VEC * sizeof(T) == sizeof(uint4)) {
+    const uint4 u = ld_stream(p);
+    __builtin_memcpy(v, &u, sizeof(u));
+  } else {
+    static_assert(VEC == 1, "a vector is 16 bytes or one element");
+    v[0] = ld_one(p);
   }
 }
 
-template <typename T>
-__global__ void wait_churn_kernel(const T* __restrict__ own,
-                                  const T* __restrict__ all_in,
-                                  const T* __restrict__ deadline,
-                                  const T* __restrict__ death,
-                                  T* __restrict__ s_out,
-                                  T* __restrict__ send_out, long long total) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const T o = own[i];
-    const T s = vmin(vmax(o, all_in[i]), vmax(deadline[i], o));
-    s_out[i] = s;
-    // dead at send time -> an arrival that can never release a parent
-    send_out[i] = Num<T>::key(death[i]) >= Num<T>::key(s) ? s : Num<T>::inf();
+// Block b's thread t takes vector j = b * WAIT_THREADS + t where
+// j < units: all loads of the vector first, then the rule and 16-byte
+// stores (the default write-back, so the parent level's gather finds
+// them in L2).  Block 0 also takes the ragged tail, the fewer than VEC
+// elements past the last whole vector.
+template <typename T, int VEC, bool CHURN>
+__device__ __forceinline__ void wait_body(
+    const T* __restrict__ own, const T* __restrict__ all_in,
+    const T* __restrict__ deadline, const T* __restrict__ death,
+    T* __restrict__ s_out, T* __restrict__ send_out, WaitOffset total) {
+  using O = WaitOffset;
+  const O units = total / VEC;
+  const O j = static_cast<O>(blockIdx.x) * WAIT_THREADS + threadIdx.x;
+  if (j < units) {
+    T o[VEC], a[VEC], d[VEC], x[VEC];
+    ld_wait<T, VEC>(own + j * VEC, o);
+    ld_wait<T, VEC>(all_in + j * VEC, a);
+    ld_wait<T, VEC>(deadline + j * VEC, d);
+    if constexpr (CHURN) ld_wait<T, VEC>(death + j * VEC, x);
+    T s[VEC], snd[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      s[v] = wait_rule(o[v], a[v], d[v]);
+      if constexpr (CHURN) snd[v] = churn_send(x[v], s[v]);
+    }
+    store_vec<T, VEC>(s_out + j * VEC, s);
+    if constexpr (CHURN) store_vec<T, VEC>(send_out + j * VEC, snd);
   }
+  if (VEC > 1 && blockIdx.x == 0) {
+    const O i = units * VEC + static_cast<O>(threadIdx.x);
+    if (i < total) {
+      const T s = wait_rule(ld_one(own + i), ld_one(all_in + i),
+                            ld_one(deadline + i));
+      s_out[i] = s;
+      if constexpr (CHURN) send_out[i] = churn_send(ld_one(death + i), s);
+    }
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(WAIT_THREADS)
+wait_kernel(const T* __restrict__ own, const T* __restrict__ all_in,
+            const T* __restrict__ deadline, T* __restrict__ s_out,
+            WaitOffset total) {
+  wait_body<T, VEC, false>(own, all_in, deadline, nullptr, s_out, nullptr,
+                           total);
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(WAIT_THREADS)
+wait_churn_kernel(const T* __restrict__ own, const T* __restrict__ all_in,
+                  const T* __restrict__ deadline,
+                  const T* __restrict__ death, T* __restrict__ s_out,
+                  T* __restrict__ send_out, WaitOffset total) {
+  wait_body<T, VEC, true>(own, all_in, deadline, death, s_out, send_out,
+                          total);
+}
+
+// One launch: the churn variant where death is given.
+template <typename T, int VEC>
+cudaError_t run_wait(const WaitPlan& p, const T* own, const T* all_in,
+                     const T* deadline, const T* death, T* s_out,
+                     T* send_out, long long total, cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>(p.grid);
+  if (death == nullptr)
+    wait_kernel<T, VEC><<<grid, WAIT_THREADS, 0, st>>>(
+        own, all_in, deadline, s_out, static_cast<WaitOffset>(total));
+  else
+    wait_churn_kernel<T, VEC><<<grid, WAIT_THREADS, 0, st>>>(
+        own, all_in, deadline, death, s_out, send_out,
+        static_cast<WaitOffset>(total));
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % VEC_BYTES == 0;
 }
 
 template <typename T>
 int launch_wait(const void* own, const void* all_in, const void* deadline,
-                void* s_out, long long total, void* stream) {
+                const void* death, void* s_out, void* send_out,
+                long long total, long long vec, long long grid,
+                void* stream) {
   if (total <= 0) return 0;
-  wait_kernel<T><<<static_cast<unsigned>(grid_for(total)), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(own), static_cast<const T*>(all_in),
-      static_cast<const T*>(deadline), static_cast<T*>(s_out), total);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_wait_churn(const void* own, const void* all_in,
-                      const void* deadline, const void* death, void* s_out,
-                      void* send_out, long long total, void* stream) {
-  if (total <= 0) return 0;
-  wait_churn_kernel<T><<<static_cast<unsigned>(grid_for(total)), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(own), static_cast<const T*>(all_in),
-      static_cast<const T*>(deadline), static_cast<const T*>(death),
-      static_cast<T*>(s_out), static_cast<T*>(send_out), total);
-  return static_cast<int>(cudaGetLastError());
+  // the wrapper's plan must be this launcher's (its route taken as given)
+  const bool aligned = aligned16(own) && aligned16(all_in) &&
+                       aligned16(deadline) && aligned16(death) &&
+                       aligned16(s_out) && aligned16(send_out);
+  WaitPlan p;
+  if (!make_wait_plan(total, static_cast<int>(sizeof(T)),
+                      death == nullptr ? 3 : 4, aligned, vec > 1 ? 1 : 0,
+                      &p) ||
+      p.vec != vec || p.grid != grid)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int V = VEC_BYTES / static_cast<int>(sizeof(T));
+  const T* o = static_cast<const T*>(own);
+  const T* a = static_cast<const T*>(all_in);
+  const T* d = static_cast<const T*>(deadline);
+  const T* x = static_cast<const T*>(death);
+  T* s = static_cast<T*>(s_out);
+  T* n = static_cast<T*>(send_out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      p.vec == 1 ? run_wait<T, 1>(p, o, a, d, x, s, n, total, st)
+                 : run_wait<T, V>(p, o, a, d, x, s, n, total, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -449,18 +647,35 @@ extern "C" int repro_arrivals_plan(long long E, long long L, long long Lp,
                                  staged, wide, stream);                     \
   }
 
+// The wait plan of `total` elements and `operands` inputs (3, or 4 for
+// the churn variant) as the launcher computes it: out[0..2] = vec,
+// threads, grid (kernels/sweep/sweep.py::WaitPlan); vector 1, 0 or -1
+// (the plan's choice).  0, or cudaErrorInvalidValue when the request
+// cannot be planned.
+extern "C" int repro_wait_plan(long long total, int itemsize, int operands,
+                               int aligned, int vector, long long* out) {
+  WaitPlan p;
+  if (!make_wait_plan(total, itemsize, operands, aligned != 0, vector, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long f[3] = {p.vec, p.threads, p.grid};
+  for (int i = 0; i < 3; ++i) out[i] = f[i];
+  return 0;
+}
+
 #define REPRO_WAIT_LAUNCHERS(SUFFIX, T)                                     \
-  extern "C" int repro_wait_##SUFFIX(const void* own, const void* all_in,   \
-                                     const void* deadline, void* s_out,     \
-                                     long long total, void* stream) {       \
-    return launch_wait<T>(own, all_in, deadline, s_out, total, stream);     \
+  extern "C" int repro_wait_##SUFFIX(                                       \
+      const void* own, const void* all_in, const void* deadline,            \
+      void* s_out, long long total, long long vec, long long grid,          \
+      void* stream) {                                                       \
+    return launch_wait<T>(own, all_in, deadline, nullptr, s_out, nullptr,   \
+                          total, vec, grid, stream);                        \
   }                                                                         \
   extern "C" int repro_wait_churn_##SUFFIX(                                 \
       const void* own, const void* all_in, const void* deadline,            \
       const void* death, void* s_out, void* send_out, long long total,      \
-      void* stream) {                                                       \
-    return launch_wait_churn<T>(own, all_in, deadline, death, s_out,        \
-                                send_out, total, stream);                   \
+      long long vec, long long grid, void* stream) {                        \
+    return launch_wait<T>(own, all_in, deadline, death, s_out, send_out,    \
+                          total, vec, grid, stream);                        \
   }
 
 REPRO_ARRIVALS_LAUNCHER(repro_arrivals_f64_i32, double, int32_t)

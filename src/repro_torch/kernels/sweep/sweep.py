@@ -10,8 +10,12 @@ that gathers its parent from L2, or, for a large level whose parent
 row fits a block's shared memory, blocks that stage the row's parent
 level there first and move dn and out 16 bytes a thread.
 :func:`arrivals_plan` chooses between them and computes the launch;
-the launcher refuses any other plan.  The wait kernel is one thread per
-output element.  Launch counters:
+the launcher refuses any other plan.  The wait kernel moves 16 bytes of
+every operand a thread on a level of at least ``WAIT_VEC_MIN_BYTES`` an
+operand whose operands are all 16-byte aligned (in f64 the plain wait
+only), else one element a thread, over blocks that cover the level;
+:func:`wait_plan` computes that launch and the launcher refuses any
+other.  Launch counters:
 ``repro_torch.kernels._build.LAUNCHES["arrivals"]``, ``["wait"]`` and
 ``["wait_churn"]``.
 """
@@ -30,6 +34,8 @@ _IDX = {torch.int32: "i32", torch.int64: "i64"}
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _ARRIVALS_ARGTYPES = [_P, _P, _P, _P] + [_LL] * 6 + [_P]
+_WAIT_ARGTYPES = [_P] * 4 + [_LL] * 3 + [_P]
+_WAIT_CHURN_ARGTYPES = [_P] * 6 + [_LL] * 3 + [_P]
 
 
 #: the arrivals kernel's constants (``csrc/sweep.cu``)
@@ -43,6 +49,10 @@ SECTOR = 32                  # bytes a gather moves from L2
 STAGE_MIN_BYTES = 1 << 21    # dn of a staged level
 MAX_GRID_Y = 65535
 WIDE_MARGIN = 1 << 17        # threads, slots and rows past the ends
+#: the wait kernel's constants (``csrc/sweep.cu``)
+WAIT_THREADS = 256           # threads of a wait block
+WAIT_VEC_MIN_BYTES = 1 << 20  # an operand's bytes for the vector route
+WAIT_SCALAR_LOAD_BYTES = 32  # a thread's scalar loads that keep scalar
 
 
 class ArrivalsPlan(NamedTuple):
@@ -184,6 +194,55 @@ def _arrivals(tq_prev, dn, par_pos, staged, out=None):
     return out
 
 
+class WaitPlan(NamedTuple):
+    """The launch of one wait (the fields of ``csrc/sweep.cu``'s
+    WaitPlan).
+
+    The ``total`` elements are taken flat as ``total // vec`` vectors of
+    ``vec`` elements (one 16-byte access; 1 on the scalar route).  Block
+    b's thread t takes vector ``j = b * threads + t`` where ``j`` is
+    below the vector count; block 0 also takes the tail, ``total %
+    vec`` elements, one a thread.  Offsets are 64-bit.
+    """
+    vec: int
+    threads: int
+    grid: int
+
+
+def wait_plan(total: int, itemsize: int, operands: int = 3, *,
+              aligned: bool = True,
+              vector: Optional[bool] = None) -> WaitPlan:
+    """The wait launch of ``total`` elements of ``itemsize`` bytes and
+    ``operands`` inputs (3, or 4 for the churn variant).
+
+    ``aligned``: every operand and output starts on a 16-byte boundary.
+    ``vector``: True takes the vector route (a 16-byte access moves
+    ``16 // itemsize`` elements; needs ``aligned``), False the scalar
+    route (one element), None chooses: the vector route where it can be
+    taken, an operand holds at least ``WAIT_VEC_MIN_BYTES`` (a smaller
+    launch is bound by its latency, and one element a thread is the
+    shorter chain) and a thread's scalar loads, ``operands * itemsize``,
+    are fewer than ``WAIT_SCALAR_LOAD_BYTES`` (the f64 churn variant's
+    already keep the scalar route level with the vector one).  The grid
+    covers the level, one vector a thread.  Raises ValueError where the
+    request cannot be planned.
+    """
+    if total <= 0 or itemsize not in (2, 4, 8) or operands not in (3, 4):
+        raise ValueError(f"wait_plan: {total} elements of {itemsize} "
+                         f"bytes, {operands} operands")
+    if vector is None:
+        vector = (aligned and total * itemsize >= WAIT_VEC_MIN_BYTES
+                  and operands * itemsize < WAIT_SCALAR_LOAD_BYTES)
+    elif vector and not aligned:
+        raise ValueError("wait_plan: the vector route needs 16-byte "
+                         "aligned operands")
+    vec = VEC_BYTES // itemsize if vector else 1
+    grid = max(_cdiv(total // vec, WAIT_THREADS), 1)
+    if grid >= 2 ** 31:
+        raise ValueError(f"wait_plan: {total} elements exceed the grid")
+    return WaitPlan(vec, WAIT_THREADS, grid)
+
+
 def wait_cuda(own_ready, all_in, deadline, death=None):
     """Appendix-A send times on the card (optionally churned).
 
@@ -191,6 +250,15 @@ def wait_cuda(own_ready, all_in, deadline, death=None):
     ``death`` returns ``s``; with it returns ``(s, send)`` where ``send``
     is ``s`` masked to ``inf`` for a peer dead at its send time.
     """
+    return _wait(own_ready, all_in, deadline, death)
+
+
+def _wait(own_ready, all_in, deadline, death=None, vector=None, out=None):
+    """:func:`wait_cuda` launched as ``wait_plan(..., vector=vector)``
+    plans it, into ``out`` when given (``s``, or ``(s, send)`` with
+    ``death``: contiguous tensors like the operands).  The on-card checks
+    write into outputs filled with NaN, so that a skipped element shows,
+    and force each route."""
     dev = own_ready.device
     if dev.type != "cuda":
         raise ValueError(f"wait_cuda needs CUDA tensors, got {dev}")
@@ -198,29 +266,28 @@ def wait_cuda(own_ready, all_in, deadline, death=None):
         raise ValueError(f"wait: dtype must be one of {list(_SUFFIX)}, "
                          f"got {own_ready.dtype}")
     shape = tuple(own_ready.shape)
-    ops = (own_ready, all_in, deadline) + (() if death is None
+    ins = (own_ready, all_in, deadline) + (() if death is None
                                            else (death,))
-    _check("wait", ops, shape, dev, own_ready.dtype)
-    sfx = _SUFFIX[own_ready.dtype]
-    s = torch.empty_like(own_ready)
-    total = s.numel()
-    if death is None:
-        if total:
-            fn = _build.function("sweep", f"repro_wait_{sfx}",
-                                 [_P, _P, _P, _P, _LL, _P])
-            code = fn(_build.ptr(own_ready), _build.ptr(all_in),
-                      _build.ptr(deadline), _build.ptr(s), total,
-                      _build.stream(dev))
-            _build.check(code, "wait")
-            _build.LAUNCHES["wait"] += 1
-        return s
-    send = torch.empty_like(own_ready)
+    _check("wait", ins, shape, dev, own_ready.dtype)
+    if out is None:
+        outs = tuple(torch.empty_like(own_ready)
+                     for _ in range(1 if death is None else 2))
+    else:
+        outs = (out,) if death is None else tuple(out)
+    _check("wait", outs, shape, dev, own_ready.dtype)
+    total = own_ready.numel()
     if total:
-        fn = _build.function("sweep", f"repro_wait_churn_{sfx}",
-                             [_P, _P, _P, _P, _P, _P, _LL, _P])
-        code = fn(_build.ptr(own_ready), _build.ptr(all_in),
-                  _build.ptr(deadline), _build.ptr(death), _build.ptr(s),
-                  _build.ptr(send), total, _build.stream(dev))
-        _build.check(code, "wait_churn")
-        _build.LAUNCHES["wait_churn"] += 1
-    return s, send
+        plan = wait_plan(total, own_ready.element_size(), len(ins),
+                         aligned=all(t.data_ptr() % VEC_BYTES == 0
+                                     for t in ins + outs),
+                         vector=vector)
+        sfx = _SUFFIX[own_ready.dtype]
+        name = "wait" if death is None else "wait_churn"
+        fn = _build.function(
+            "sweep", f"repro_{name}_{sfx}",
+            _WAIT_ARGTYPES if death is None else _WAIT_CHURN_ARGTYPES)
+        code = fn(*(_build.ptr(t) for t in ins + outs), total, plan.vec,
+                  plan.grid, _build.stream(dev))
+        _build.check(code, name)
+        _build.LAUNCHES[name] += 1
+    return outs[0] if death is None else outs

@@ -324,3 +324,278 @@ def test_arrivals_plan_matches_launcher_source():
     # the profiler's sum over the arrivals kernels finds both
     assert {"arrivals_kernel(", "arrivals_kernel_staged("} <= set(
         re.findall(r"\b(arrivals_kernel\w*\()", _SRC))
+
+
+# ---------------------------------------------------------------------------
+# The wait rule's NaNs and signed zeros: jnp.maximum / jnp.minimum give
+# NaN for a NaN operand and order -0.0 below +0.0; the port's plain
+# version (and its kernel) keep that rule, returning the first NaN
+# operand in the expression's order with its bits.
+# ---------------------------------------------------------------------------
+
+import itertools  # noqa: E402
+
+import jax.numpy as jnp  # noqa: E402
+
+_SPECIAL_VALUES = [0.0, -0.0, 0.5, np.inf, -np.inf, np.nan]
+_WAIT_DTYPES = {"f64": (np.float64, torch.float64, np.int64),
+                "f32": (np.float32, torch.float32, np.int32),
+                "bf16": (jnp.bfloat16, torch.bfloat16, np.int16)}
+# a NaN of its own for each operand position (sign and payload), so the
+# NaN that comes out names the operand it came from
+_NAN_BITS = {
+    name: np.array(u, {"f64": np.uint64, "f32": np.uint32,
+                       "bf16": np.uint16}[name])
+    .view(_WAIT_DTYPES[name][2]).tolist()
+    for name, u in (
+        ("f64", [0x7FF8000000000001, 0xFFF8000000000002,
+                 0xFFF8000000000003, 0x7FF8000000000004]),
+        ("f32", [0x7FC00001, 0xFFC00002, 0xFFC00003, 0x7FC00004]),
+        ("bf16", [0x7FC1, 0xFFC2, 0xFFC3, 0x7FC4]))}
+
+
+def _grid(dtype, n_ops):
+    """Every combination of the six specials over ``n_ops`` operands, as
+    numpy arrays (one per operand, JAX's dtype) whose NaNs carry their
+    operand's own bits."""
+    npdt, _, bits = _WAIT_DTYPES[dtype]
+    combos = np.array(list(itertools.product(range(6), repeat=n_ops)))
+    ops = []
+    for j in range(n_ops):
+        v = np.array(_SPECIAL_VALUES, np.float32)[combos[:, j]].astype(npdt)
+        b = v.view(bits).copy()
+        b[np.isnan(v.astype(np.float32))] = _NAN_BITS[dtype][j]
+        ops.append(b.view(npdt).reshape(6, -1))
+    return ops
+
+
+_TORCH_BITS = {np.int64: torch.int64, np.int32: torch.int32,
+               np.int16: torch.int16}
+
+
+def _torch_of(a, dtype):
+    """The numpy operand ``a`` as a torch tensor of the same bits."""
+    _, tdt, bits = _WAIT_DTYPES[dtype]
+    return torch.from_numpy(a.view(bits).copy()).view(tdt)
+
+
+def _port_bits(t, bits):
+    """A port output's bits as numpy integers."""
+    return t.view(_TORCH_BITS[bits]).numpy()
+
+
+def _np_nan(x):
+    return np.isnan(x.astype(np.float64))
+
+
+def _np_key(x, bits):
+    """``kernels/order.py``'s total-order key, on the bits in numpy."""
+    b = x.view(bits)
+    return b ^ ((b >> (8 * b.itemsize - 1)) & np.iinfo(bits).max)
+
+
+def _np_pick(a, b, b_wins):
+    return np.where(_np_nan(a), a, np.where(_np_nan(b) | b_wins, b, a))
+
+
+def _np_wait(o, a, d, bits):
+    """The rule in numpy on the bits: a NaN operand wins (the first in
+    order), else the IEEE total order decides max and min."""
+    def k(x):
+        return _np_key(x, bits)
+    m1 = _np_pick(o, a, k(o) < k(a))
+    m2 = _np_pick(d, o, k(d) < k(o))
+    return _np_pick(m1, m2, k(m2) < k(m1))
+
+
+def _same_ieee(got, want, bits):
+    """``got`` (the port's bits) against ``want`` (JAX's values): NaNs at
+    the same places, every other element the same bits (values and zero
+    signs)."""
+    want = np.ascontiguousarray(want)
+    gn, wn = _np_nan(got.view(want.dtype)), _np_nan(want)
+    np.testing.assert_array_equal(gn, wn)
+    np.testing.assert_array_equal(got[~gn], want.view(bits)[~wn])
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32", "bf16"])
+def test_wait_specials_match_reference(dtype):
+    """All 216 triples of {+0, -0, 0.5, +inf, -inf, NaN}: the port's
+    ``wait_ref`` and ``wait_propagate`` equal the reference's oracle and
+    ``wait_pallas`` (interpret mode): NaNs at the same places, the same
+    values and zero signs.  The NaN that comes out is the first NaN
+    operand of ``min(max(own, all_in), max(deadline, own))``, its bits
+    kept (the numpy model of the rule, which the kernel follows)."""
+    _, _, bits = _WAIT_DTYPES[dtype]
+    own, all_in, dl = _grid(dtype, 3)
+    with jaxcompat.enable_x64():
+        want = np.asarray(jax_wait_ref(own, all_in, dl))
+        pallas = np.asarray(wait_pallas(own, all_in, dl, None,
+                                        interpret=True))
+    ts = [_torch_of(x, dtype) for x in (own, all_in, dl)]
+    for port in (wait_ref(*ts), wait_propagate(*ts)):
+        got = _port_bits(port, bits)
+        for ref in (want, pallas):
+            _same_ieee(got, ref, bits)
+        np.testing.assert_array_equal(
+            got, _np_wait(own, all_in, dl, bits).view(bits))
+    # the zero ties that torch.maximum / torch.minimum leave open
+    assert (got.view(want.dtype) == 0).any()
+    nan = _np_nan(want)
+    assert set(got[nan].tolist()) == set(_NAN_BITS[dtype][:3])
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32", "bf16"])
+def test_wait_churn_specials_match_reference(dtype):
+    """All 1,296 quads with a death time: ``s`` as above and ``send =
+    where(death >= s, s, inf)``, against the reference's oracle and
+    ``wait_pallas``'s churn variant."""
+    _, _, bits = _WAIT_DTYPES[dtype]
+    own, all_in, dl, death = _grid(dtype, 4)
+    with jaxcompat.enable_x64():
+        want = jax_wait_propagate(own, all_in, dl, death=death,
+                                  use_pallas=False)
+        pallas = wait_pallas(own, all_in, dl, death, interpret=True)
+    ts = [_torch_of(x, dtype) for x in (own, all_in, dl, death)]
+    for port in (wait_ref(*ts[:3], ts[3]),
+                 wait_propagate(*ts[:3], death=ts[3])):
+        for j in range(2):
+            got = _port_bits(port[j], bits)
+            for ref in (want[j], pallas[j]):
+                _same_ieee(got, ref, bits)
+        s = _np_wait(own, all_in, dl, bits)
+        np.testing.assert_array_equal(_port_bits(port[0], bits),
+                                      s.view(bits))
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of the wait kernel's launch (csrc/sweep.cu): the plan's
+# blocks, threads, vectors and tail, each element written exactly once
+# on every route, and every index a thread computes within one block of
+# the end (offsets are 64-bit).
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.sweep.sweep import WaitPlan, wait_plan  # noqa: E402
+
+_WAIT_TOTALS = ([32 * L for L in (1, 308, 3837, 24120, 51529, 19690, 515)]
+                + [1, 7, 3_000_001])
+
+
+def _wait_threads(plan):
+    """Each thread's vector index ``j``, in block order."""
+    return (np.arange(plan.grid)[:, None] * plan.threads
+            + np.arange(plan.threads)[None, :]).ravel()
+
+
+def _model_wait_writes(total, plan):
+    """How often the planned launch writes each of ``total`` elements."""
+    vec = plan.vec
+    units = total // vec
+    j = _wait_threads(plan)
+    elems = (j[j < units][:, None] * vec + np.arange(vec)[None, :]).ravel()
+    if vec > 1:                               # block 0's tail
+        tail = units * vec + np.arange(plan.threads)
+        elems = np.concatenate([elems, tail[tail < total]])
+    return np.bincount(elems, minlength=total)
+
+
+def _wait_reach(total, plan):
+    """The largest index any thread computes: its vector's last element,
+    the tail's element."""
+    units = total // plan.vec
+    return max(plan.grid * plan.threads * plan.vec - 1,
+               units * plan.vec + plan.threads - 1)
+
+
+def _wait_plans(total):
+    """Every plan the wrapper makes for ``total`` elements: each element
+    size, operand count, alignment and route request it can plan."""
+    return {tuple(wait_plan(total, size, ops, aligned=aligned,
+                            vector=vector))
+            for size in (8, 4, 2) for ops in (3, 4)
+            for aligned in (True, False)
+            for vector in ((None, True, False) if aligned else (None, False))}
+
+
+@pytest.mark.parametrize("total", _WAIT_TOTALS + ["vector-1", "vector",
+                                                  "vector+1"])
+def test_wait_launch_model_writes_each_element_once(total):
+    """Every plan of the path's level sizes, of 1 and 7 elements, one
+    16-byte vector and one off, and of 3,000,001 elements writes each
+    element once, over as few blocks as cover the level, on the vector
+    route (aligned) and the scalar route (a small level, or a view one
+    element in)."""
+    sizes = [total] if isinstance(total, int) else [
+        16 // s + {"vector-1": -1, "vector": 0, "vector+1": 1}[total]
+        for s in (8, 4, 2)]
+    for n in sizes:
+        routes = set()
+        for p in _wait_plans(n):
+            plan = WaitPlan(*p)
+            assert plan.grid == max(-(-(n // plan.vec) // plan.threads), 1)
+            w = _model_wait_writes(n, plan)
+            assert w.min() == 1 and w.max() == 1, (n, plan)
+            routes.add(plan.vec > 1)
+        assert routes == {True, False}
+    assert wait_plan(3_000_001, 8) == (2, 256, 5860)
+
+
+def test_wait_plan_offsets_and_edges():
+    """Offsets are 64-bit (the source's ``WaitOffset``), and every index
+    a thread computes stays within one block of the end, also past 2**31
+    elements; the grid's edge; the plan at the path's widest level; what
+    cannot be planned raises."""
+    assert re.search(r"using WaitOffset = long long;", _SRC)
+    for total in (2 ** 31 - 1, 2 ** 31, 2 ** 33 + 5):
+        for p in _wait_plans(total):
+            plan = WaitPlan(*p)
+            assert (_wait_reach(total, plan)
+                    < total + plan.threads * plan.vec < 2 ** 63), plan
+    # one element a thread: the most blocks a grid takes, then too many
+    top = 2 ** 31 * 256
+    assert wait_plan(top - 256, 8, aligned=False).grid == 2 ** 31 - 1
+    with pytest.raises(ValueError, match="grid"):
+        wait_plan(top - 255, 8, aligned=False)
+    # the path's widest level: the vector route, but for the f64 churn
+    # variant, whose four 8-byte scalar loads a thread reach
+    # WAIT_SCALAR_LOAD_BYTES
+    assert wait_plan(32 * 51529, 8) == (2, 256, 3221)
+    assert wait_plan(32 * 51529, 2) == (8, 256, 806)
+    assert wait_plan(32 * 51529, 8, 4) == (1, 256, 6442)
+    assert wait_plan(32 * 51529, 8, 4, vector=True).vec == 2
+    assert wait_plan(32 * 51529, 4, 4).vec == 4
+    assert wait_plan(32 * 51529, 2, 4).vec == 8
+    assert wait_plan(32 * 51529, 8, aligned=False).vec == 1
+    # a small level takes one element a thread, over as few blocks
+    assert wait_plan(32 * 308, 2) == (1, 256, 39)
+    assert wait_plan(32, 8) == (1, 256, 1)
+    assert wait_plan(32, 2, vector=True) == (8, 256, 1)
+    min_bytes = _wrapper.WAIT_VEC_MIN_BYTES
+    assert wait_plan(min_bytes // 4, 4).vec == 4
+    assert wait_plan(min_bytes // 4 - 1, 4).vec == 1
+    for bad in ((0, 8), (5, 3), (100, 8, 2), (100, 8, 5)):
+        with pytest.raises(ValueError):
+            wait_plan(*bad)
+    with pytest.raises(ValueError, match="aligned"):
+        wait_plan(100, 8, aligned=False, vector=True)
+
+
+def test_wait_plan_matches_launcher_source():
+    """The wrapper's wait constants are the kernel's, its plan fields are
+    the source's WaitPlan, the launchers take the wrapper's argument
+    lists and refuse another plan, and the profiler's kernel names
+    (``wait_kernel``, ``wait_churn_kernel``) are there."""
+    for name in ("WAIT_THREADS", "WAIT_VEC_MIN_BYTES",
+                 "WAIT_SCALAR_LOAD_BYTES"):
+        assert _CONST[name] == getattr(_wrapper, name), name
+    fields = re.search(r"struct WaitPlan \{\s*long long ([^;]*);",
+                       _SRC).group(1)
+    assert [f.strip() for f in fields.split(",")] == list(WaitPlan._fields)
+    assert "p.vec != vec || p.grid != grid" in _SRC
+    body = re.search(r"#define REPRO_WAIT_LAUNCHERS\(SUFFIX, T\)(.*?)"
+                     r"\n\n", _SRC, re.S).group(1)
+    heads = re.findall(r"_##SUFFIX\((.*?)\)", body, re.S)
+    assert [h.count(",") + 1 for h in heads] == [
+        len(_wrapper._WAIT_ARGTYPES), len(_wrapper._WAIT_CHURN_ARGTYPES)]
+    assert {"wait_kernel(", "wait_churn_kernel("} <= set(
+        re.findall(r"\b(wait\w*_kernel\()", _SRC))

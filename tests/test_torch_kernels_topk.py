@@ -271,7 +271,8 @@ def _model_topk(x32, k, index_offset=0, paths=None):
     ``paths`` collects the ways the tiles went."""
     paths = set() if paths is None else paths
     rows, n = x32.shape
-    tiles, words = plan(n, k)
+    route, tiles, words = plan(n, k)
+    assert route == "tiles"
     vals = np.empty((rows, k), np.float32)
     idx = np.empty((rows, k), np.int64)
     for r in range(rows):
@@ -364,20 +365,23 @@ def test_topk_plan_matches_launcher():
     """The wrapper's tiles and scratch are what the launcher of
     csrc/topk.cu accepts (ceil(n / TILE) tiles, tiles * k words a row
     when a row has several), at the device path's three shapes, and its
-    constants and argument list match the source."""
+    constants and argument list match the source; k above MAX_K is the
+    select route's (csrc/topk_select.cu)."""
     assert _CONST["TILE"] == TILE and _CONST["MAX_K"] == MAX_K
     assert "tiles != (n + TILE - 1) / TILE" in _SRC
+    assert "k < 1 || k > MAX_K" in _SRC
     params = re.search(r"extern \"C\" int NAME\(([^)]*)\)", _SRC).group(1)
     assert len(params.split(",")) == len(_wrapper._ARGTYPES)
     # local execution, CN and CN* of the device path (B = 32, P = 64,
     # N = 64 x 20,000, k = 20)
-    assert plan(20_000, 20) == (1, 0)
-    assert plan(1_280_000, 20) == (63, 63 * 20)
-    assert plan(1_280, 20) == (1, 0)
-    assert plan(TILE, 256) == (1, 0)
-    assert plan(TILE + 1, 256) == (2, 512)
-    assert plan(2 ** 31, 256) == (-(-2 ** 31 // TILE), -(-2 ** 31 // TILE)
-                                  * 256)
+    assert plan(20_000, 20) == ("tiles", 1, 0)
+    assert plan(1_280_000, 20) == ("tiles", 63, 63 * 20)
+    assert plan(1_280, 20) == ("tiles", 1, 0)
+    assert plan(TILE, 256) == ("tiles", 1, 0)
+    assert plan(TILE + 1, 256) == ("tiles", 2, 512)
+    assert plan(2 ** 31, 256) == ("tiles", -(-2 ** 31 // TILE),
+                                  -(-2 ** 31 // TILE) * 256)
+    assert plan(TILE + 1, 257).route == "select"
 
 
 def test_topk_kernel_model_takes_every_path():
@@ -395,3 +399,173 @@ def test_topk_kernel_model_takes_every_path():
     assert paths["n_eq_k"] == {"all"}
     assert "whole tile" in paths["one_value"]
     assert "whole tile" in paths["ties_over_tiles"]
+
+
+# ---------------------------------------------------------------------------
+# The select route (k > MAX_K, csrc/topk_select.cu), modelled step by
+# step in numpy: the radix select of the row's k-th key over the row (the
+# source's digit widths), the winners above it in any order (the kernel
+# places them by atomics), the tied keys by the tiles' quotas in index
+# order, the LSD radix sort of the words; held to topk_ref and
+# lax.top_k.
+# ---------------------------------------------------------------------------
+
+_SEL_SRC = (Path(_wrapper.__file__).resolve().parents[1] / "csrc"
+            / "topk_select.cu").read_text()
+_SEL = {name: int(v) for name, v in
+        re.findall(r"constexpr int (\w+) = (\d+);", _SEL_SRC)}
+_SEL.update({name: 1 << _SEL[v] for name, v in
+             re.findall(r"constexpr int (\w+) = 1 << (\w+);", _SEL_SRC)})
+
+
+def _model_select(x32, k, index_offset=0, seed=0):
+    """Top-k of each row of ``x32`` (f32) as the select route computes
+    it."""
+    rows, n = x32.shape
+    route, tiles, _ = plan(n, k)
+    assert route == "select" and tiles == -(-n // _SEL["SEL_TILE"])
+    first, bits = _SEL["SEL_FIRST_BITS"], _SEL["SEL_BITS"]
+    assert first + 2 * bits == 32
+    rng = np.random.default_rng(seed)
+    vals = np.empty((rows, k), np.float32)
+    idx = np.empty((rows, k), np.int64)
+    for r in range(rows):
+        keys = _np_keys(x32[r]).astype(np.int64)
+        prefix, need = 0, k
+        for shift, width in ((32 - first, first), (bits, bits), (0, bits)):
+            top = shift + width           # digits above this one found
+            live = keys if top >= 32 else keys[(keys >> top)
+                                               == (prefix >> top)]
+            h = np.bincount((live >> shift) & ((1 << width) - 1),
+                            minlength=1 << width)
+            above = np.cumsum(h[::-1])[::-1] - h
+            b = int(np.flatnonzero((above < need) & (above + h >= need))[0])
+            prefix |= b << shift
+            need -= int(above[b])
+        gt = np.flatnonzero(keys > prefix)
+        assert len(gt) == k - need and need >= 1
+        # each tile's equal keys, and its quota after the earlier tiles'
+        eq = keys == prefix
+        per = np.add.reduceat(eq, np.arange(0, n, _SEL["SEL_TILE"]))
+        before = np.cumsum(per) - per
+        quota = np.clip(need - before, 0, per)
+        ties = np.concatenate([
+            np.flatnonzero(eq[t * _SEL["SEL_TILE"]:
+                              (t + 1) * _SEL["SEL_TILE"]])[:q]
+            + t * _SEL["SEL_TILE"] for t, q in enumerate(quota)])
+        assert len(ties) == need
+        order = rng.permutation(len(gt))       # the atomics' slot order
+        w = np.concatenate([_words(keys[gt[order]].astype(np.uint32),
+                                   gt[order]),
+                            _words(keys[ties].astype(np.uint32), ties)])
+        for shift in range(0, 64, _SEL["SORT_BITS"]):
+            d = (np.uint64(_SEL["SORT_BINS"] - 1)
+                 - ((w >> np.uint64(shift))
+                    & np.uint64(_SEL["SORT_BINS"] - 1)))
+            if np.all(d == d[0]):
+                continue                       # one digit: order stays
+            w = w[np.argsort(d, kind="stable")]
+        vals[r] = _np_values(w >> np.uint64(32))
+        idx[r] = (0xFFFFFFFF - (w & np.uint64(0xFFFFFFFF))).astype(np.int64)
+    return vals, (idx + index_offset).astype(np.int32)
+
+
+_SEL_N = 2 * _SEL["SEL_TILE"] + 5          # three tiles, the last of 5
+
+
+def _select_case(case, seed):
+    """Scores (3, _SEL_N) as f32, every value exact in bf16 and f16."""
+    rng = np.random.default_rng(seed)
+    shape = (3, _SEL_N)
+    if case == "ties_over_tiles":          # the k-th key tied across tiles
+        return (rng.integers(0, 4, shape) / 4).astype(np.float32)
+    if case == "one_value":
+        return np.full(shape, 0.5, np.float32)
+    if case == "all_neg_inf":
+        return np.full(shape, -np.inf, np.float32)
+    if case == "specials":                 # signed zeros and NaNs
+        pool = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1.0],
+                        np.float32)
+        return rng.choice(pool, size=shape)
+    if case == "normal":
+        return rng.standard_normal(shape).astype(np.float32)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["ties_over_tiles", "one_value",
+                                  "all_neg_inf", "specials", "normal"])
+@pytest.mark.parametrize("k", [257, 512, 1000, _SEL_N - 1, _SEL_N])
+def test_topk_select_model_matches_reference(case, k):
+    """The select route, modelled step by step, equals the port's plain
+    version and lax.top_k bit for bit, in f32, bf16 and f16."""
+    assert _SEL["SEL_TILE"] == 16384 and _SEL["MAX_K"] == MAX_K
+    x32 = _select_case(case, seed=k)
+    for dtype in ("f32", "bf16", "f16"):
+        xj, xt = _exact(x32, dtype)
+        ref = jax_topk_ref(xj, k, index_offset=3)
+        _assert_same(topk_ref(xt, k, index_offset=3), ref)
+        got = _model_select(to_f32(xt).numpy(), k, index_offset=3, seed=k)
+        _assert_same((torch.from_numpy(got[0]), torch.from_numpy(got[1])),
+                     ref)
+
+
+def test_topk_plan_routes():
+    """k up to MAX_K takes the tile route, a larger k the select route
+    with its tiles and scratch as csrc/topk_select.cu plans them, and
+    the wrapper's constants and argument list are that source's."""
+    for name in ("SEL_TILE", "SEL_FIRST_BINS", "SEL_STATE"):
+        assert _SEL[name] == getattr(_wrapper, name), name
+    assert "*words = 2 * k + SEL_FIRST_BINS / 2 + SEL_STATE / 2 + " \
+           "cdiv(*tiles, 2);" in _SEL_SRC
+    assert "k <= MAX_K || k > n" in _SEL_SRC
+    assert "tiles != want_tiles" in _SEL_SRC
+    params = re.search(r"extern \"C\" int NAME\(([^)]*)\)",
+                       _SEL_SRC).group(1)
+    assert len(params.split(",")) == len(_wrapper._ARGTYPES)
+    assert plan(20_000, MAX_K).route == "tiles"
+    for n, k, tiles in ((20_000, 512, 2), (20_000, 4096, 2),
+                        (1_280_000, 1_280, 79), (257, 257, 1)):
+        assert plan(n, k) == ("select", tiles, 2 * k + 2048 + 2
+                              + -(-tiles // 2))
+
+
+def test_device_engine_large_k_matches_reference(devices8, tmp_path):
+    """``DeviceEngine`` at ``QuerySpec(k=300)``, above the tile route's
+    MAX_K, on the port's CPU path against the reference's DeviceEngine
+    on 8 peers (one subprocess): every schedule, CN and CN*, bit for
+    bit, on lattice scores with ties and signed zeros."""
+    from repro_torch.core import mesh as M
+    from repro_torch.engine import DeviceEngine, QuerySpec
+    rng = np.random.default_rng(21)
+    scores = (rng.integers(-40, 40, (2, 8 * 512)) / 8).astype(np.float32)
+    scores[0, ::7] = -0.0
+    np.save(tmp_path / "s.npy", scores)
+    devices8(f"""
+import numpy as np
+from repro.engine import DeviceEngine, QuerySpec
+from repro.jaxcompat import make_mesh
+s = np.load({str(tmp_path / 's.npy')!r})
+m8 = make_mesh((8,), ("model",))
+out = {{}}
+for name, sch, pol in {_LARGE_K_RUNS!r}:
+    r = DeviceEngine(m8, schedule=sch).run(QuerySpec(k=300), pol, scores=s)
+    out[name + "_v"], out[name + "_i"] = (np.asarray(r.values),
+                                          np.asarray(r.indices))
+np.savez({str(tmp_path / 'out.npz')!r}, **out)
+""", timeout=600)
+    want = dict(np.load(tmp_path / "out.npz"))
+    mesh = M.make_mesh((8,), ("model",), device="cpu")
+    for name, sch, pol in _LARGE_K_RUNS:
+        res = DeviceEngine(mesh, schedule=sch).run(QuerySpec(k=300), pol,
+                                                   scores=scores)
+        assert res.values.shape == (2, 300)
+        np.testing.assert_array_equal(_bits(res.values.numpy()),
+                                      _bits(want[name + "_v"]))
+        np.testing.assert_array_equal(res.indices.numpy(),
+                                      want[name + "_i"])
+
+
+_LARGE_K_RUNS = [("halving", "halving", "fd-dynamic"),
+                 ("doubling", "doubling", "fd-dynamic"),
+                 ("ring", "ring", "fd-dynamic"),
+                 ("cn", "halving", "cn"), ("cn-star", "halving", "cn-star")]
