@@ -35,9 +35,12 @@ result line) when any phase fails:
      every operand (death too), as views one element in (the scalar
      route) and on every quad of {+0, -0, 0.5, +inf, -inf, NaN}, and for
      the churn variant deaths exactly at the send time, infinite deaths
-     and all-dead rows; for the top-k's select route (k > 256) its
-     library plan equal to the wrapper's and refusal of any other, and
-     k = 257, 512, 1,280 and 4096 and n == k on the inputs above
+     and all-dead rows; for the top-k's select routes (k > 256) the
+     library's plan equal to the wrapper's, also at the resident route's
+     largest row and one either side, each launcher refusing the other
+     route's plan, and k = 257, 512, 1,280 and 4096 and n == k on the
+     inputs above on both routes, rows at that edge, long rows of one
+     value and of ties at the k-th key across the long route's tiles
      (tolerance: exact — equal bits of values and owners; the
      arrivals and the waits write into outputs filled with NaN);
   3. serve 32 independent-stream ``fd-dynamic`` requests from 8 client
@@ -97,9 +100,12 @@ result line) when any phase fails:
      row lists each level's device time beside its bounds (``levels``);
      each sim kernel's row adds its f32 and bf16 times and bytes bound
      at the same shapes (``by_dtype``), and the waits' rows their f64
-     device time by level; the select route's row times it at (2048,
-     20000) k = 512 and 4096 and (32, 1,280,000) k = 1,280 beside
-     ``torch.topk``.
+     device time by level; the select routes' row times them at (2048,
+     20000) k = 512 and 4096 (resident) and (32, 1,280,000) k = 1,280
+     (long) beside ``torch.topk``, with each shape's route, its launches
+     a call (the profiler must see the route's kernels, one launch each),
+     their device ms, and the sort alone (``repro_topk_select_sort``,
+     held to ``topk_ref``).
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -589,48 +595,69 @@ def _check_topk_plan(dev):
                   io.data_ptr(), torch.cuda.current_stream().cuda_stream)
         _require(code != 0, f"topk launcher took {tiles} tiles for n={n} "
                  f"(scratch {'given' if c is not None else 'missing'})")
-    # the select route (k > MAX_K): its library plans as the wrapper
-    # does, and its launcher refuses other tiles, no scratch, and a k
-    # the tile route takes
+    # the select routes (k > MAX_K): the library plans as the wrapper
+    # does, at the resident route's largest row and one either side too,
+    # and its launcher refuses the other route's plan, other tiles, no
+    # scratch, and a k the tile route takes
     LL = ctypes.c_longlong
     sel_plan = _build.function("topk_select", "repro_topk_select_plan",
                                [LL, ctypes.c_int, ctypes.c_void_p])
     buf = (LL * 2)()
     n_checks = 3
-    for n in (1, 256, 257, 4096, 16_384, 16_385, 20_000, 1_280_000,
-              2 ** 31 - 1):
-        for k in (1, 256, 257, 512, 1_280, 4096, 20_000):
-            want = None
-            if wrapper.MAX_K < k <= n:
-                want = tuple(wrapper.plan(n, k)[1:])
-            code = sel_plan(n, k, ctypes.cast(buf, ctypes.c_void_p))
-            got = None if code else tuple(buf)
-            _require(got == want, f"topk select plan n={n} k={k}: library "
-                     f"{got}, wrapper {want}")
-            n_checks += 1
+    edges = []
+    for k in (257, 512, 1_280, 4096):
+        top = _resident_max_n(wrapper, k)
+        edges += [(top - 1, k), (top, k), (top + 1, k)]
+        _require((wrapper.plan(top, k).route, wrapper.plan(top + 1, k).route)
+                 == (wrapper.RESIDENT, wrapper.LONG),
+                 f"topk select: the route does not change after n={top} "
+                 f"at k={k}")
+    for n, k in edges + [(n, k) for n in (1, 256, 257, 4096, 16_384, 16_385,
+                                          20_000, 1_280_000, 2 ** 31 - 1)
+                         for k in (1, 256, 257, 512, 1_280, 4096, 20_000)]:
+        want = None
+        if wrapper.MAX_K < k <= n:
+            want = tuple(wrapper.plan(n, k)[1:])
+        code = sel_plan(n, k, ctypes.cast(buf, ctypes.c_void_p))
+        got = None if code else tuple(buf)
+        _require(got == want, f"topk select plan n={n} k={k}: library "
+                 f"{got}, wrapper {want}")
+        n_checks += 1
     sel = _build.function("topk_select", "repro_topk_select_f32",
                           wrapper._ARGTYPES)
-    n = 40_000
-    x = torch.zeros((1, n), device=dev)
-    _require(wrapper.plan(n, 512).tiles == 3, "topk select plan of "
-             f"n={n}: {wrapper.plan(n, 512)}")
-    for k, tiles, given in ((512, 3, False), (512, 4, True),
-                            (256, 3, True)):
-        scratch = torch.empty((1, 2 * k + 4096), dtype=torch.int64,
-                              device=dev)
-        vo = torch.empty((1, k), device=dev)
-        io = torch.empty((1, k), dtype=torch.int32, device=dev)
-        code = sel(x.data_ptr(), 1, n, k, 0, tiles,
-                   scratch.data_ptr() if given else None, vo.data_ptr(),
+    k = 512
+    top = _resident_max_n(wrapper, k)
+    res, long_ = wrapper.plan(top, k), wrapper.plan(top + 1, k)
+    for n, tiles, words, what in (
+            (top, long_.tiles, long_.words, "the long route's plan"),
+            (top + 1, res.tiles, res.words, "the resident route's plan"),
+            (top + 1, long_.tiles + 1, long_.words, "other tiles"),
+            (top + 1, long_.tiles, 0, "no scratch"),
+            (top, 0, 0, "k = 256")):
+        kk = 256 if what == "k = 256" else k
+        x = torch.zeros((1, n), device=dev)
+        scratch = torch.empty((1, max(words, long_.words)),
+                              dtype=torch.int64, device=dev)
+        vo = torch.empty((1, kk), device=dev)
+        io = torch.empty((1, kk), dtype=torch.int32, device=dev)
+        code = sel(x.data_ptr(), 1, n, kk, 0, tiles,
+                   scratch.data_ptr() if words else None, vo.data_ptr(),
                    io.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        _require(code != 0, f"topk select launcher took k={k}, {tiles} "
-                 f"tiles for n={n} (scratch "
-                 f"{'given' if given else 'missing'})")
+        _require(code != 0, f"topk select launcher took {what} for n={n} "
+                 f"k={kk}")
         n_checks += 1
     return n_checks
 
 
-_TOPK_KS = (1, 8, 20, 64, 256, 257, 512, 4096)
+def _resident_max_n(wrapper, k):
+    """The largest row the resident route takes at k."""
+    n = (wrapper.RESIDENT_SMEM - wrapper.FIXED_BYTES - 8 * k) // 4 - 4
+    while wrapper.resident_bytes(n, k) > wrapper.RESIDENT_SMEM:
+        n -= 1
+    return n
+
+
+_TOPK_KS = (1, 8, 20, 64, 256, 257, 512, 1_280, 4096)
 
 
 def _check_topk_case(what, x, k, off, errs):
@@ -648,9 +675,10 @@ def _check_topk_case(what, x, k, off, errs):
 
 
 def _check_topk(gen, dev, errs):
-    """Both routes (tiles to k = 256, select above) on the inputs that
-    break selections by counting, n == k, and the device path's widths
-    with specials and ties, at k to 4096."""
+    """Every route (tiles to k = 256; resident and long above) on the
+    inputs that break selections by counting, n == k, the device path's
+    widths with specials and ties, at k to 4096, and the resident
+    route's largest row and one either side."""
     import torch
     n_checks = _check_topk_plan(dev)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
@@ -670,10 +698,43 @@ def _check_topk(gen, dev, errs):
                     (20_000, 8), (20_485, 4), (1_280_000, 2)):
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             x = _topk_input(rows, n, dt, gen, dev)
-            for k in _TOPK_KS + (1_280,):
+            for k in _TOPK_KS:
                 if k > n:
                     continue
                 _check_topk_case(f"n={n}", x, k, 1000 * k, errs)
+                n_checks += 1
+    # the select routes' edge: rows one short of, at and one past the
+    # largest the resident route takes at k = 512; and rows of one
+    # repeated value and of ties at the k-th key across the long route's
+    # tiles, long at every k (4 full tiles and one of 7 scores, past the
+    # resident route's largest row at k = 257)
+    import repro_torch.kernels.topk.topk as wrapper
+    top = _resident_max_n(wrapper, 512)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        cases = []
+        for n in (top - 1, top, top + 1):
+            lat = (torch.randint(0, 4, (2, n), generator=gen, device=dev)
+                   .to(torch.float32) / 4).to(dt)
+            cases.append((f"lattice n={n}", lat, (512,)))
+            cases.append((f"specials n={n}", _topk_input(2, n, dt, gen, dev),
+                          (512,)))
+            cases.append((f"all 0.5 n={n}",
+                          torch.full((1, n), 0.5, device=dev).to(dt),
+                          (512,)))
+        n = 4 * wrapper.LTILE + 7
+        for k in (257, 512, 1_280, 4096):
+            _require(wrapper.plan(n, k).route == wrapper.LONG,
+                     f"topk select: n={n} k={k} is not a long row")
+        cases.append((f"all 0.5 n={n}",
+                      torch.full((2, n), 0.5, device=dev).to(dt),
+                      (257, 512, 1_280, 4096)))
+        lat = (torch.randint(0, 2, (2, n), generator=gen, device=dev)
+               .to(torch.float32) / 2).to(dt)
+        cases.append((f"ties across tiles n={n}", lat,
+                      (257, 512, 1_280, 4096)))
+        for what, x, ks in cases:
+            for k in ks:
+                _check_topk_case(what, x, k, 7, errs)
                 n_checks += 1
     return n_checks
 
@@ -2018,23 +2079,140 @@ def _topk_row(scores, errs, launches):
                        f"peers, CN, CN*")}
 
 
-# the select route's shapes: local execution of the device path's
+def tagged(tag, fn):
+    """``fn`` launched inside the profiler range ``tag:<tag>``, which
+    :func:`kernels_by_tag` joins its kernels to (shared with tools/)."""
+    import torch
+
+    def call(*a, **kw):
+        with torch.profiler.record_function(f"tag:{tag}"):
+            return fn(*a, **kw)
+    return call
+
+
+def _kernel_name(name):
+    """A kernel's function name, without namespace, template arguments
+    and parameters."""
+    import re
+    name = name.replace("(anonymous namespace)::", "")
+    m = re.search(r"([A-Za-z_]\w*)(?:<.*?>)?\(", name)
+    return m.group(1) if m else name
+
+
+def kernels_by_tag(calls, reps=10):
+    """The kernels that the functions ``calls`` launch inside
+    :func:`tagged` ranges: one ``torch.profiler`` window runs each in
+    turn, ``reps`` times, and every kernel is joined to the range that
+    holds its launch through the launch's correlation id in the
+    exported trace, so a kernel the trace lacks drops out of its own
+    range only and a kernel of no range is left out.  Returns {tag:
+    {kernel name: [us, ...]}} (shared with tools/)."""
+    import bisect
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        events = json.loads(Path(d, "trace.json").read_text())["traceEvents"]
+    tags = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["name"][4:])
+                  for e in events if e.get("cat") == "user_annotation"
+                  and e.get("name", "").startswith("tag:"))
+    starts = [t[0] for t in tags]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "Launch" in e.get("name", "")
+                 and "correlation" in e.get("args", {})}
+    per = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= tags[i][1]:
+            per.setdefault(tags[i][2], {}).setdefault(
+                _kernel_name(e["name"]), []).append(e["dur"])
+    return per
+
+
+# the select routes' shapes: local execution of the device path's
 # queries at two k above the tile route, and CN's gather at the default
 # k_frac = 1e-3 of optim/compress.py (1,280 of 1,280,000)
 _SELECT_SHAPES = (("local execution", 512), ("local execution", 4096),
                   ("CN", 1_280))
+# the kernels of each select route, in launch order
+_SELECT_KERNELS = {"resident": ("sel_resident",),
+                   "long": ("sel_long_count", "sel_long_tiles",
+                            "sel_long_final")}
+
+
+def _total_order_keys(v):
+    """The 32-bit total-order keys of f32 values (the kernels' key_of),
+    as the bits of an int32 tensor."""
+    import torch
+    b = v.contiguous().view(torch.int32).to(torch.int64)
+    b = b ^ ((b >> 31) & 0x7FFFFFFF)
+    k = (b ^ 0x80000000) & 0xFFFFFFFF
+    return torch.where(k >= 2 ** 31, k - 2 ** 32, k).to(torch.int32)
+
+
+def _sort_ms(x, k, reps=10):
+    """Device ms of the select routes' sort alone
+    (``repro_topk_select_sort``) on the k winners of each row of x, in
+    row order, held to ``topk_ref``; None where they do not fit one
+    block."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.topk import topk_ref
+    fn = _build.function("topk_select", "repro_topk_select_sort",
+                         [ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_void_p])
+    v, i = topk_ref(x, k)
+    i, perm = i.sort(dim=-1)
+    keys = _total_order_keys(v.gather(-1, perm)).contiguous()
+    i = i.contiguous()
+    vo = torch.full_like(v, float("nan"))
+    io = torch.empty_like(i)
+
+    def call():
+        return fn(keys.data_ptr(), i.data_ptr(), x.shape[0], k,
+                  vo.data_ptr(), io.data_ptr(),
+                  torch.cuda.current_stream().cuda_stream)
+    if call() != 0:
+        return None
+    torch.cuda.synchronize()
+    _require(_same(vo, v) and _same(io, topk_ref(x, k)[1]),
+             f"topk select sort at k={k}: != topk_ref")
+    per = kernels_by_tag([tagged("sort", call)], reps).get("sort", {})
+    n = sum(len(us) for us in per.values())
+    _require(n == reps, f"topk select sort: {n} kernels in {reps} calls")
+    return sum(map(sum, per.values())) / reps / 1e3
 
 
 def _topk_select_row(scores, errs, launches):
-    """The top-k's select route (k > 256) at ``_SELECT_SHAPES``: each
-    held to its plain version, then timed beside ``torch.topk``."""
+    """The top-k's select routes (k > 256) at ``_SELECT_SHAPES``: each
+    held to its plain version, then timed beside ``torch.topk``; each
+    shape's route, its launches a call (required to be the route's
+    kernels, one launch each), their device ms, and the sort's."""
     import torch
     from repro_torch.kernels.topk import topk_cuda, topk_ref
+    from repro_torch.kernels.topk.topk import plan
     xs = {"local execution": scores.view(DEV_B * DEV_PEERS, DEV_LOCAL),
           "CN": scores}
     per = []
     for what, k in _SELECT_SHAPES:
         x = xs[what]
+        route = plan(x.shape[-1], k).route
         v1, i1 = topk_cuda(x, k)
         v2, i2 = topk_ref(x, k)
         errs["topk_select"] = max(errs["topk_select"], _max_abs_err(v1, v2))
@@ -2046,30 +2224,42 @@ def _topk_select_row(scores, errs, launches):
         k2 = _cuda_ms(lambda: topk_cuda(x, k))
         p2 = _cuda_ms(lambda: topk_ref(x, k))
         lib = _cuda_ms(lambda: torch.topk(x, k, dim=-1))
-        dev_ms = _device_ms(lambda: topk_cuda(x, k), match=(
-            "sel_init", "sel_hist", "sel_pick", "sel_count", "sel_ties",
-            "sel_sort"))
-        # the share of the sort of the k winners
-        sort_ms = _device_ms(lambda: topk_cuda(x, k), match=("sel_sort",))
-        lib_dev = _device_ms(lambda: torch.topk(x, k, dim=-1))
+        reps = 10
+        seen = kernels_by_tag([tagged("kernel", lambda: topk_cuda(x, k)),
+                               tagged("library",
+                                      lambda: torch.topk(x, k, dim=-1))],
+                              reps)
+        kern = {n: sum(us) for n, us in seen.get("kernel", {}).items()}
+        n_kern = sum(len(us) for us in seen.get("kernel", {}).values())
+        want = _SELECT_KERNELS[route]
+        _require(n_kern == reps * len(want) and set(kern) == set(want),
+                 f"topk select at the {what} shape, k={k}: the profiler saw "
+                 f"{n_kern} kernels {sorted(kern)} in {reps} calls, the "
+                 f"{route} route launches {want} once each")
+        dev_ms = sum(kern.values()) / reps / 1e3
+        lib_us = [sum(us) for us in seen.get("library", {}).values()]
+        lib_dev = sum(lib_us) / reps / 1e3 if lib_us else None
         # each score read once, each (value, index) written once
         nbytes = x.numel() * x.element_size() + x.shape[0] * k * 8
         t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
         t_ops = x.numel() / OPS32_PER_S * 1e3    # one compare a score
         per.append({"what": what, "shape": list(x.shape), "k": k,
+                    "route": route, "launches_per_call": len(want),
                     "ms": min(k1, k2), "plain_ms": min(p1, p2),
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops
                     else "operations",
                     "library_ms": lib, "device_ms": dev_ms,
-                    "sort_device_ms": sort_ms,
+                    "launch_device_ms": {n: us / reps / 1e3
+                                         for n, us in kern.items()},
+                    "sort_device_ms": _sort_ms(x, k),
                     "library_device_ms": lib_dev, "bytes": nbytes})
         print(f"[times] topk select {what} {tuple(x.shape)} f32 k={k}: "
               + json.dumps(per[-1]))
     by_path = {path: n["topk_select"] for path, n in launches.items()}
     t_bytes = sum(r["bytes"] for r in per) / MEM_BYTES_PER_S * 1e3
     t_ops = sum(math.prod(r["shape"]) for r in per) / OPS32_PER_S * 1e3
-    dev_ms = _sum_or_none(r["device_ms"] for r in per)
+    dev_ms = sum(r["device_ms"] for r in per)
     return {
         "name": "topk_select", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/topk_select.cu",
@@ -2082,13 +2272,16 @@ def _topk_select_row(scores, errs, launches):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": sum(r["library_ms"] for r in per),
         "device_ms": dev_ms,
-        "device_ms_per_launch": None if dev_ms is None else dev_ms / len(per),
+        "device_ms_per_launch": dev_ms / sum(r["launches_per_call"]
+                                             for r in per),
         "library_device_ms": _sum_or_none(r["library_device_ms"]
                                           for r in per),
         "shapes": per,
         "shape_note": "one call at each shape: local execution of the "
                       f"device path's {DEV_B} queries on {DEV_PEERS} peers "
-                      "at k = 512 and 4096, CN at k = 1,280"}
+                      "at k = 512 and 4096 (resident route), CN at k = "
+                      "1,280 (long route); a topk_select launch of the "
+                      "path counts one call of topk_cuda"}
 
 
 def main() -> int:

@@ -1,18 +1,21 @@
 """Wrapper of the CUDA local top-k kernels (``csrc/topk.cu``,
 ``csrc/topk_select.cu``).
 
-Replaces ``src/repro/kernels/topk/topk.py::topk_pallas``.  Both routes
-are bound by device-memory bytes.  For ``k <= MAX_K`` the tile route
+Replaces ``src/repro/kernels/topk/topk.py::topk_pallas``.  Every route
+is bound by device-memory bytes.  For ``k <= MAX_K`` the tile route
 (``topk.cu``) reads each score once and finds the k largest of each
 tile of ``TILE`` scores by a radix select on the scores' total-order
-keys, then the k largest of a row's candidates.  For a larger k the
-select route (``topk_select.cu``) finds each row's k-th largest key by
-a radix select over the row in device memory, writes the winners to
-scratch and sorts them there (see the notes in the sources).  This
-module plans the route, the tiles and the scratch; each launcher
-refuses any other plan.  Launch counters:
+keys, then the k largest of a row's candidates.  A larger k takes one
+of the two select routes of ``topk_select.cu``: ``resident`` when the
+row, its k winners and the histogram's room fit one block's shared
+memory (``resident_bytes(n, k) <= RESIDENT_SMEM``; one launch, each
+score read once), else ``long`` (three launches, each score read twice:
+a cluster a row picks the first digit's bin, a block per ``LTILE``
+scores writes its candidates in row order, a block a row selects and
+sorts them).  This module plans the route, the tiles and the scratch;
+each launcher refuses any other plan.  Launch counters:
 ``repro_torch.kernels._build.LAUNCHES["topk"]`` (tile route) and
-``["topk_select"]``.
+``["topk_select"]`` (both select routes).
 """
 from __future__ import annotations
 
@@ -27,12 +30,18 @@ from repro_torch.kernels import _build
 #: ``csrc/topk.cu``), and the largest k that route takes
 TILE = 20480
 MAX_K = 256
-#: the select route's constants (``csrc/topk_select.cu``): scores a
-#: row-pass block takes, the first digit's bins, u32 of a row's state
-SEL_TILE = 16384
-SEL_FIRST_BINS = 4096
-SEL_STATE = 4
-TILES, SELECT = "tiles", "select"
+#: the select routes' constants (``csrc/topk_select.cu``): the bytes of
+#: a block's state and histogram room before its keys, a block's shared
+#: memory (the resident route's limit), the scores of a long-route tile
+#: block, the u32 of a long row's state and of a tile's line, and the
+#: most winners the bitonic sort takes (a larger k takes the radix sort)
+FIXED_BYTES = 16896
+RESIDENT_SMEM = 232448
+LTILE = 16384
+STATE = 4
+LINE = 4
+SORT_SLOTS = 512
+TILES, RESIDENT, LONG = "tiles", "resident", "long"
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
            torch.float16: "f16"}
 _P = ctypes.c_void_p
@@ -53,22 +62,42 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
+def _round4(n):
+    return -(-n // 4) * 4
+
+
+def resident_bytes(n: int, k: int) -> int:
+    """Shared memory of the resident route for a row of ``n`` scores at
+    ``k``: the state and the room, the row (once compacted, the sort's
+    second buffer: keys and indices, ``max(k, SORT_SLOTS)`` each), the k
+    winners."""
+    return FIXED_BYTES + 4 * max(n + 4, 2 * max(k, SORT_SLOTS)) + 8 * k
+
+
 def plan(n: int, k: int) -> TopkPlan:
     """The launch of a row of ``n`` scores at ``k``.
 
     ``k <= MAX_K``, the tile route: one pass-1 block per ``TILE``
     scores, and ``tiles * k`` words of scratch for pass 2 when a row has
-    more than one tile (else 0).  A larger k, the select route: tiles of
-    ``SEL_TILE`` scores, and a row's scratch of two k-word buffers, the
-    histogram (``SEL_FIRST_BINS`` u32), the row's state (``SEL_STATE``
-    u32) and the tiles' counts (u32 each).
+    more than one tile (else 0).  A larger k: the resident route, no
+    tiles and no scratch, when ``resident_bytes(n, k) <=
+    RESIDENT_SMEM``; else the long route, ``ceil(n / LTILE)`` tiles and
+    int64 scratch words a row (a multiple of 16 bytes) for its state
+    (``STATE`` u32), the tiles' lines (``LINE`` u32 each: keys above the
+    bin, bin keys kept, the bin's least and largest), their regions
+    (keys and indices,
+    ``min(LTILE, k)`` u32 each, rounded up to 4), the gathered
+    candidates (as large) and the k winners (keys and indices).
     """
     if k <= MAX_K:
         tiles = _cdiv(n, TILE)
         return TopkPlan(TILES, tiles, tiles * k if tiles > 1 else 0)
-    tiles = _cdiv(n, SEL_TILE)
-    return TopkPlan(SELECT, tiles, 2 * k + SEL_FIRST_BINS // 2
-                    + SEL_STATE // 2 + _cdiv(tiles, 2))
+    if resident_bytes(n, k) <= RESIDENT_SMEM:
+        return TopkPlan(RESIDENT, 0, 0)
+    tiles = _cdiv(n, LTILE)
+    cap = _round4(min(LTILE, k))
+    return TopkPlan(LONG, tiles, 2 * _cdiv(STATE + LINE * tiles
+                                           + 4 * tiles * cap + 2 * k, 4))
 
 
 def topk_cuda(scores, k: int, *, index_offset: int = 0):
@@ -79,7 +108,7 @@ def topk_cuda(scores, k: int, *, index_offset: int = 0):
     reference's ``astype(float32)``).  Returns f32 values (..., k) in
     the reference's total order, descending, and int32 indices
     ``local + index_offset``; ties go to the lowest index.  Takes any
-    ``1 <= k <= n`` (the tile route to ``MAX_K``, the select route
+    ``1 <= k <= n`` (the tile route to ``MAX_K``, a select route
     above), ``0 <= index_offset`` and ``n + index_offset <= 2**31``.
     """
     dev = scores.device

@@ -381,7 +381,7 @@ def test_topk_plan_matches_launcher():
     assert plan(TILE + 1, 256) == ("tiles", 2, 512)
     assert plan(2 ** 31, 256) == ("tiles", -(-2 ** 31 // TILE),
                                   -(-2 ** 31 // TILE) * 256)
-    assert plan(TILE + 1, 257).route == "select"
+    assert plan(TILE + 1, 257).route == "resident"
 
 
 def test_topk_kernel_model_takes_every_path():
@@ -402,12 +402,18 @@ def test_topk_kernel_model_takes_every_path():
 
 
 # ---------------------------------------------------------------------------
-# The select route (k > MAX_K, csrc/topk_select.cu), modelled step by
-# step in numpy: the radix select of the row's k-th key over the row (the
-# source's digit widths), the winners above it in any order (the kernel
-# places them by atomics), the tied keys by the tiles' quotas in index
-# order, the LSD radix sort of the words; held to topk_ref and
-# lax.top_k.
+# The select routes (k > MAX_K, csrc/topk_select.cu), modelled step by
+# step in numpy with the source's constants: the resident route (the
+# first digit counted as the row arrives; the bin narrowed to the k-th
+# key T by bytes, over its keys gathered in the room or over the row, a
+# bin of one key value ending at once; the winners, every key above T
+# and the first need_eq keys equal to T, compacted in row order by
+# (round, warp) cells of 16-byte vectors, the row's alignment shift
+# included; a bitonic sort up to SORT_SLOTS, else the LSD radix sort)
+# and the long route (a row's first digit summed by cluster slices,
+# each tile's candidates in row order in its own region, the final
+# select and sort over the gathered candidates, in shared memory or in
+# scratch); held to topk_ref and lax.top_k.
 # ---------------------------------------------------------------------------
 
 _SEL_SRC = (Path(_wrapper.__file__).resolve().parents[1] / "csrc"
@@ -416,67 +422,286 @@ _SEL = {name: int(v) for name, v in
         re.findall(r"constexpr int (\w+) = (\d+);", _SEL_SRC)}
 _SEL.update({name: 1 << _SEL[v] for name, v in
              re.findall(r"constexpr int (\w+) = 1 << (\w+);", _SEL_SRC)})
+_SEL_WARPS = _SEL["THREADS"] // 32
 
 
-def _model_select(x32, k, index_offset=0, seed=0):
-    """Top-k of each row of ``x32`` (f32) as the select route computes
-    it."""
+def _sel_pick(h, need):
+    """pick_bin over a histogram (bins ascending): the bin holding the
+    need-th largest key, the keys still wanted from it, its count and
+    the keys above it."""
+    above = np.cumsum(h[::-1])[::-1] - h
+    b = int(np.flatnonzero((above < need) & (above + h >= need))[0])
+    return b, int(need - above[b]), int(h[b]), int(above[b])
+
+
+def _sel_refine(src, lo, hi, need, cnt, shift, paths):
+    """refine: 8-bit digits of the keys of ``src`` in [lo, hi] from
+    ``shift`` down (the last clamped to bit 0) until the bin holds the
+    keys wanted or one key; a pass whose bin keys are one value ends
+    there."""
+    while cnt != need and lo != hi:
+        inbin = src[(src >= lo) & (src <= hi)].astype(np.int64)
+        h = np.bincount((inbin >> shift) & (_SEL["BINS"] - 1),
+                        minlength=_SEL["BINS"])
+        b, need, cnt, _ = _sel_pick(h, need)
+        lo |= b << shift
+        hi = lo | ((1 << shift) - 1)
+        if inbin.min() == inbin.max():
+            paths.add("one key")
+            lo = hi = int(inbin.min())
+            break
+        if shift == 0:
+            break
+        shift = max(shift - _SEL["BITS"], 0)
+    return lo, hi, need, cnt
+
+
+def _sel_shift(first, elt):
+    """load_keys's shift of a list whose first score lies ``first``
+    elements of ``elt`` bytes past a 16-byte boundary."""
+    mis = first * elt % 16
+    head = (16 - mis) % 16 // elt
+    return (4 - head % 4) % 4
+
+
+def _select_compact(keys, sh, lo, hi, need, cnt, first_bits, paths):
+    """select_compact over a list of uint32 keys stored from slot ``sh``
+    of 16-byte vectors: the positions of its winners in list order."""
+    m = len(keys)
+    if cnt != need and lo != hi:
+        if cnt <= _SEL["CAND_K"]:
+            paths.add("gathered")
+            src = keys[(keys >= lo) & (keys <= hi)]
+        else:
+            paths.add("over the list")
+            src = keys
+        lo, hi, need, cnt = _sel_refine(src, lo, hi, need, cnt,
+                                        32 - first_bits - _SEL["BITS"],
+                                        paths)
+    else:
+        paths.add("all of the bin")
+    one = lo == hi
+    T = lo if one else lo - 1
+    need_eq = need if one else 0
+    if one and need < cnt:
+        paths.add("ties cut")
+    nq = (sh + m + 3) // 4
+    k64 = np.zeros(4 * nq, np.int64)
+    valid = np.zeros(4 * nq, bool)
+    k64[sh:sh + m] = keys
+    valid[sh:sh + m] = True
+    q = np.arange(nq)
+    if (not one or need == cnt) and nq <= _SEL["CHUNK"] * _SEL["THREADS"]:
+        # compact_above: no tie is cut; each warp stages its winners
+        thr = T - 1 if one else T
+        won = (valid & (k64 > thr)).reshape(nq, 4)
+        staged = np.bincount((q % _SEL["THREADS"]) // 32, won.sum(1),
+                             minlength=_SEL_WARPS)
+        if staged.max() <= _SEL["STAGE"]:
+            paths.add("one pass")
+            return np.flatnonzero(won.ravel()) - sh
+        paths.add("staging overflow")
+    # the compaction: cells of (round, warp), a lane's vector in each
+    paths.add("two passes")
+    gt = (valid & (k64 > T)).reshape(nq, 4)
+    eq = (valid & (k64 == T)).reshape(nq, 4)
+    slots = np.full(4 * nq, -1, np.int64)
+    gt_run = eq_run = 0
+    span = _SEL["CHUNK"] * _SEL["THREADS"]
+    for q_lo in range(0, nq, span):
+        qs = q[q_lo:q_lo + span]
+        cell = ((qs - q_lo) // _SEL["THREADS"]) * _SEL_WARPS \
+            + (qs % _SEL["THREADS"]) // 32
+        g = np.bincount(cell, gt[qs].sum(1), minlength=_SEL["THREADS"])
+        e = np.bincount(cell, eq[qs].sum(1), minlength=_SEL["THREADS"])
+        cg = gt_run + np.cumsum(g) - g
+        ce = eq_run + np.cumsum(e) - e
+        # within a cell the lanes' vectors in order (lane = q % 32)
+        for c in np.unique(cell):
+            vs = qs[cell == c]
+            assert np.array_equal(vs % 32, np.arange(len(vs)) + vs[0] % 32)
+            gb, eb = int(cg[c]), int(ce[c])
+            for v in vs:
+                for j in range(4):
+                    if gt[v, j] or (eq[v, j] and eb < need_eq):
+                        slots[4 * v + j] = gb + min(eb, need_eq)
+                    gb += int(gt[v, j])
+                    eb += int(eq[v, j])
+        gt_run += int(g.sum())
+        eq_run += int(e.sum())
+    won = np.flatnonzero(slots >= 0)
+    total = gt_run + min(eq_run, need_eq)
+    assert np.array_equal(slots[won], np.arange(total))   # row order
+    return won - sh
+
+
+def _sel_sort(keys, idx):
+    """sort_out: up to SORT_SLOTS pairs the bitonic network over
+    SORT_SLOTS slots (pads (0, 0xffffffff) last), else the radix sort
+    (per pass, each warp counts its segment's digits, a scan in (digit,
+    warp) order gives each warp its slots, a digit's lanes take them in
+    order; a pass of one digit is skipped)."""
+    m = len(keys)
+    p = _SEL["SORT_SLOTS"]
+    if m <= p:
+        k = np.zeros(p, np.int64)
+        x = np.full(p, 0xFFFFFFFF, np.int64)
+        k[:m], x[:m] = keys, idx
+        i = np.arange(p)
+        s = 2
+        while s <= p:
+            j = s // 2
+            while j:
+                lo_ = i[(i & j) == 0]
+                hi_ = lo_ | j
+                first = (k[lo_] > k[hi_]) | ((k[lo_] == k[hi_])
+                                             & (x[lo_] < x[hi_]))
+                desc = (lo_ & s) == 0
+                swap = np.where(desc, ~first, first)
+                a, b = lo_[swap], hi_[swap]
+                k[a], k[b] = k[b].copy(), k[a].copy()
+                x[a], x[b] = x[b].copy(), x[a].copy()
+                j //= 2
+            s *= 2
+        assert np.all(x[m:] == 0xFFFFFFFF)       # the pads go last
+        return k[:m].astype(np.uint32), x[:m]
+    seg = (-(-m // _SEL_WARPS) + 31) // 32 * 32
+    warp = np.arange(m) // seg
+    for shift in range(0, 32, _SEL["BITS"]):
+        d = ((_SEL["BINS"] - 1) - ((keys >> np.uint32(shift))
+                                   & np.uint32(_SEL["BINS"] - 1))
+             ).astype(np.int64)
+        if np.all(d == d[0]):
+            continue
+        wh = np.zeros((_SEL["BINS"], _SEL_WARPS), np.int64)
+        np.add.at(wh, (d, warp), 1)
+        off = (np.cumsum(wh.ravel()) - wh.ravel()).reshape(wh.shape)
+        slot = np.empty(m, np.int64)
+        for i in range(m):                    # in order: stable
+            slot[i] = off[d[i], warp[i]]
+            off[d[i], warp[i]] += 1
+        assert np.array_equal(np.sort(slot), np.arange(m))
+        out_k, out_i = np.empty_like(keys), np.empty_like(idx)
+        out_k[slot], out_i[slot] = keys, idx
+        keys, idx = out_k, out_i
+    return keys, idx
+
+
+def _model_resident(keys, k, sh, paths):
+    """The resident route over one row's keys: (keys, indices) sorted."""
+    first = _SEL["RES_BITS"]
+    h = np.bincount((keys >> np.uint32(32 - first)).astype(np.int64),
+                    minlength=_SEL["RES_BINS"])
+    b, need, cnt, _ = _sel_pick(h, k)
+    lo = b << (32 - first)
+    win = _select_compact(keys, sh, lo, lo | ((1 << (32 - first)) - 1),
+                          need, cnt, first, paths)
+    assert len(win) == k
+    return _sel_sort(keys[win], win)
+
+
+def _model_long(keys, k, shift_of, paths):
+    """The long route over one row's keys (``shift_of(first)``: the
+    alignment shift of a tile from element ``first`` of the row)."""
+    n = len(keys)
+    first, ltile = _SEL["LONG_BITS"], _SEL["LTILE"]
+    shift = 32 - first
+    # launch 1: each cluster block's histogram, summed by slices; the
+    # slice holding the k-th key picks its bin
+    h = np.bincount((keys >> np.uint32(shift)).astype(np.int64),
+                    minlength=_SEL["LONG_BINS"])
+    slices = h.reshape(_SEL["CLUSTER"], -1)
+    tot = slices.sum(axis=1)
+    up = np.cumsum(tot[::-1])[::-1] - tot     # keys in higher slices
+    r = int(np.flatnonzero((up < k) & (up + tot >= k))[0])
+    b, need, cnt, above = _sel_pick(slices[r], k - int(up[r]))
+    b += r * slices.shape[1]
+    above += int(up[r])
+    lo = b << shift
+    hi = lo | ((1 << shift) - 1)
+    assert (above, need + above) == (int((keys > hi).sum()), k)
+    # launch 2: each tile's keys above the bin and its largest
+    # min(bin keys, need) bin keys, in row order, to its region, and its
+    # line (keys above, bin keys kept, the bin's least and largest key)
+    cap = -(-min(ltile, k) // 4) * 4
+    regions, lines = [], []
+    for t in range(-(-n // ltile)):
+        tk = keys[t * ltile:(t + 1) * ltile]
+        inb = tk[(tk >= lo) & (tk <= hi)]
+        bin_t, kept = len(inb), min(len(inb), need)
+        tlo, thi = lo, hi
+        if bin_t and inb.min() == inb.max():   # one key value
+            paths.add("tile bin of one key")
+            tlo = thi = int(inb.min())
+            if not (tk > hi).any() and kept < bin_t:
+                # the ties from the tile's start, a round at a time
+                paths.add("ties from the tile's start")
+        win = _select_compact(tk, shift_of(t * ltile), tlo, thi, kept,
+                              bin_t, first, paths)
+        gt = int((tk > hi).sum())
+        assert len(win) == gt + kept <= cap
+        regions.append((tk[win], win + t * ltile))
+        lines.append((gt, kept, int(inb.min()) if bin_t else 0xFFFFFFFF,
+                      int(inb.max()) if bin_t else 0))
+    # launch 3: the regions gathered in order (when the row's bin is one
+    # key value, each tile's keys above it and its share of the first
+    # `need` bin keys: k keys), selected and sorted
+    kept = sum(line[1] for line in lines)
+    one = kept > 0 and (min(line[2] for line in lines)
+                        == max(line[3] for line in lines))
+    left = need
+    for i, (rk_, ri_) in enumerate(regions):
+        is_bin = rk_ <= hi
+        quota = min(lines[i][1], left) if one else lines[i][1]
+        left -= quota
+        take = ~is_bin | (np.cumsum(is_bin) <= quota)
+        regions[i] = (rk_[take], ri_[take])
+    ck = np.concatenate([r[0] for r in regions])
+    ci = np.concatenate([r[1] for r in regions])
+    m = len(ck)
+    assert np.all(np.diff(ci) > 0) and m >= k and (m == k or not one)
+    span = max(m, _SEL["SORT_SLOTS"])
+    paths.add("final in shared memory"
+              if _SEL["FIXED_BYTES"] + 8 * (span + k)
+              <= _SEL["RESIDENT_SMEM"] else "final in scratch")
+    if one:
+        paths.add("final of one key")
+        lo = hi = lines[0][2] if lines[0][1] else min(
+            line[2] for line in lines)
+    win = _select_compact(ck, 0, lo, hi, need, need if one else kept,
+                          first, paths)
+    assert len(win) == k
+    return _sel_sort(ck[win], ci[win])
+
+
+def _model_select(x32, k, index_offset=0, paths=None, elt=4):
+    """Top-k of each row of ``x32`` (f32; scores of ``elt`` bytes in a
+    contiguous tensor) as the route of the wrapper's plan computes it;
+    ``paths`` collects the route and the ways taken."""
+    paths = set() if paths is None else paths
     rows, n = x32.shape
-    route, tiles, _ = plan(n, k)
-    assert route == "select" and tiles == -(-n // _SEL["SEL_TILE"])
-    first, bits = _SEL["SEL_FIRST_BITS"], _SEL["SEL_BITS"]
-    assert first + 2 * bits == 32
-    rng = np.random.default_rng(seed)
+    p = plan(n, k)
+    assert p.route in ("resident", "long")
+    paths.add(p.route)
     vals = np.empty((rows, k), np.float32)
     idx = np.empty((rows, k), np.int64)
     for r in range(rows):
-        keys = _np_keys(x32[r]).astype(np.int64)
-        prefix, need = 0, k
-        for shift, width in ((32 - first, first), (bits, bits), (0, bits)):
-            top = shift + width           # digits above this one found
-            live = keys if top >= 32 else keys[(keys >> top)
-                                               == (prefix >> top)]
-            h = np.bincount((live >> shift) & ((1 << width) - 1),
-                            minlength=1 << width)
-            above = np.cumsum(h[::-1])[::-1] - h
-            b = int(np.flatnonzero((above < need) & (above + h >= need))[0])
-            prefix |= b << shift
-            need -= int(above[b])
-        gt = np.flatnonzero(keys > prefix)
-        assert len(gt) == k - need and need >= 1
-        # each tile's equal keys, and its quota after the earlier tiles'
-        eq = keys == prefix
-        per = np.add.reduceat(eq, np.arange(0, n, _SEL["SEL_TILE"]))
-        before = np.cumsum(per) - per
-        quota = np.clip(need - before, 0, per)
-        ties = np.concatenate([
-            np.flatnonzero(eq[t * _SEL["SEL_TILE"]:
-                              (t + 1) * _SEL["SEL_TILE"]])[:q]
-            + t * _SEL["SEL_TILE"] for t, q in enumerate(quota)])
-        assert len(ties) == need
-        order = rng.permutation(len(gt))       # the atomics' slot order
-        w = np.concatenate([_words(keys[gt[order]].astype(np.uint32),
-                                   gt[order]),
-                            _words(keys[ties].astype(np.uint32), ties)])
-        for shift in range(0, 64, _SEL["SORT_BITS"]):
-            d = (np.uint64(_SEL["SORT_BINS"] - 1)
-                 - ((w >> np.uint64(shift))
-                    & np.uint64(_SEL["SORT_BINS"] - 1)))
-            if np.all(d == d[0]):
-                continue                       # one digit: order stays
-            w = w[np.argsort(d, kind="stable")]
-        vals[r] = _np_values(w >> np.uint64(32))
-        idx[r] = (0xFFFFFFFF - (w & np.uint64(0xFFFFFFFF))).astype(np.int64)
+        keys = _np_keys(x32[r])
+        if p.route == "resident":
+            keys, pos = _model_resident(keys, k, _sel_shift(r * n, elt),
+                                        paths)
+        else:
+            keys, pos = _model_long(
+                keys, k, lambda f, r=r: _sel_shift(r * n + f, elt), paths)
+        vals[r] = _np_values(keys)
+        idx[r] = pos
     return vals, (idx + index_offset).astype(np.int32)
 
 
-_SEL_N = 2 * _SEL["SEL_TILE"] + 5          # three tiles, the last of 5
-
-
-def _select_case(case, seed):
-    """Scores (3, _SEL_N) as f32, every value exact in bf16 and f16."""
+def _select_case(case, n, seed):
+    """Scores (3, n) as f32, every value exact in bf16 and f16."""
     rng = np.random.default_rng(seed)
-    shape = (3, _SEL_N)
+    shape = (3, n)
     if case == "ties_over_tiles":          # the k-th key tied across tiles
         return (rng.integers(0, 4, shape) / 4).astype(np.float32)
     if case == "one_value":
@@ -489,44 +714,142 @@ def _select_case(case, seed):
         return rng.choice(pool, size=shape)
     if case == "normal":
         return rng.standard_normal(shape).astype(np.float32)
+    if case == "uniform":                  # U[0, 1): a wide first bin
+        return (rng.integers(0, 1 << 11, shape) / (1 << 11)).astype(
+            np.float32)
     raise ValueError(case)
 
 
-@pytest.mark.parametrize("case", ["ties_over_tiles", "one_value",
-                                  "all_neg_inf", "specials", "normal"])
-@pytest.mark.parametrize("k", [257, 512, 1000, _SEL_N - 1, _SEL_N])
-def test_topk_select_model_matches_reference(case, k):
-    """The select route, modelled step by step, equals the port's plain
-    version and lax.top_k bit for bit, in f32, bf16 and f16."""
-    assert _SEL["SEL_TILE"] == 16384 and _SEL["MAX_K"] == MAX_K
-    x32 = _select_case(case, seed=k)
+def _assert_model(x32, k, want_route):
+    """The model on x32 at k in f32, bf16 and f16 against topk_ref and
+    lax.top_k; returns the paths it took."""
+    paths = set()
     for dtype in ("f32", "bf16", "f16"):
         xj, xt = _exact(x32, dtype)
         ref = jax_topk_ref(xj, k, index_offset=3)
         _assert_same(topk_ref(xt, k, index_offset=3), ref)
-        got = _model_select(to_f32(xt).numpy(), k, index_offset=3, seed=k)
+        got = _model_select(to_f32(xt).numpy(), k, index_offset=3,
+                            paths=paths, elt=xt.element_size())
         _assert_same((torch.from_numpy(got[0]), torch.from_numpy(got[1])),
                      ref)
+    assert want_route in paths, paths
+    return paths
+
+
+#: a row of the device path's local execution (resident at every k that
+#: fits), and a long row of four tiles, the last partial
+_SEL_NS = {"resident": 20_000, "long": 3 * 16_384 + 10_848}
+
+
+@pytest.mark.parametrize("case", ["ties_over_tiles", "one_value",
+                                  "all_neg_inf", "specials", "normal"])
+@pytest.mark.parametrize("k", [257, 512, 1280, "n-1", "n"])
+@pytest.mark.parametrize("where", ["resident", "long"])
+def test_topk_select_model_matches_reference(case, k, where):
+    """The select routes, modelled step by step, equal the port's plain
+    version and lax.top_k bit for bit, in f32, bf16 and f16 (a k of n -
+    1 or n does not fit the resident route: the long route's final
+    select and sort run in scratch)."""
+    assert _SEL["LTILE"] == 16_384 and _SEL["MAX_K"] == MAX_K
+    n = _SEL_NS[where]
+    k = {"n-1": n - 1, "n": n}.get(k, k)
+    route = where if plan(n, k).route == where else "long"
+    _assert_model(_select_case(case, n, seed=k), k, route)
+
+
+def _resident_max_n(k):
+    """The largest n the resident route takes at k."""
+    return ((_wrapper.RESIDENT_SMEM - _wrapper.FIXED_BYTES - 8 * k) // 4
+            - 4)
+
+
+@pytest.mark.parametrize("case", ["normal", "uniform", "one_value",
+                                  "ties_over_tiles"])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+@pytest.mark.parametrize("k", [257, 4096])
+def test_topk_select_model_at_the_route_threshold(case, delta, k):
+    """Rows one short of, at and one past the largest the resident route
+    takes: the route flips there, and both agree with the reference."""
+    n = _resident_max_n(k) + delta
+    route = "resident" if delta <= 0 else "long"
+    assert plan(n, k).route == route
+    _assert_model(_select_case(case, n, seed=n)[:1], k, route)
+
+
+def test_topk_select_model_takes_every_path():
+    """The inputs above drive the model through every way: all of the
+    bin, its keys gathered or narrowed over the list, a bin of one key
+    value, ties cut at the k-th key, the long route's final in shared
+    memory and in scratch, both sorts."""
+    seen = {}
+    for where, n in _SEL_NS.items():
+        for case in ("normal", "uniform", "one_value", "ties_over_tiles"):
+            for k in (512, n):
+                p = set()
+                _model_select(_select_case(case, n, seed=1)[:1], k,
+                              paths=p)
+                seen[(where, case, k)] = p
+    assert {"gathered", "one pass"} <= seen[("resident", "normal", 512)]
+    assert "two passes" in seen[("resident", "one_value", 512)]
+    assert "staging overflow" in seen[("resident", "normal", 20_000)]
+    assert {"over the list", "one key", "ties cut"} <= seen[
+        ("resident", "one_value", 512)]
+    assert "all of the bin" in seen[("resident", "one_value", 20_000)]
+    assert {"long", "final in shared memory"} <= seen[("long", "normal",
+                                                       512)]
+    assert {"tile bin of one key", "ties from the tile's start",
+            "final of one key", "final in shared memory"} <= seen[
+        ("long", "one_value", 512)]
+    assert "final in scratch" in seen[("long", "normal", _SEL_NS["long"])]
+    # a heavy bin of distinct keys (all in one first-digit bin) narrows
+    # over the list by bytes, to exactly the keys wanted
+    x = (1 + np.random.default_rng(1).random((1, 20_000)) / 8).astype(
+        np.float32)
+    p = set()
+    got = _model_select(x, 512, paths=p)
+    _assert_same((torch.from_numpy(got[0]), torch.from_numpy(got[1])),
+                 topk_ref(torch.from_numpy(x), 512))
+    assert "over the list" in p and "one key" not in p
 
 
 def test_topk_plan_routes():
-    """k up to MAX_K takes the tile route, a larger k the select route
-    with its tiles and scratch as csrc/topk_select.cu plans them, and
-    the wrapper's constants and argument list are that source's."""
-    for name in ("SEL_TILE", "SEL_FIRST_BINS", "SEL_STATE"):
+    """k up to MAX_K takes the tile route; a larger k the resident route
+    while the row, its winners and the room fit RESIDENT_SMEM, else the
+    long route with its tiles and scratch; the wrapper's constants,
+    formulas and argument list are csrc/topk_select.cu's."""
+    for name in ("FIXED_BYTES", "RESIDENT_SMEM", "LTILE", "STATE", "LINE",
+                 "SORT_SLOTS"):
         assert _SEL[name] == getattr(_wrapper, name), name
-    assert "*words = 2 * k + SEL_FIRST_BINS / 2 + SEL_STATE / 2 + " \
-           "cdiv(*tiles, 2);" in _SEL_SRC
+    assert "return FIXED_BYTES + 4 * resident_span(n, k) + 8 * k;" in _SEL_SRC
+    assert ("const long long sort = 2 * (k > SORT_SLOTS ? k : SORT_SLOTS);"
+            in _SEL_SRC)
+    assert "return n + 4 > sort ? n + 4 : sort;" in _SEL_SRC
+    assert "if (resident_bytes(n, k) <= RESIDENT_SMEM) {" in _SEL_SRC
+    assert "*tiles = cdiv(n, LTILE);" in _SEL_SRC
+    assert ("*words = 2 * cdiv(STATE + LINE * *tiles + 4 * *tiles * cap "
+            "+ 2 * k, 4);" in _SEL_SRC)
+    assert "const long long cap = round4(k < LTILE ? k : LTILE);" in _SEL_SRC
     assert "k <= MAX_K || k > n" in _SEL_SRC
     assert "tiles != want_tiles" in _SEL_SRC
     params = re.search(r"extern \"C\" int NAME\(([^)]*)\)",
                        _SEL_SRC).group(1)
     assert len(params.split(",")) == len(_wrapper._ARGTYPES)
     assert plan(20_000, MAX_K).route == "tiles"
-    for n, k, tiles in ((20_000, 512, 2), (20_000, 4096, 2),
-                        (1_280_000, 1_280, 79), (257, 257, 1)):
-        assert plan(n, k) == ("select", tiles, 2 * k + 2048 + 2
-                              + -(-tiles // 2))
+    # local execution (k 512, 4096) and CN* (64 x 700) are resident; CN
+    # at k_frac 1e-3 is long
+    for n, k in ((20_000, 512), (20_000, 4096), (44_800, 700),
+                 (257, 257)):
+        assert plan(n, k) == ("resident", 0, 0), (n, k)
+    for n, k, tiles in ((1_280_000, 1_280, 79), (1_280_000, 512, 79),
+                        (20_000, 20_000, 2), (60_000, 257, 4)):
+        cap = -(-min(16_384, k) // 4) * 4
+        assert plan(n, k) == ("long", tiles, 2 * -(-(4 + 4 * tiles
+                                                    + 4 * tiles * cap
+                                                    + 2 * k) // 4))
+    n = _resident_max_n(512)
+    assert n == 52_860
+    assert (plan(n, 512).route, plan(n + 1, 512).route) == ("resident",
+                                                            "long")
 
 
 def test_device_engine_large_k_matches_reference(devices8, tmp_path):

@@ -57,6 +57,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+from chip_smoke import kernels_by_tag, tagged  # noqa: E402
 
 MEM_BYTES_PER_S = 3.35e12
 E = 32
@@ -129,46 +131,13 @@ def _old_launchers(name, src):
 
 def _tagged_ms(calls, reps, name):
     """Device ms of the kernels named ``name`` by the tag they were
-    launched under: one profiler window runs each function of ``calls``
-    in turn, ``reps`` times; each launch to be timed runs inside
-    ``torch.profiler.record_function(tag)``.  A kernel is joined to its
-    tag through its launch's correlation id in the exported trace, so a
-    kernel the trace lacks drops out of its tag's mean and shifts no
-    other.  Returns {tag: (mean ms, kernels seen)}."""
-    import bisect
-    import tempfile
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for fn in calls:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in calls:
-                fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d:
-        prof.export_chrome_trace(f"{d}/trace.json")
-        events = json.loads(Path(d, "trace.json").read_text())["traceEvents"]
-    tags = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["name"])
-                  for e in events if e.get("cat") == "user_annotation"
-                  and e.get("name", "").startswith("tag:"))
-    starts = [t[0] for t in tags]
-    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
-                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                 and "Launch" in e.get("name", "")
-                 and "correlation" in e.get("args", {})}
-    per = {}
-    for e in events:
-        if e.get("cat") != "kernel" or f"{name}<" not in e.get("name", ""):
-            continue
-        t = launch_ts.get(e.get("args", {}).get("correlation"))
-        i = -1 if t is None else bisect.bisect_right(starts, t) - 1
-        if i >= 0 and t <= tags[i][1]:
-            per.setdefault(tags[i][2], []).append(e["dur"])
-    return {tag: (statistics.fmean(us) / 1e3, len(us))
-            for tag, us in per.items()}
+    launched under (:func:`chip_smoke.kernels_by_tag`: one profiler
+    window runs each function of ``calls`` in turn, ``reps`` times; each
+    launch to be timed runs inside ``chip_smoke.tagged``).  Returns
+    {tag: (mean ms, kernels seen)}."""
+    per = kernels_by_tag(calls, reps)
+    return {tag: (statistics.fmean(k[name]) / 1e3, len(k[name]))
+            for tag, k in per.items() if k.get(name)}
 
 
 def _windows(calls, reps, name, runs):
@@ -184,16 +153,6 @@ def _windows(calls, reps, name, runs):
             per[tag] = (means + [ms], n + seen)
     return {tag: (statistics.fmean(means), n, means)
             for tag, (means, n) in per.items()}
-
-
-def _tagged(tag, fn):
-    """``fn`` launched inside the profiler range ``tag``."""
-    import torch
-
-    def call(*a, **k):
-        with torch.profiler.record_function(tag):
-            return fn(*a, **k)
-    return call
 
 
 def _path(dev):
@@ -336,14 +295,14 @@ def main() -> int:
 
             def cold_sweep(d, fn):
                 flush.zero_()            # nothing of the last sweep in L2
-                return [_tagged(f"tag:{d}:{i}", fn)(*c)
+                return [tagged(f"{d}:{i}", fn)(*c)
                         for i, c in enumerate(calls)]
 
             def warm_sweep(d, fn):
                 def by_level(own, all_in, dl, death=None, out=None):
                     i = widths.index(own.shape[1])
-                    return _tagged(f"tag:{d}:{i}", fn)(own, all_in, dl,
-                                                       death, out)
+                    return tagged(f"{d}:{i}", fn)(own, all_in, dl,
+                                                  death, out)
                 return warm(variant, by_level)
             timed = {}
             for kind, sweep, reps in (("cold", cold_sweep, args.reps),
@@ -353,18 +312,18 @@ def main() -> int:
                     [(lambda d=d, fn=fn: sweep(d, fn))
                      for d, fn in designs.items()], reps, kname, args.runs)
             timed["one"] = _windows(
-                [(lambda d=d, fn=fn: _tagged(f"tag:{d}:0", fn)(*one))
+                [(lambda d=d, fn=fn: tagged(f"{d}:0", fn)(*one))
                  for d, fn in designs.items()], args.reps, kname, args.runs)
             sums = {}
             for name in designs:
                 for kind in ("cold", "warm"):
                     for i, r in enumerate(rows):
                         ms, seen, means = timed[kind].get(
-                            f"tag:{name}:{i}", (None, 0, []))
+                            f"{name}:{i}", (None, 0, []))
                         r[f"{kind}_device_ms"][name] = ms
                         r.setdefault(f"{kind}_windows_ms", {})[name] = means
                         r.setdefault(f"{kind}_kernels_seen", {})[name] = seen
-                one_ms = timed["one"].get(f"tag:{name}:0", (None,))[0]
+                one_ms = timed["one"].get(f"{name}:0", (None,))[0]
                 sums[name] = {"one_element_ms": one_ms}
                 for kind in ("cold", "warm"):
                     ms = [r[f"{kind}_device_ms"][name] for r in rows]
