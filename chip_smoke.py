@@ -5,7 +5,8 @@
 
 Drives the port's paths — the FD overlay top-k query served by a
 ``QueryServer``, statically and under churn with the CN / CN* baselines,
-and the ``DeviceEngine``'s FD collectives over 64 virtual peers —
+the ``DeviceEngine``'s FD collectives over 64 virtual peers, and a
+live overlay whose peers join and leave between queries —
 through the hand-written CUDA kernels, and fails (exit code 1, no
 result line) when any phase fails:
 
@@ -86,6 +87,20 @@ result line) when any phase fails:
      4-entry static, churned (lifetime 60 s) and ``cn`` specs, warm
      ``run_s`` in f64 / f32 / bf16; the 1,000,000-peer star with an
      int32 plan in f32 (tolerance contract, build and run seconds);
+  9. a live overlay (the reference's full-size ``overlay_dynamics``
+     workload: hierarchical, 100,000 peers, seed 7, 16 cached origins):
+     a ``SimEngine`` bound to an ``Overlay`` on the card, then one
+     leave, one join and random sessions of 2, 8 and 32 events, each
+     followed by a timed incremental ``plan.sync()`` and a drained
+     ``QueryServer`` batch (fd-dynamic over the 16 origins, 4 of them at
+     lifetime 60 s, one fd-st1+2, and after each session one request
+     from a departed peer); every served answer equal, bit for bit, to
+     a card engine on a plan rebuilt from scratch (timed, with its
+     upload) and to the port's CPU path on the synced plan, and after
+     the first and the last event origin 0's answer to
+     ``run_query_reference``; the merge, arrivals and both waits must
+     launch on the served batches, and are held to their plain versions
+     at the synced plan's shapes;
   6. time each kernel (the churn variant at the churn sweep's level
      shapes) at the shapes its path gives it (CUDA events,
      median of several runs) beside its plain version, one PyTorch
@@ -1069,17 +1084,17 @@ _METRICS = ("n_reached", "n_edges_pq", "avg_degree", "m_fw", "b_fw", "m_bw",
             "m_rt", "b_bw", "b_rt", "response_time_s", "accuracy")
 
 
-def _require_same_result(what, rg, rc):
+def _require_same_result(what, rg, rc, other="CPU path"):
     """Two TopKResults with equal values, indices and metrics bits."""
     import numpy as np
     for f in _METRICS:
         _require(np.array_equal(getattr(rg.metrics, f),
                                 getattr(rc.metrics, f)),
-                 f"{what}: card != CPU path on metric {f}")
+                 f"{what}: card != {other} on metric {f}")
     _require(rg.values.dtype == rc.values.dtype
              and np.array_equal(rg.values, rc.values)
              and np.array_equal(rg.indices, rc.indices),
-             f"{what}: card != CPU path on values / indices")
+             f"{what}: card != {other} on values / indices")
 
 
 # ---------------------------------------------------------------------------
@@ -1716,6 +1731,219 @@ SPREAD_PEERS = 2_000
 
 
 # ---------------------------------------------------------------------------
+# phase 9: a live overlay, peers joining and leaving between queries
+# ---------------------------------------------------------------------------
+
+# the reference's full-size live-overlay workload, nothing cut
+# (benchmarks/overlay_dynamics.py, incremental_sync_rows and
+# churn_sweep_rows): a hierarchical overlay of 100,000 peers, seed 7,
+# SimParams(seed=0), 16 cached origins drawn by default_rng(11); one
+# leave (a deep leaf, "reconnect" repair), one join, then random
+# sessions of 2, 8 and 32 events between syncs, here on one overlay
+OV_PEERS = 100_000
+OV_ORIGINS = 16
+OV_SESSIONS = (2, 8, 32)
+# how many of the hot set also get a churned request (phase 3b's heavy
+# churn, lifetime 60 s), and overlay_dynamics._parity's lifetime
+OV_CHURN_ORIGINS = 4
+OV_PARITY_LIFETIME_S = 30.0
+
+
+def _deep_leaf(plan, origin):
+    """A degree-1 peer as deep as possible below ``origin``
+    (overlay_dynamics._deep_leaf)."""
+    import numpy as np
+    from repro_torch.p2psim.graph import bfs_tree_csr
+    _, depth, _ = bfs_tree_csr(plan.indptr, plan.indices, origin,
+                               plan.top.n)
+    cand = np.where(plan.degrees == 1, depth, -1)
+    if cand.max() < 1:
+        cand = np.where(plan.degrees <= 2, depth, -1)
+    return int(cand.argmax())
+
+
+def _warm_hot_set(engine, origins):
+    """Statics and depth slices of ``origins`` (what a standing server
+    holds for its hot set), then their device upload; returns the host
+    seconds and the upload seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.engine.sim_torch import _device_slices
+    plan = engine.plan
+    t0 = time.perf_counter()
+    sts, _ = plan.origin_statics(np.asarray(origins, np.int64), 0, "st1+2")
+    sls = [plan.depth_slices(st) for st in sts]
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for sl in sls:
+        _device_slices(sl, engine.device)
+    torch.cuda.synchronize()
+    return host_s, time.perf_counter() - t0
+
+
+def _overlay_requests(origins, i, tomb):
+    """Event ``i``'s requests: fd-dynamic on independent streams over the
+    hot set, four of them at lifetime 60 s, one fd-st1+2 and, where a
+    peer has left, one fd-dynamic request from it."""
+    from repro_torch.engine import QuerySpec, get_policy
+    churn = get_policy("fd-dynamic").variant(lifetime_mean_s=CHURN_HEAVY_S)
+    seed = 3000 + 100 * i
+    reqs = [(f"fd-dynamic@{o}", QuerySpec(origins=(o,), seed=seed + j,
+                                          rng="independent"), "fd-dynamic")
+            for j, o in enumerate(origins)]
+    reqs += [(f"fd-dynamic@60@{o}", QuerySpec(origins=(o,), seed=seed + 50
+                                              + j, rng="independent"), churn)
+             for j, o in enumerate(origins[:OV_CHURN_ORIGINS])]
+    reqs.append((f"fd-st1+2@{origins[0]}",
+                 QuerySpec(origins=(origins[0],), seed=seed + 90),
+                 "fd-st1+2"))
+    if tomb is not None:
+        reqs.append((f"fd-dynamic@{tomb} (departed)",
+                     QuerySpec(origins=(tomb,), seed=seed + 99,
+                               rng="independent"), "fd-dynamic"))
+    return reqs
+
+
+def _check_reference(engine, origin):
+    """A shared batch-of-1 at ``origin`` equals the scalar reference run
+    on the overlay as it stands (overlay_dynamics._parity)."""
+    from repro_torch.engine import QuerySpec, get_policy
+    from repro_torch.p2psim import run_query_reference
+    life = OV_PARITY_LIFETIME_S
+    t0 = time.perf_counter()
+    ref, _ = run_query_reference(engine.plan.top, origin, engine.params,
+                                 dynamic=True, lifetime_mean_s=life)
+    one = engine.run(QuerySpec(origins=(origin,)), get_policy(
+        "fd-dynamic").variant(lifetime_mean_s=life))
+    _require(one.query_metrics(0, 0) == ref, f"origin {origin}: the "
+             "synced plan's answer != run_query_reference")
+    return time.perf_counter() - t0
+
+
+def _overlay(dev, gen, errs, _build):
+    """Serve top-k requests on the card while peers join and leave: each
+    event is followed by an incremental ``plan.sync()`` (timed) and a
+    drained ``QueryServer`` batch over the overlay-bound engine, held
+    bit for bit to a card engine on a plan rebuilt from scratch (timed,
+    with its upload) and to the port's CPU path on the synced plan.
+    Returns the launches of the served batches."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import (NetworkPlan, Overlay, QueryServer,
+                                    ServerConfig, SimEngine, apply_events,
+                                    random_session)
+    from repro_torch.engine.sim_torch import _device_slices
+    from repro_torch.p2psim import SimParams, build_topology
+    t0 = time.perf_counter()
+    ov = Overlay(build_topology("hierarchical", OV_PEERS, seed=7))
+    p = SimParams(seed=0)
+    engine = SimEngine(ov, p, device=dev)
+    plan = engine.plan
+    origins = sorted(int(o) for o in np.random.default_rng(11).choice(
+        OV_PEERS, OV_ORIGINS, replace=False))
+    host_s, up_s = _warm_hot_set(engine, origins)
+    print(f"[overlay] hierarchical n={ov.n} edges={ov.top.n_edges}, "
+          f"{OV_ORIGINS} origins {origins}: built in "
+          f"{time.perf_counter() - t0:.3f} s (hot set {host_s:.3f} s "
+          f"host, {up_s:.3f} s upload)")
+    events = [("leave", None), ("join", None)] + [
+        (f"session {m}", m) for m in OV_SESSIONS]
+    counts = dict.fromkeys(_build.LAUNCHES, 0)
+    cpu = SimEngine(plan, p, device="cpu")
+    tomb = None
+    for i, (event, m) in enumerate(events):
+        if event == "leave":
+            tomb = _deep_leaf(plan, origins[0])
+            ov.remove_peer(tomb, repair="reconnect")
+        elif event == "join":
+            ov.add_peer(neighbors=(origins[0],
+                                   int(ov.top.neighbors[origins[0]][0])))
+        else:
+            evs = random_session(ov, m, seed=100 + i - 2, join_prob=0.5)
+            apply_events(ov, evs, repair="reconnect")
+            tomb = next((e.peer for e in reversed(evs)
+                         if e.kind == "leave"), tomb)
+        t0 = time.perf_counter()
+        moved = plan.sync()
+        sync_s = time.perf_counter() - t0
+        _require(moved, f"{event}: plan.sync() found nothing to do")
+        reqs = _overlay_requests(origins, i, tomb if m else None)
+        server = QueryServer(engine, ServerConfig(max_queue=256,
+                                                  max_batch=64))
+        _build.reset_launches()          # count the served batch alone
+        handles = [(name, server.submit(spec, pol))
+                   for name, spec, pol in reqs]
+        server.start()                   # one cycle takes every request
+        try:
+            served = [(name, h.result(timeout=900)) for name, h in handles]
+        finally:
+            server.stop(drain=True, timeout=60)
+        for name, c in _build.LAUNCHES.items():
+            counts[name] += c
+        sm = server.metrics()
+        _require(sm.served == sm.submitted == len(reqs) and sm.failed == 0,
+                 f"{event}: served {sm.served} of {sm.submitted}, failed "
+                 f"{sm.failed}")
+        _require(plan.version == ov.version, f"{event}: plan at version "
+                 f"{plan.version}, overlay at {ov.version}")
+        # the same requests on a plan rebuilt from scratch, warmed the same
+        t0 = time.perf_counter()
+        fresh = SimEngine(NetworkPlan(ov.top), p, device=dev)
+        reb_host, reb_up = _warm_hot_set(fresh, origins)
+        rebuild_s = time.perf_counter() - t0 - reb_up
+        specs = [spec for _, spec, _ in reqs]
+        pols = [pol for _, _, pol in reqs]
+        t0 = time.perf_counter()
+        rebuilt = fresh.run_many(specs, pols)
+        fresh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = cpu.run_many(specs, pols)
+        cpu_s = time.perf_counter() - t0
+        for (name, res), rf, rc in zip(served, rebuilt, on_cpu):
+            _require(res.backend_used == "sim-torch" and res.precision
+                     == "f64", f"{event} {name}: {res.backend_used} "
+                     f"{res.precision}")
+            _require_same_result(f"{event} {name}", res, rf,
+                                 "a plan rebuilt from scratch")
+            _require_same_result(f"{event} {name}", res, rc)
+        if tomb is not None and m:
+            res = served[-1][1]
+            _require(int(res.metrics.n_reached[0, 0]) == 1,
+                     f"{event}: the departed peer {tomb} reached "
+                     f"{res.metrics.n_reached[0, 0]} peers")
+        ref_s = (_check_reference(engine, origins[0])
+                 if i in (0, len(events) - 1) else None)
+        lat = sm.latency
+        line = {
+            "event": event, "n_peers": ov.n, "version": ov.version,
+            "requests": len(reqs), "departed_origin": tomb if m else None,
+            "sync_s": sync_s, "compile_s_first": served[0][1].compile_s,
+            "compile_s_all": sum(r.compile_s / r.batch_size
+                                 for _, r in served),
+            "rebuild_s": rebuild_s, "rebuild_upload_s": reb_up,
+            "rebuild_hot_set_host_s": reb_host,
+            "served_p50_s": lat.p50_s, "served_p95_s": lat.p95_s,
+            "served_p99_s": lat.p99_s, "run_s_max": sm.run_s.max,
+            "rebuilt_run_many_s": fresh_s, "cpu_run_many_s": cpu_s,
+            "reference_check_s": ref_s, "parity": True}
+        print("[overlay] " + json.dumps(line))
+    print("[overlay] launches " + json.dumps(counts))
+    for name in ("merge", "arrivals", "wait", "wait_churn"):
+        _require(counts[name] > 0, f"kernel {name} never launched on the "
+                 "live-overlay path")
+    # the kernels at the synced plan's own shapes (origin 0 of the hot set)
+    st = plan.origin_statics([origins[0]], 0, "st1+2")[0][0]
+    levels = _device_slices(plan.depth_slices(st), dev)[0]
+    n = _check_levels("overlay", levels, OV_ORIGINS, torch.float64, gen,
+                      dev, errs)
+    n += _check_merges_at(_merge_calls(_merge_pairs(levels), dev, gen),
+                          errs, "the synced overlay")
+    print(f"[overlay] {n} kernel checks at the synced plan's shapes "
+          "bit-equal to the plain versions")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at main-path shapes
 # ---------------------------------------------------------------------------
 
@@ -1807,10 +2035,9 @@ def _merge_bytes(merge):
                for va, ia, vb, ib, ma, mb in merge)
 
 
-def _merge_row(name, merge, errs, note):
-    """The merge's timing entry at the list pairs ``merge``, held to its
-    plain version there first."""
-    import torch
+def _check_merges_at(merge, errs, note):
+    """The merge kernel bit-equal to its plain version on the list pairs
+    ``merge`` (into outputs filled with NaN)."""
     from repro_torch.kernels.merge import merge_cuda, merge_ref
     for va, ia, vb, ib, ma, mb in merge:
         v1, i1 = merge_cuda(va, ia, vb, ib, valid_a=ma, valid_b=mb,
@@ -1819,6 +2046,15 @@ def _merge_row(name, merge, errs, note):
         errs["merge"] = max(errs["merge"], _max_abs_err(v1, v2))
         _require(_same(v1, v2) and _same(i1, i2),
                  f"merge at the shapes of {note}: kernel != plain")
+    return len(merge)
+
+
+def _merge_row(name, merge, errs, note):
+    """The merge's timing entry at the list pairs ``merge``, held to its
+    plain version there first."""
+    import torch
+    from repro_torch.kernels.merge import merge_cuda, merge_ref
+    _check_merges_at(merge, errs, note)
     cats = [torch.cat([va, vb], dim=-1) for va, _, vb, _, _, _ in merge]
     m_bytes = _merge_bytes(merge)
     # one binary search of log2(K) + 1 compares per input element
@@ -2332,10 +2568,11 @@ def main() -> int:
     dev_launches, scores, _ = _device_path(dev, gen, _build)
     topo_launches = _topologies(dev, gen, errs, _build)
     prec_launches, _ = _reduced_precision(engine, dev, gen, errs, _build)
+    overlay_launches = _overlay(dev, gen, errs, _build)
 
     launches = {"serve": serve_launches, "serve_churn": churn_launches,
                 "device": dev_launches, "topologies": topo_launches,
-                **prec_launches}
+                **prec_launches, "overlay": overlay_launches}
     # phase 3b extended origin 0's slices with the reroute tables
     rr = _device_slices(engine.plan.depth_slices(sts[0]), dev)[2]
     _require(rr is not None, "phase 3b built no reroute tables")

@@ -7,6 +7,14 @@ compiled NetworkPlan, with the FD sweep on a torch device.
     res = engine.run(QuerySpec(origins=(0, 7), n_trials=4), "fd-dynamic")
     res.metrics.summary()                   # per-entry BatchMetrics
 
+Bound to a live ``Overlay``, the engine re-syncs its plan before every
+execution, so peers may join and leave between queries:
+
+    ov = Overlay(topology)
+    engine = SimEngine(ov)
+    ov.remove_peer(7, repair="reconnect")
+    engine.run(QuerySpec(origins=(0,)))     # plan synced incrementally
+
 For sustained concurrent load, ``QueryServer`` hosts warm engines
 behind a bounded queue and a dynamic batcher that coalesces compatible
 requests onto one sweep via ``Engine.run_many``:
@@ -34,10 +42,17 @@ from repro_torch.engine.serve import (LatencyStats,  # noqa: F401
                                       ServerConfig, ServerError,
                                       ServerMetrics, ServerOverloaded)
 from repro_torch.engine.sim import SimEngine  # noqa: F401
+from repro_torch.engine import registry  # noqa: F401
+from repro_torch.p2psim.overlay import (Overlay,  # noqa: F401
+                                        SessionEvent, apply_events,
+                                        available_repairs, get_repair,
+                                        random_session, register_repair)
 
 __all__ = ["QuerySpec", "Policy", "TopKResult", "NetworkPlan", "Engine",
            "SimEngine", "DeviceEngine", "QueryServer", "QueryHandle",
            "ServerConfig", "ServerError", "ServerOverloaded", "RequestTimeout",
            "ServerClosed", "ServerMetrics", "LatencyStats", "PhaseStats",
+           "Overlay", "SessionEvent", "random_session", "apply_events",
            "available_policies", "get_policy", "policy_from_legacy",
-           "register_policy"]
+           "register_policy", "register_repair", "get_repair",
+           "available_repairs", "registry"]

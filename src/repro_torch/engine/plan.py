@@ -1,17 +1,19 @@
 """NetworkPlan — compiled, cached preprocessing of one overlay topology.
 
-A copy of the reference package's plan layer for a frozen
-:class:`~repro_torch.p2psim.graph.Topology`.  Everything about a
+A copy of the reference package's plan layer.  Everything about a
 topology that does not depend on the trial RNG is computed once and
 persists across ``SimEngine.run`` calls:
 
   * the CSR adjacency and directed edge arrays (+ sorted membership
     keys for the Strategy-2 edge test);
+  * the per-edge latency array aligned with the CSR (``edge_lat``,
+    coordinate-carrying topologies only);
   * per-origin BFS trees, tree levels, children CSR, and forward-phase
     static edge masks (``_OriginStatic``), keyed by (origin, ttl,
     forward strategy);
   * resolved auto-TTL eccentricities (the ``ttl=0`` case);
-  * the replication placement table (``replica_table``);
+  * the replication placement table (``replica_table``), invalidated on
+    overlay mutation;
   * per-origin :class:`DepthSlices` — the dense per-level index arrays
     and static merge-fold schedule the device sweep
     (``repro_torch.engine.sim_torch``) runs on; the sweep caches their
@@ -19,16 +21,35 @@ persists across ``SimEngine.run`` calls:
     extends a cached instance in place with the churn sweep's §4.2
     dead-parent reroute tables.
 
-Live overlays (``sync``) are not part of this package yet.
+Plans are NOT frozen: a plan built from a live
+:class:`~repro_torch.p2psim.overlay.Overlay` follows its mutations
+through :meth:`NetworkPlan.sync` (the engines call it before every
+execution), which recompiles the per-topology tier and re-validates
+every cached per-origin tier: a rank-certified patch of each cached BFS
+tree (``_patch_tree``) where the journal is small and its rules cover
+it, else a fresh multi-origin BFS; statics whose tree came out
+bit-identical are kept with their edge-derived fields re-derived,
+changed ones are patched (``_OriginStatic.patched``) or rebuilt, and
+each ``DepthSlices`` adopts every level whose compile inputs are
+unchanged.  A kept ``DepthSlices`` drops its device copies
+(:meth:`DepthSlices.refresh`); a rebuilt one is a new instance with
+none, so the next query uploads it again.  The slices are cached under
+the static's resolved TTL and the statics under the requested one, so
+with an auto-TTL (``ttl=0``) a sync drops every cached ``DepthSlices``
+and the next query compiles it anew, as in the reference; only an
+explicit TTL runs the reuse path.  The result is bit-exact with
+a from-scratch ``NetworkPlan`` of the mutated topology and with the
+reference package's synced plan (tests/test_torch_overlay.py).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
 from repro_torch.p2psim.graph import (Topology, as_csr, bfs_tree_csr,
                                       bfs_tree_csr_multi, directed_edges)
+from repro_torch.p2psim.overlay import Overlay
 from repro_torch.p2psim.simulate import (SimParams, _OriginStatic,
                                          build_replica_table)
 
@@ -105,8 +126,17 @@ class DepthSlices:
     """
 
     def __init__(self, st: _OriginStatic, n: int, reroute: bool = False,
+                 reuse: Optional[Tuple["DepthSlices",
+                                       _OriginStatic]] = None,
                  index_dtype=np.int64):
         """Compile ``st``'s tree into dense slices + fold schedules.
+
+        ``reuse=(old_slices, old_static)`` — incremental-update path:
+        levels whose compile inputs are unchanged between ``old_static``
+        and ``st`` adopt ``old_slices``' level dicts wholesale instead
+        of recompiling (the pure-Python fold schedule dominates the
+        cost of a full compile, so reusing untouched levels is what
+        makes ``NetworkPlan.sync`` fast; see :meth:`_reusable_levels`).
 
         ``index_dtype``: dtype of every position/index array (``vv``,
         gathers, fold-schedule slots, els).  int32 halves the plan's
@@ -119,8 +149,12 @@ class DepthSlices:
         self.dmax = len(st.levels) - 1
         self.index_dtype = np.dtype(index_dtype)
         ix = self._ix
+        usable = self._reusable_levels(st, reuse)
         self.levels = []
         for d in range(self.dmax + 1):
+            if usable is not None and usable[d]:
+                self.levels.append(reuse[0].levels[d])
+                continue
             vs = st.levels[d]
             L = len(vs)
             lv = {"vv": ix(vs)}
@@ -174,6 +208,47 @@ class DepthSlices:
             self.els_dst = self._ix(st.fw_els_dst)
             self.cond = st.fw_cond
 
+    def _reusable_levels(self, st: _OriginStatic, reuse):
+        """Per-level reuse mask for the incremental-update path.
+
+        Level ``d``'s compiled dict is a pure function of the level
+        arrays ``levels[d-1..d+1]`` and the parents over them; the
+        lazily-extended reroute tables additionally read level ``d+2``
+        (grandchildren re-segmented by grandparent).  A level is
+        therefore adopted wholesale iff every level in the ``[d-1,
+        d+2]`` window is bit-identical (same nodes, same parents)
+        between the old and new static — conservative by one level for
+        slices that never extend reroute, and exact for those that do.
+        """
+        if reuse is None:
+            return None
+        old_sl, old_st = reuse
+        odmax = old_sl.dmax
+
+        def eq(d):
+            if d > self.dmax and d > odmax:
+                return True                    # absent on both sides
+            if d > self.dmax or d > odmax:
+                return False
+            a, b = st.levels[d], old_st.levels[d]
+            return bool(np.array_equal(a, b)
+                        and np.array_equal(st.parent[a], old_st.parent[b]))
+
+        eqs = [eq(d) for d in range(max(self.dmax, odmax) + 3)]
+        return [(d <= odmax and (d < self.dmax) == (d < odmax)
+                 and all(eqs[x] for x in range(max(0, d - 1), d + 3)))
+                for d in range(self.dmax + 1)]
+
+    def refresh(self, st: _OriginStatic) -> None:
+        """Incremental-update path for a patched ``st`` whose TREE is
+        unchanged: only the edge-derived forward masks can differ, so
+        re-adopt them and drop the device caches (level dicts — and any
+        reroute tables, which depend on the tree alone — stay)."""
+        self._set_els(st)
+        for a in ("_device", "_device_rr"):
+            if hasattr(self, a):
+                delattr(self, a)
+
     def extend_reroute(self, st: _OriginStatic) -> None:
         """Add the reroute tables to THIS instance, in place.
 
@@ -182,12 +257,15 @@ class DepthSlices:
         grandparent has the dead child as a child by construction).
         Everything already compiled is shared, and the static sweep's
         device tensors stay valid: the sweep caches the rr tables
-        separately (``sim_torch._device_slices``).
+        separately (``sim_torch._device_slices``).  Levels adopted by
+        the incremental path keep the tables they already carry.
         """
         if self.reroute:
             return
         for d in range(self.dmax - 1):
             lv, nxt = self.levels[d], self.levels[d + 1]
+            if "rr_rounds" in lv:
+                continue            # adopted by the incremental path
             par_nodes = lv["vv"][lv["par_sel"]]
             gp = st.parent[st.parent[nxt["cnode"]]]
             lv["rr_gc_pos"] = nxt["c_in_next"]
@@ -248,10 +326,233 @@ class DepthSlices:
                 np.array(seg_order, np.int64))
 
 
-class NetworkPlan:
-    """Reusable per-topology state shared by every query on an overlay."""
+def _edge_delta(deltas):
+    """Net undirected (removed, added) edge sets from an overlay
+    journal slice — add/remove pairs that cancel out drop away, so the
+    per-origin patch only sees edges whose existence actually
+    changed."""
+    net: Dict[Tuple[int, int], int] = {}
 
-    def __init__(self, top: Topology, *, index_dtype: str = "auto"):
+    def bump(a, b, s):
+        k = (a, b) if a < b else (b, a)
+        net[k] = net.get(k, 0) + s
+
+    for d in deltas:
+        if d.op == "add_edge":
+            bump(d.nodes[0], d.nodes[1], 1)
+        elif d.op == "remove_edge":
+            bump(d.nodes[0], d.nodes[1], -1)
+        elif d.op == "remove_peer":
+            for f in d.nodes[1:]:
+                bump(d.nodes[0], f, -1)
+    removed = [k for k, s in net.items() if s < 0]
+    added = [k for k, s in net.items() if s > 0]
+    return removed, added
+
+
+_PATCH_MAX_OPS = 12     # journal size beyond which sync just re-sweeps
+
+
+class _Bail(Exception):
+    """Internal: a tree-patch rule hit a structural case — re-sweep."""
+
+
+def _patch_tree(st, deltas, n: int, limit: int, indptr, indices):
+    """BFS-free (parent, depth, reached, rank) after a SMALL delta.
+
+    Replays the overlay journal against one cached tree using the
+    stored within-level discovery ranks as a first-touch certificate:
+    same-depth claim priority is exactly rank order, so single joins,
+    leaves, and rewires resolve without re-running the sweep.  The
+    result is bit-identical to a fresh ``bfs_tree_csr`` on the patched
+    CSR.  Returns None — caller falls back to the multi-origin BFS —
+    for anything structural: an orphaned subtree, a shortcut through a
+    node with tree children, a claim cascade, an unreached region
+    becoming reachable, or a journal longer than ``_PATCH_MAX_OPS``.
+
+    Soundness rests on two facts about the first-touch flood: (1)
+    deleting or inserting candidate slots shifts all later slot
+    positions monotonically, so the RELATIVE claim order of untouched
+    nodes never changes; (2) a level's claim order is lexicographic in
+    (parent's rank, child id) because adjacency is kept sorted — which
+    makes the stored ranks a total order any new claim can be placed
+    into fractionally.
+    """
+    if len(deltas) > _PATCH_MAX_OPS or st.rank is None:
+        return None
+    old_n = len(st.parent)
+    if old_n == n:
+        P, D, K = st.parent.copy(), st.depth.copy(), st.rank.copy()
+    else:
+        P = np.concatenate([st.parent, np.full(n - old_n, -1, np.int64)])
+        D = np.concatenate([st.depth, np.full(n - old_n, -1, np.int64)])
+        K = np.concatenate([st.rank, np.full(n - old_n, -1.0)])
+    ops = [(d.op, d.nodes) for d in deltas]
+    touched: set = set()
+    relevels: set = set()   # levels whose membership changed: renumber
+
+    def neighbors_at(z: int, i: int) -> set:
+        """z's neighbor set just AFTER journal op i (final CSR with the
+        not-yet-applied ops undone)."""
+        nb = set(int(y) for y in indices[indptr[z]:indptr[z + 1]])
+        for op, nodes in ops[i + 1:][::-1]:
+            if op == "add_edge" and z in nodes[:2]:
+                nb.discard(nodes[0] if z == nodes[1] else nodes[1])
+            elif op == "remove_edge" and z in nodes[:2]:
+                nb.add(nodes[0] if z == nodes[1] else nodes[1])
+            elif op == "remove_peer":
+                if z == nodes[0]:
+                    nb.update(nodes[1:])
+                elif z in nodes[1:]:
+                    nb.add(nodes[0])
+        return nb
+
+    def childless(v: int) -> bool:
+        return not np.any(P == v)
+
+    def level_members(d: int, but: int):
+        """Current level-d nodes except ``but`` (old level array filtered
+        by the live depth, plus any nodes moved in by earlier rules)."""
+        base = (st.levels[d] if d < len(st.levels)
+                else np.zeros(0, np.int64))
+        base = base[(D[base] == d) & (base != but)]
+        extra = [t for t in touched
+                 if D[t] == d and t != but
+                 and (d >= len(st.levels)
+                      or not _in_sorted(st.levels[d], t))]
+        if extra:
+            base = np.concatenate([base, np.asarray(extra, np.int64)])
+        return base
+
+    def rank_between(u: int, w: int, d: int) -> float:
+        """A rank for w claimed by u at depth d, strictly between its
+        lexicographic (parent rank, id) neighbors in the level."""
+        m = level_members(d, w)
+        if not len(m):
+            return 0.0
+        kp = K[P[m]]
+        lower = (kp < K[u]) | ((kp == K[u]) & (m < w))
+        lo = K[m][lower].max() if lower.any() else None
+        hi = K[m][~lower].min() if not lower.all() else None
+        if lo is None:
+            return float(hi) - 1.0
+        if hi is None:
+            return float(lo) + 1.0
+        return (float(lo) + float(hi)) / 2.0
+
+    def claims_ok(w: int, dn: int, kw: float, i: int) -> None:
+        """Bail unless w, (re)claimed at depth dn with rank kw, provably
+        claims nothing itself in the fresh flood."""
+        if dn >= limit:
+            return                        # w is never expanded
+        for y in neighbors_at(w, i):
+            if D[y] < 0:
+                raise _Bail               # w would reach a new region
+            if D[y] > dn + 1:
+                raise _Bail               # shortcut through w
+            if D[y] == dn + 1 and kw < K[P[y]]:
+                raise _Bail               # w would steal y's claim
+
+    def move(w: int, dn: int, u: int, i: int) -> None:
+        """Re-attach childless w as u's child at depth dn."""
+        kw = rank_between(u, w, dn)
+        claims_ok(w, dn, kw, i)
+        if D[w] >= 0:
+            relevels.add(int(D[w]))
+        relevels.add(int(dn))
+        P[w], D[w], K[w] = u, dn, kw
+        touched.add(w)
+
+    try:
+        for i, (op, nodes) in enumerate(ops):
+            if op == "add_peer":
+                continue                  # link-less: unreached
+            if op == "remove_peer":
+                v = nodes[0]
+                if D[v] >= 0:
+                    if not childless(v):
+                        raise _Bail       # orphaned subtree
+                    relevels.add(int(D[v]))
+                    P[v], D[v], K[v] = -1, -1, -1.0
+                    touched.add(v)
+                continue
+            if op == "remove_edge":
+                u, w = int(nodes[0]), int(nodes[1])
+                for a, b in ((u, w), (w, u)):
+                    if P[b] != a:
+                        continue          # non-tree side: claim slots
+                    if not childless(b):  # only shift, order preserved
+                        raise _Bail
+                    cand = [y for y in neighbors_at(b, i)
+                            if D[y] >= 0 and D[y] < limit]
+                    if not cand:          # b falls out of reach
+                        relevels.add(int(D[b]))
+                        P[b], D[b], K[b] = -1, -1, -1.0
+                        touched.add(b)
+                        continue
+                    dn = min(D[y] for y in cand) + 1
+                    par = min((y for y in cand if D[y] == dn - 1),
+                              key=lambda y: K[y])
+                    move(b, dn, par, i)
+                continue
+            if op == "add_edge":
+                u, w = int(nodes[0]), int(nodes[1])
+                if D[u] < 0 and D[w] < 0:
+                    continue              # invisible to this tree
+                if D[u] < 0 or D[w] < 0:
+                    b, a = (u, w) if D[u] < 0 else (w, u)
+                    if D[a] >= limit:
+                        continue          # beyond the horizon
+                    if not childless(b):
+                        raise _Bail
+                    move(b, D[a] + 1, a, i)
+                    continue
+                if D[u] == D[w]:
+                    continue              # same level never claims
+                a, b = (u, w) if D[u] < D[w] else (w, u)
+                if D[b] == D[a] + 1:
+                    if K[a] < K[P[b]]:    # a's claim slot comes first
+                        if not childless(b):
+                            raise _Bail
+                        move(b, D[b], a, i)
+                    continue              # else b was claimed earlier
+                if D[a] >= limit:
+                    continue
+                if not childless(b):
+                    raise _Bail           # shortcut through b's subtree
+                move(b, D[a] + 1, a, i)
+                continue
+            raise _Bail                   # unknown journal op
+    except _Bail:
+        return None
+    # canonicalise: fractional insertions and removal gaps are only
+    # order-isomorphic to a fresh flood's ranks — renumber every level
+    # whose membership changed so the result is bit-identical
+    for d in relevels:
+        m = level_members(d, -1)
+        if len(m):
+            K[m[np.argsort(K[m], kind="stable")]] = np.arange(
+                len(m), dtype=np.float64)
+    return P, D, D >= 0, K
+
+
+def _in_sorted(arr, x) -> bool:
+    p = int(np.searchsorted(arr, x))
+    return p < len(arr) and arr[p] == x
+
+
+class NetworkPlan:
+    """Reusable per-topology state shared by every query on an overlay.
+
+    Accepts a frozen :class:`Topology` or a live
+    :class:`~repro_torch.p2psim.overlay.Overlay`; in the latter case the plan
+    records the overlay version it was compiled at and
+    :meth:`sync` (called by the engines before every execution) patches
+    the caches incrementally whenever the overlay has moved on.
+    """
+
+    def __init__(self, top: Union[Topology, Overlay], *,
+                 index_dtype: str = "auto"):
         """Compile the per-topology state (CSR, edges, latency array).
 
         ``index_dtype``: width of the CSR / edge / depth-slice index
@@ -266,12 +567,17 @@ class NetworkPlan:
                 "index_dtype must be 'auto', 'int32' or 'int64', got "
                 f"{index_dtype!r}")
         self._index_dtype_req = index_dtype
+        self.overlay: Optional[Overlay] = None
+        if isinstance(top, Overlay):
+            self.overlay = top
+            top = top.top
         self.top = top
         self._compile_topology()
         self._statics: Dict[Tuple[int, int, str], _OriginStatic] = {}
         self._auto_ttl: Dict[int, int] = {}
         self._slices: Dict[Tuple[int, int, str], DepthSlices] = {}
         self._replicas: Dict[Tuple[int, str], np.ndarray] = {}
+        self.version = self.overlay.version if self.overlay else 0
 
     def _compile_topology(self) -> None:
         """(Re)compile the per-topology tier from ``self.top``."""
@@ -296,9 +602,128 @@ class NetworkPlan:
         self.edge_lat = (top.edge_latencies(self.e_src, self.e_dst)
                          if top.coords is not None else None)
 
+    # ---- incremental updates (live overlays) ----------------------------
+
+    def sync(self, overlay: Optional[Overlay] = None) -> bool:
+        """Bring the plan up to date with its overlay; True if it moved.
+
+        Cheap no-op when the versions already match.  Otherwise the
+        per-topology tier is recompiled (vectorized O(E)) and every
+        cached per-origin tier is re-validated against a fresh
+        multi-origin BFS on the patched CSR:
+
+          * statics whose (parent, depth) came out bit-identical are
+            KEPT — only their edge-derived fields (forward masks,
+            degree metrics, latency gathers) are re-derived, and their
+            ``DepthSlices`` keep every compiled level;
+          * changed statics are rebuilt from the already-computed BFS,
+            and their ``DepthSlices`` recompile only the levels whose
+            inputs differ (see :meth:`DepthSlices._reusable_levels`);
+          * auto-TTLs are re-resolved from the same BFS pass
+            (``ttl=0`` statics) or dropped for lazy recompute;
+          * replication tables are invalidated.
+
+        Bit-exactness vs a from-scratch plan holds by construction:
+        the same BFS runs on the same CSR, and anything reused is only
+        reused when its compile inputs are bit-identical.
+        """
+        ov = overlay if overlay is not None else self.overlay
+        if ov is None:
+            return False
+        if self.overlay is None:
+            self.overlay = ov
+        if ov.top is not self.top:
+            raise ValueError(
+                "sync() got an overlay wrapping a different Topology "
+                "than this plan was compiled from")
+        if ov.version == self.version:
+            return False
+        self._apply_update()
+        self.version = ov.version
+        return True
+
+    def _apply_update(self) -> None:
+        old_n = len(self.indptr) - 1
+        old_csr = (old_n, self.indptr, self.indices, self.e_src,
+                   self.e_dst, self.edge_keys)
+        deltas = self.overlay.deltas_since(self.version)
+        removed, added = _edge_delta(deltas)
+        self._compile_topology()
+        self._replicas.clear()
+        n = self.top.n
+        if not self._statics:
+            self._auto_ttl.clear()
+            self._slices.clear()
+            return
+        # one vectorized BFS sweep per distinct ttl over the cached keys
+        by_ttl: Dict[int, List[int]] = {}
+        for (o, ttl, _fs) in self._statics:
+            lst = by_ttl.setdefault(ttl, [])
+            if o not in lst:
+                lst.append(o)
+        # rank-certified tree patch first (no sweep for single joins /
+        # leaves / rewires); the multi-origin BFS only covers origins
+        # whose delta was structural
+        old_tree: Dict[Tuple[int, int], _OriginStatic] = {}
+        for (o, ttl, _fs), st in self._statics.items():
+            old_tree.setdefault((o, ttl), st)
+        bfs_new = {}
+        for ttl, os_ in by_ttl.items():
+            limit = n if ttl == 0 else ttl
+            need = []
+            for o in os_:
+                res = _patch_tree(old_tree[(o, ttl)], deltas, n, limit,
+                                  self.indptr, self.indices)
+                if res is None:
+                    need.append(o)
+                else:
+                    bfs_new[(o, ttl)] = res
+            if need:
+                P, D, R, K = bfs_tree_csr_multi(
+                    self.indptr, self.indices, np.asarray(need, np.int64),
+                    limit, return_rank=True)
+                for i, o in enumerate(need):
+                    bfs_new[(o, ttl)] = (P[i], D[i], R[i], K[i])
+        statics, slices, auto_ttl = {}, {}, {}
+        for key, st in self._statics.items():
+            o, ttl, fs = key
+            P, D, R, K = bfs_new[(o, ttl)]
+            sl = self._slices.get(key)
+            if (old_n == n and np.array_equal(st.parent, P)
+                    and np.array_equal(st.depth, D)):
+                # tree intact: keep the static, re-derive the
+                # edge-dependent fields, keep every compiled level
+                st.refresh_edges(self.top, self.e_src, self.e_dst,
+                                 self.edge_keys, self.degrees,
+                                 self.edge_lat)
+                if sl is not None:
+                    sl.refresh(st)
+            else:
+                new_st = _OriginStatic.patched(
+                    st, self.top, self.indptr, self.indices, self.e_src,
+                    self.e_dst, self.edge_keys, self.degrees, ttl,
+                    (P, D, R, K), self.edge_lat, old_csr, removed, added)
+                if new_st is None:        # large/structural delta
+                    new_st = _OriginStatic(
+                        self.top, self.indptr, self.indices, self.e_src,
+                        self.e_dst, self.edge_keys, self.degrees, o, ttl,
+                        fs, bfs=(P, D, R, K), edge_lat=self.edge_lat)
+                if sl is not None:
+                    sl = DepthSlices(new_st, n, reroute=sl.reroute,
+                                     reuse=(sl, st),
+                                     index_dtype=self.index_dtype)
+                st = new_st
+            statics[key] = st
+            if sl is not None:
+                slices[key] = sl
+            if ttl == 0:
+                auto_ttl[o] = st.ttl
+        self._statics, self._slices = statics, slices
+        self._auto_ttl = auto_ttl   # anything else: lazily re-resolved
+
     def replica_table(self, p: SimParams) -> Optional[np.ndarray]:
         """The (n, r) replication placement table for ``p`` (cached per
-        (factor, placement)); None when
+        (factor, placement), invalidated on overlay mutation); None when
         replication is off."""
         r = p.replication_factor
         if r <= 0:

@@ -20,8 +20,14 @@ sweep in that dtype under the tolerance contract of
 The two-round ``fd-stats`` heuristic (paper §3.3) runs the scalar
 reference twice on the host, as the reference package does in both of
 its backends: its result says so (``backend_used == "sim"``), and the
-engine warns once.  Live overlays raise ``NotImplementedError``; nothing
-else falls back to another path.
+engine warns once.  Nothing else falls back to another path.
+
+``prepare`` (or the constructor) also takes a live
+:class:`~repro_torch.p2psim.overlay.Overlay`: the engine's plan is then
+bound to it and re-synced incrementally before every execution
+(``NetworkPlan.sync``), so peers may join and leave between queries and
+every answer equals, bit for bit, the answer from a plan rebuilt from
+scratch on the mutated overlay.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.engine.sim_torch import run_entries_torch
 from repro_torch.kernels import _build
 from repro_torch.p2psim.graph import Topology
 from repro_torch.p2psim.metrics import QUERY_BYTES, BatchMetrics, QueryMetrics
+from repro_torch.p2psim.overlay import Overlay
 from repro_torch.p2psim.simulate import (SimParams, _latency_mode,
                                          run_query_reference)
 
@@ -90,7 +97,8 @@ class SimEngine(Engine):
 
     backend = "sim-torch"
 
-    def __init__(self, top: Optional[Union[Topology, NetworkPlan]] = None,
+    def __init__(self,
+                 top: Optional[Union[Topology, Overlay, NetworkPlan]] = None,
                  params: Optional[SimParams] = None, *, device=None,
                  precision: str = "f64", validate_precision: bool = True):
         """Build the engine (and compile ``top``'s plan when given)."""
@@ -117,20 +125,25 @@ class SimEngine(Engine):
                 RuntimeWarning, stacklevel=5)
         return "sim"
 
-    def prepare(self, top: Union[Topology, NetworkPlan]) -> NetworkPlan:
-        """Compile (or adopt) the overlay's NetworkPlan."""
+    def prepare(self, top: Union[Topology, Overlay, NetworkPlan]
+                ) -> NetworkPlan:
+        """Compile (or adopt) the overlay's NetworkPlan.
+
+        Passing a live :class:`~repro_torch.p2psim.overlay.Overlay`
+        binds the plan to it: every subsequent ``run`` / ``run_many``
+        re-resolves the plan against the overlay's current version
+        (:meth:`NetworkPlan.sync` — incremental, not a recompile), so
+        the engine keeps serving while the network churns.  Mutate the
+        overlay only while no request is executing on it."""
         if isinstance(top, NetworkPlan):
             self.plan = top
-        elif isinstance(top, Topology):
+        elif isinstance(top, (Topology, Overlay)):
             self.plan = NetworkPlan(top)
-        elif hasattr(top, "deltas_since"):
-            raise NotImplementedError(
-                "live overlays come with the overlay slice of the port; "
-                "pass a frozen Topology")
         else:
             raise TypeError(
-                f"expected a Topology or NetworkPlan, got {type(top)!r} "
-                "(carry an overlay across with topology_from_arrays)")
+                f"expected a Topology, Overlay or NetworkPlan, got "
+                f"{type(top)!r} (carry an overlay across with "
+                "topology_from_arrays)")
         return self.plan
 
     def run(self, spec: Optional[QuerySpec] = None,
@@ -252,6 +265,8 @@ class SimEngine(Engine):
         """Run one (already resolved) spec on the prepared overlay."""
         if self.plan is None:
             raise RuntimeError("call SimEngine.prepare(topology) first")
+        if self.plan.overlay is not None:
+            self.plan.sync()              # live overlay: catch up by version
         _latency_mode(self.plan.top, p)   # validate model name + coords
         prec = spec.precision or self._precision
         if pol.algorithm == "fd-stats":

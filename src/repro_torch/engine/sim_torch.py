@@ -348,7 +348,10 @@ def _device_slices(sl: DepthSlices, device: torch.device):
     extended with reroute tables, else one dict per level (None where a
     level has no grandchildren).  The reroute tables are cached
     SEPARATELY from the static tables, so a plan that later serves churn
-    keeps the static sweep's tensors as they were.
+    keeps the static sweep's tensors as they were.  A live overlay's
+    ``NetworkPlan.sync`` drops both caches of an instance it keeps
+    (``DepthSlices.refresh`` deletes ``_device`` and ``_device_rr``), so
+    the next call uploads the re-derived edge arrays.
     """
     cache = sl.__dict__.setdefault("_device", {})
     key = str(device)

@@ -12,7 +12,9 @@ alone.
   * ``SimParams`` (Table 1 of the paper) and the Appendix-A wait budget;
   * the link, score and churn draws (``EntryDraws``);
   * ``_OriginStatic`` — one origin's BFS tree, levels, child CSR and
-    forward-phase edge masks;
+    forward-phase edge masks, and ``_OriginStatic.patched``, which
+    re-derives them after a small overlay mutation (the live-overlay
+    sync of ``repro_torch.engine.plan``);
   * the epilogue the sweep hands over to: urgent-list acceptance at
     the origin (§4.1), the §4.2 reroute message count, ground-truth
     top-k, and the retrieval phase with optional replica placement;
@@ -25,6 +27,7 @@ alone.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Optional
@@ -873,9 +876,9 @@ class _OriginStatic:
         """refresh_edges' per-edge pipeline on a POSITION SUBSET.
 
         Returns (u, v, unreach, tree, els) booleans per position —
-        exactly what the full pass would compute for those edges, so a
-        delta patch can subtract old and add new contributions without
-        touching the rest."""
+        exactly what the full pass would compute for those edges, so
+        the delta patch below can subtract old and add new
+        contributions without touching the rest."""
         u = e_src[pos].astype(np.int64)
         v = e_dst[pos].astype(np.int64)
         pu = parent[u]
@@ -892,6 +895,201 @@ class _OriginStatic:
             rest = rest & ~member
         tree = rest & (parent[v] == u)
         return u, v, unreach, tree, rest & ~tree
+
+    @classmethod
+    def patched(cls, old: "_OriginStatic", top: Topology, indptr,
+                indices, e_src, e_dst, edge_keys, degrees,
+                requested_ttl: int, bfs, edge_lat, old_csr, removed,
+                added) -> Optional["_OriginStatic"]:
+        """Incremental rebuild for a SMALL tree delta — the live-overlay
+        fast path behind ``NetworkPlan.sync``.
+
+        ``bfs`` is the freshly recomputed (parent, depth, reached) on
+        the patched CSR; ``old_csr`` the pre-mutation
+        ``(n, indptr, indices, e_src, e_dst, edge_keys)``; ``removed``
+        / ``added`` the net undirected edge delta from the overlay
+        journal.  Wherever old and new BFS trees are bit-identical the
+        old static's compiled structure is adopted wholesale; only
+        levels, child-CSR rows, and per-edge classifications the delta
+        can reach are re-derived — including the Strategy-2 membership
+        coupling (an edge (p, w) appearing or vanishing re-classifies
+        edges (u, w) of p's tree children).  Returns None for large or
+        structural deltas (resolved TTL moved, origin departed, diff
+        beyond budget): the caller falls back to a full rebuild.  The
+        result is field-for-field equal to a from-scratch
+        ``_OriginStatic`` — asserted by tests/test_torch_overlay.py and
+        by ``chip_smoke.py``'s live-overlay phase.
+        """
+        P, D, R = bfs[:3]
+        K = bfs[3] if len(bfs) > 3 else None
+        n = top.n
+        old_n, old_indptr, old_indices, old_e_src, old_e_dst, old_keys \
+            = old_csr
+        resolved = int(D.max()) if requested_ttl == 0 else requested_ttl
+        if old_n == n:
+            op_, od_ = old.parent, old.depth
+            or_, otr = old.reached, old.ttl_rem
+        else:                     # peers joined: pad the old view
+            pad = n - old_n
+            op_ = np.concatenate([old.parent,
+                                  np.full(pad, -1, old.parent.dtype)])
+            od_ = np.concatenate([old.depth,
+                                  np.full(pad, -1, old.depth.dtype)])
+            or_ = np.concatenate([old.reached, np.zeros(pad, bool)])
+            otr = np.maximum(old.ttl - od_, 0)
+        diff = np.flatnonzero((op_ != P) | (od_ != D))
+        # a moved resolved TTL shifts ttl_rem everywhere, but the edge
+        # classification only reads it through ``ttl_rem[u] > 0`` — the
+        # bit flips exactly for sources with depth in [min_ttl, max_ttl),
+        # so re-deriving THEIR out-edges (old and new basis) absorbs an
+        # eccentricity change without a full rebuild
+        if resolved == old.ttl:
+            tfl_old = tfl_new = np.zeros(0, np.int64)
+        else:
+            lo, hi = sorted((resolved, old.ttl))
+            tfl_old = np.flatnonzero((od_ >= lo) & (od_ < hi))
+            tfl_new = np.flatnonzero((D >= lo) & (D < hi))
+        budget = 64 + n // 128
+        if (len(diff) + len(tfl_old) + len(tfl_new) > budget
+                or len(removed) + len(added) > budget):
+            return None
+        st = copy.copy(old)
+        st.parent, st.depth, st.reached = P, D, R
+        st.rank = K
+        st.ttl = resolved
+        st.idx = np.flatnonzero(R)
+        st.ttl_rem = np.maximum(resolved - D, 0)
+
+        # ---- levels: recompute only depths the diff touches ------------
+        dmax = int(D.max())
+        touched = ({int(x) for x in od_[diff]}
+                   | {int(x) for x in D[diff]}) - {-1}
+        old_dmax = len(old.levels) - 1
+        st.levels = [old.levels[d]
+                     if (d <= old_dmax and d not in touched)
+                     else np.flatnonzero(D == d)
+                     for d in range(dmax + 1)]
+
+        # ---- children CSR: drop / re-insert only the diff nodes --------
+        kid = old.kid_sorted
+        gone = diff[(diff < old_n)]
+        gone = gone[op_[gone] >= 0]
+        if len(gone):
+            kid = kid[~np.isin(kid, gone)]
+        ins = diff[P[diff] >= 0]
+        if len(ins):
+            kk = P[kid] * np.int64(n) + kid
+            ik = P[ins] * np.int64(n) + ins
+            o_ = np.argsort(ik, kind="stable")
+            kid = np.insert(kid, np.searchsorted(kk, ik[o_]), ins[o_])
+        st.kid_sorted = kid
+        kp = np.zeros(n + 1, old.kid_ptr.dtype)
+        np.cumsum(np.bincount(P[kid], minlength=n), out=kp[1:])
+        st.kid_ptr = kp
+
+        # ---- affected directed-edge positions, old and new sides -------
+        def out_in_pos(nodes, indptr, indices, keys, base):
+            pos = [np.zeros(0, np.int64)]
+            for x in nodes:
+                lo, hi = int(indptr[x]), int(indptr[x + 1])
+                pos.append(np.arange(lo, hi, dtype=np.int64))  # out-edges
+                us = indices[lo:hi].astype(np.int64)           # in-edges
+                pos.append(np.searchsorted(keys, us * base + x))
+            return pos
+
+        def pair_pos(pairs, keys, base, lim):
+            out = [np.zeros(0, np.int64)]
+            for a, b in pairs:
+                if a >= lim or b >= lim:
+                    continue
+                k = np.array([a * base + b, b * base + a], np.int64)
+                p_ = np.searchsorted(keys, k)
+                ok = p_ < len(keys)
+                p_, k = p_[ok], k[ok]
+                out.append(p_[keys[p_] == k])
+            return out
+
+        # Strategy-2 coupling: delta edge (p, w) re-classifies (u, w)
+        # for u in p's tree children (old AND new tree)
+        coup = []
+        if old.fw_strategy == "st1+2":
+            for a, b in list(removed) + list(added):
+                for p, w in ((a, b), (b, a)):
+                    if p < old_n:
+                        cs = old.kid_sorted[old.kid_ptr[p]:
+                                            old.kid_ptr[p + 1]]
+                        coup.extend((int(u), w) for u in cs)
+                    cs = kid[kp[p]:kp[p + 1]]
+                    coup.extend((int(u), w) for u in cs)
+        diff_old = diff[diff < old_n]
+        A_old = [*out_in_pos(diff_old, old_indptr, old_indices,
+                             old_keys, old_n),
+                 *out_in_pos(tfl_old[tfl_old < old_n], old_indptr,
+                             old_indices, old_keys, old_n),
+                 *pair_pos(list(removed) + coup, old_keys, old_n, old_n)]
+        A_new = [*out_in_pos(diff, indptr, indices, edge_keys, n),
+                 *out_in_pos(tfl_new, indptr, indices, edge_keys, n),
+                 *pair_pos(list(added) + coup, edge_keys, n, n)]
+        A_old = np.unique(np.concatenate(A_old))
+        A_new = np.unique(np.concatenate(A_new))
+
+        # ---- O(n)-cheap aggregates: recompute outright -----------------
+        st.avg_degree = float(np.mean(degrees[st.idx]))
+        mask_u = R & (st.ttl_rem > 0)
+        st.m_basic = int(degrees[mask_u].sum() - mask_u.sum()
+                         + int(mask_u[old.origin]))
+
+        # ---- per-edge latency gathers ----------------------------------
+        if edge_lat is not None:
+            pl = (old.par_lat.copy() if old_n == n else np.concatenate(
+                [old.par_lat, np.full(n - old_n, top.lat_base_s)]))
+            pl[diff] = top.lat_base_s
+            ch = diff[P[diff] >= 0]
+            if len(ch):
+                pos = np.searchsorted(edge_keys,
+                                      ch * np.int64(n) + P[ch])
+                pl[ch] = edge_lat[pos]
+            st.par_lat = pl
+            st.origin_lat = (old.origin_lat if old_n == n
+                             else np.concatenate([
+                                 old.origin_lat,
+                                 top.pair_latency(old.origin,
+                                                  np.arange(old_n, n))]))
+
+        # ---- classify the affected edges, old vs new -------------------
+        uo, vo, uno, tro, elo = old._classify_edges(
+            A_old, old_e_src, old_e_dst, old_keys, old_n,
+            op_, od_, or_, otr)
+        un, vn, unn, trn, eln = st._classify_edges(
+            A_new, e_src, e_dst, edge_keys, n, P, D, R, st.ttl_rem)
+        mo, mn = uo < vo, un < vn
+        st.n_edges_pq = (old.n_edges_pq
+                         - int((or_[uo[mo]] & or_[vo[mo]]).sum())
+                         + int((R[un[mn]] & R[vn[mn]]).sum()))
+        if old.fw_strategy == "basic":
+            return st
+        st.fw_static = (old.fw_static - int(uno.sum() + tro.sum())
+                        + int(unn.sum() + trn.sum()))
+        # els content patch, (src, dst)-ascending order preserved:
+        # every affected pair is dropped, then the still-els ones are
+        # re-inserted at their sorted position with a fresh cond
+        n64 = np.int64(n)
+        ek = old.fw_els_src.astype(np.int64) * n64 + old.fw_els_dst
+        keep = ~np.isin(ek, uo * n64 + vo)
+        src = old.fw_els_src[keep]
+        dst = old.fw_els_dst[keep]
+        cond = old.fw_cond[keep]
+        iu, iv = un[eln], vn[eln]
+        if len(iu):
+            ik = iu * n64 + iv
+            o_ = np.argsort(ik, kind="stable")
+            iu, iv, ik = iu[o_], iv[o_], ik[o_]
+            p_ = np.searchsorted(ek[keep], ik)
+            src = np.insert(src, p_, iu.astype(src.dtype))
+            dst = np.insert(dst, p_, iv.astype(dst.dtype))
+            cond = np.insert(cond, p_, (P[iu] == iv) | (D[iv] <= D[iu]))
+        st.fw_els_src, st.fw_els_dst, st.fw_cond = src, dst, cond
+        return st
 
 
 # --------------------------------------------------------------------------

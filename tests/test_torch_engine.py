@@ -202,13 +202,18 @@ def test_unported_policies_and_options_raise(policy, spec):
 
 
 def test_overlay_and_device_resolution_raise(monkeypatch):
-    """A live overlay is not adopted; with no CUDA device and no
-    explicit device the engine refuses to start instead of running on
-    the CPU."""
-    from repro.p2psim import Overlay
+    """The port's live overlay is adopted and bound; the reference
+    package's overlay is refused (carry it across with
+    ``topology_from_arrays``); with no CUDA device and no explicit
+    device the engine refuses to start instead of running on the
+    CPU."""
+    from repro.p2psim import Overlay as RefOverlay
+    from repro_torch.p2psim import Overlay
     engine = SimEngine(device="cpu")
-    with pytest.raises(NotImplementedError, match="overlay"):
-        engine.prepare(Overlay(REF_TOP))
+    ov = Overlay(TOP)
+    assert engine.prepare(ov).overlay is ov
+    with pytest.raises(TypeError, match="topology_from_arrays"):
+        engine.prepare(RefOverlay(REF_TOP))
     with pytest.raises(TypeError, match="topology_from_arrays"):
         engine.prepare(REF_TOP.neighbors)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
