@@ -13,6 +13,9 @@ through the hand-written kernels of :mod:`repro_torch.kernels`.
                        SimParams(seed=5))          # device="cuda"
     res = engine.run(QuerySpec(origins=(0,)), "fd-dynamic")
 
+The reference's engine names resolve on the package itself
+(``repro_torch.SimEngine``, ``repro_torch.QueryServer``, ...).
+
 The FD collectives run on a mesh of virtual peers held on one device
 (``DeviceEngine`` over ``make_mesh``), through the hand-written top-k
 and merge kernels (``local_topk`` is the top-k's public entry):
@@ -27,4 +30,19 @@ from repro_torch.core.mesh import make_mesh  # noqa: F401
 from repro_torch.engine.device import DeviceEngine  # noqa: F401
 from repro_torch.kernels.topk import local_topk  # noqa: F401
 
-__all__ = ["DeviceEngine", "make_mesh", "local_topk"]
+# the reference's engine surface, one import path for the query API:
+# repro_torch.SimEngine, repro_torch.QuerySpec, ... resolve lazily from
+# repro_torch.engine, as the reference's names do from repro.engine
+_ENGINE_EXPORTS = ("QuerySpec", "Policy", "TopKResult", "NetworkPlan",
+                   "Engine", "SimEngine", "DeviceEngine", "QueryServer",
+                   "ServerConfig", "get_policy", "register_policy",
+                   "available_policies", "policy_from_legacy")
+
+__all__ = ["make_mesh", "local_topk", *_ENGINE_EXPORTS]
+
+
+def __getattr__(name):
+    if name in _ENGINE_EXPORTS:
+        import repro_torch.engine as _engine
+        return getattr(_engine, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -44,7 +44,7 @@ from repro_torch.engine.api import (PRECISIONS, Engine, Policy, QuerySpec,
                                     TopKResult)
 from repro_torch.engine.plan import NetworkPlan
 from repro_torch.engine.precision import check_tolerance
-from repro_torch.engine.sim_torch import run_entries_torch
+from repro_torch.engine.sim_torch import run_entries_torch, shard_devices
 from repro_torch.kernels import _build
 from repro_torch.p2psim.graph import Topology
 from repro_torch.p2psim.metrics import QUERY_BYTES, BatchMetrics, QueryMetrics
@@ -93,6 +93,15 @@ class SimEngine(Engine):
     also reruns the same entries in f64 on the same device and records
     ``check_tolerance(...).summary()`` in ``extras["tolerance"]``;
     timed paths switch it off.
+
+    ``shard``: split each origin group's FD entries over every local
+    CUDA device in contiguous chunks, each swept on its own device
+    (how a batch too large for one card's memory still runs), with the
+    unsharded bits in every dtype; the f64 rerun of a validated run is
+    split too.  With one CUDA device it is ignored, as in the
+    reference; CN / CN* are never split.  On the CPU it is refused
+    unless ``_shard_devices`` (a device list, repeats allowed) forces
+    the chunks, which is how the tests split on one host.
     """
 
     backend = "sim-torch"
@@ -100,12 +109,14 @@ class SimEngine(Engine):
     def __init__(self,
                  top: Optional[Union[Topology, Overlay, NetworkPlan]] = None,
                  params: Optional[SimParams] = None, *, device=None,
-                 precision: str = "f64", validate_precision: bool = True):
+                 precision: str = "f64", validate_precision: bool = True,
+                 shard: bool = False, _shard_devices=None):
         """Build the engine (and compile ``top``'s plan when given)."""
         if precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be one of {PRECISIONS}, got {precision!r}")
         self.device = resolve_device(device, "SimEngine")
+        self._shard = shard_devices(self.device, shard, _shard_devices)
         self.params = params if params is not None else SimParams()
         self.plan: Optional[NetworkPlan] = None
         self._precision = precision
@@ -301,7 +312,8 @@ class SimEngine(Engine):
                                 ent_seeds, self.plan.top.n, p,
                                 pol.algorithm, pol.dynamic,
                                 pol.lifetime_mean_s, spec.independent,
-                                self.device, replicas=rep, precision=prec)
+                                self.device, replicas=rep, precision=prec,
+                                shard=self._shard)
         compile_s += res.pop("compile_s")
         run_s = time.perf_counter() - t0
         vals = res.pop("values")
@@ -315,7 +327,8 @@ class SimEngine(Engine):
                                       pol.algorithm, pol.dynamic,
                                       pol.lifetime_mean_s,
                                       spec.independent, self.device,
-                                      replicas=rep, precision="f64")
+                                      replicas=rep, precision="f64",
+                                      shard=self._shard)
             extras["tolerance"] = check_tolerance(
                 prec, vals, owns, res64["values"],
                 res64["owners"]).summary()

@@ -52,11 +52,20 @@ can merge a list and send it urgent both.
 Entry rows are independent and PyTorch runs eagerly, so there is no
 power-of-two padding of entry groups (the reference pads only to bound
 its jit cache).
+
+Entry sharding (``shard_devices``, the reference's
+``_sharded_fd_sweep``): each origin group's FD entries are split into
+contiguous chunks, one per device; each chunk's draws go to its device,
+whose cached static tables its sweep reads, and the level outputs come
+back into the same host rows.  Rows are independent, so the result is
+the unsharded one, bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -392,11 +401,49 @@ def _slices(plan: NetworkPlan, st, device, reroute: bool, out: dict):
     return sl, levels, els, rr
 
 
+def shard_devices(device: torch.device, shard: bool,
+                  devices=None) -> Optional[Tuple[torch.device, ...]]:
+    """The devices an FD sweep's entries are split over, or None for one
+    sweep on ``device``.
+
+    ``shard=True`` on a CUDA device takes every local CUDA device, and
+    with one device it is ignored (None), as in the reference.  A given
+    ``devices`` list (repeats allowed) forces that split, on any device
+    type; without one ``shard=True`` is refused on the CPU, which has
+    no devices to split over.
+    """
+    if not shard:
+        return None
+    if devices is not None:
+        devs = tuple(torch.device(d) for d in devices)
+        if not devs:
+            raise ValueError("shard devices must not be empty")
+        return devs
+    if device.type != "cuda":
+        raise ValueError(
+            f"shard=True splits the entries over the local CUDA devices; "
+            f"there are none on {device}")
+    n_dev = torch.cuda.device_count()
+    if n_dev == 1:
+        return None
+    return tuple(torch.device("cuda", i) for i in range(n_dev))
+
+
+def _on(device: torch.device):
+    """The context a chunk's launches run in: its CUDA device made
+    current (the kernels launch on the current device's stream)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
                       ent_origin: np.ndarray, seeds, n: int, p: SimParams,
                       algorithm: str, dynamic: bool, lifetime_mean_s: float,
                       independent: bool, device: torch.device,
-                      replicas=None, precision: str = "f64") -> dict:
+                      replicas=None, precision: str = "f64",
+                      shard: Optional[Sequence[torch.device]] = None
+                      ) -> dict:
     """FD (with or without churn) or CN / CN* over a flattened (E,) entry
     batch on ``device``.
 
@@ -407,6 +454,11 @@ def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
     to do (0.0 on a warm plan).  ``precision="f32"`` / ``"bf16"`` runs
     the sweeps in that dtype on draws cast once on the host (tolerance
     contract); ``"f64"`` gives the reference's bits.
+
+    ``shard`` (from :func:`shard_devices`): the devices each origin
+    group's FD entries are split over, in contiguous chunks; all
+    chunks are launched before any output is read back, so the devices
+    sweep at once.  CN / CN* always run on ``device``.
     """
     churn = not math.isinf(lifetime_mean_s)
     E = len(seeds)
@@ -451,35 +503,44 @@ def run_entries_torch(plan: NetworkPlan, sts, ent_st: np.ndarray,
     mown = np.full((E, n, k), -1, np.int32)
     valid = np.zeros((E, n), bool) if churn else None
     for si, st in enumerate(sts):
-        es = ent_of_st[si]
-
-        def _take(name):
-            return _entry_rows(_lo(name), es, device)
-
-        sl, levels, els, rr = _slices(plan, st, device, with_reroute, out)
+        es_all = ent_of_st[si]
         with_st1 = st.fw_strategy != "basic"
-        tqf = lam = None
-        if with_st1:
-            tqf = _upload(np.where(st.depth >= 0, st.depth * p.t_qsnd_s,
-                                   np.inf), precision, device)
-            lam = _take("lam")
-        send_d, mv_d, mo_d, skip, alive_d = _fd_sweep(
-            _take("scores"), _take("t_exec"), _take("up_term"),
-            _take("dn_term"),
-            _upload(wait_time(st.ttl_rem, p), precision, device), tqf, lam,
-            levels, els, k=k, with_st1=with_st1,
-            death=_take("death") if churn else None,
-            rr=rr if with_reroute else None)
-        for d, lv in enumerate(sl.levels):
-            rows = np.ix_(es, lv["vv"])
-            send_t[rows] = _host(send_d[d])
-            mvals[rows] = _host(mv_d[d])
-            mown[rows] = _host(mo_d[d])
-            if churn:
-                valid[rows] = _host(alive_d[d])
-        out["m_fw"][es] = (st.fw_static + sl.n_els
-                           - skip.cpu().numpy().astype(np.int64)
-                           if with_st1 else st.m_basic)
+        wt = wait_time(st.ttl_rem, p)
+        tqf_h = (np.where(st.depth >= 0, st.depth * p.t_qsnd_s, np.inf)
+                 if with_st1 else None)
+        chunks = ([(device, es_all)] if shard is None else
+                  [(dv, c) for dv, c in zip(
+                      shard, np.array_split(es_all, len(shard))) if len(c)])
+        swept = []
+        for dv, es in chunks:
+
+            def _take(name):
+                return _entry_rows(_lo(name), es, dv)
+
+            with _on(dv):
+                sl, levels, els, rr = _slices(plan, st, dv, with_reroute,
+                                              out)
+                tqf = lam = None
+                if with_st1:
+                    tqf = _upload(tqf_h, precision, dv)
+                    lam = _take("lam")
+                swept.append((es, _fd_sweep(
+                    _take("scores"), _take("t_exec"), _take("up_term"),
+                    _take("dn_term"), _upload(wt, precision, dv), tqf, lam,
+                    levels, els, k=k, with_st1=with_st1,
+                    death=_take("death") if churn else None,
+                    rr=rr if with_reroute else None)))
+        for es, (send_d, mv_d, mo_d, skip, alive_d) in swept:
+            for d, lv in enumerate(sl.levels):
+                rows = np.ix_(es, lv["vv"])
+                send_t[rows] = _host(send_d[d])
+                mvals[rows] = _host(mv_d[d])
+                mown[rows] = _host(mo_d[d])
+                if churn:
+                    valid[rows] = _host(alive_d[d])
+            out["m_fw"][es] = (st.fw_static + sl.n_els
+                               - skip.cpu().numpy().astype(np.int64)
+                               if with_st1 else st.m_basic)
 
     # every reached peer that is still alive at its send time sends its
     # list exactly once (without churn that is everyone but the origin)

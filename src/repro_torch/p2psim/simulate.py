@@ -23,20 +23,27 @@ alone.
   * the scalar reference run (``run_query_reference``, with the forward
     message count ``forward_messages``), which the two-round
     ``fd-stats`` heuristic runs on the host, and the latency-model
-    helpers (``_latency_mode``, ``_tree_edge_latency``).
+    helpers (``_latency_mode``, ``_tree_edge_latency``);
+  * the retired entry points ``run_query``, ``run_queries`` and
+    ``run_statistics_heuristic``: thin shims over
+    ``repro_torch.engine.SimEngine`` that raise unless
+    ``REPRO_LEGACY_API=1``, each with a ``device`` keyword for the
+    engine.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import math
+import os
+import warnings
 from typing import Optional
 
 import numpy as np
 
 from repro_torch.p2psim.graph import Topology, as_csr, bfs_tree, bfs_tree_csr
 from repro_torch.p2psim.metrics import (ENTRY_BYTES_PAPER, QUERY_BYTES,
-                                        QueryMetrics)
+                                        BatchMetrics, QueryMetrics)
 
 
 @dataclasses.dataclass
@@ -585,6 +592,53 @@ def run_query_reference(top: Topology, origin: int = 0,
              "merged_scores": merged_scores, "merged_owner": merged_owner,
              "children": children, "scores": scores}
     return (met, state) if return_state else (met, None)
+
+
+def _legacy_gate(message: str) -> None:
+    """Retired-shim gate: raise, unless ``REPRO_LEGACY_API=1`` opts back
+    into the old (warn-and-delegate) behavior for one more release."""
+    if os.environ.get("REPRO_LEGACY_API") == "1":
+        warnings.warn(message, DeprecationWarning, stacklevel=3)
+        return
+    raise RuntimeError(
+        f"{message} (the legacy entrypoints are retired; set "
+        "REPRO_LEGACY_API=1 to temporarily re-enable them)")
+
+
+def run_query(top: Topology, origin: int = 0,
+              params: Optional[SimParams] = None,
+              *, algorithm: str = "fd", strategy: str = "st1+2",
+              dynamic: bool = True, lifetime_mean_s: float = float("inf"),
+              child_mask: Optional[np.ndarray] = None,
+              return_state: bool = False, device=None):
+    """Simulate one Top-k query — thin shim over ``repro_torch.engine``.
+
+    Kept for backward compatibility; ``repro_torch.engine.SimEngine`` is
+    the entrypoint (and amortizes its compiled ``NetworkPlan`` across
+    calls, which this per-call shim cannot).  Bit-for-bit equal to
+    ``run_query_reference``.  The ``child_mask`` / ``return_state``
+    variants carry per-node state the batch engine does not expose and
+    run the reference directly.  ``device`` goes to the engine
+    (``"cuda"`` by default).
+
+    .. deprecated:: use ``repro_torch.engine.SimEngine`` with a
+       ``QuerySpec`` (``SimEngine(top, params).run(QuerySpec(origins=
+       (origin,)), policy)``) — see the README migration table.
+    """
+    _legacy_gate(
+        "run_query is deprecated; use repro_torch.engine.SimEngine with a "
+        "QuerySpec: SimEngine(top, params).run(QuerySpec(origins="
+        "(origin,)), policy) — see the README migration table")
+    if child_mask is not None or return_state:
+        return run_query_reference(
+            top, origin, params, algorithm=algorithm, strategy=strategy,
+            dynamic=dynamic, lifetime_mean_s=lifetime_mean_s,
+            child_mask=child_mask, return_state=return_state)
+    from repro_torch.engine import QuerySpec, SimEngine, policy_from_legacy
+    pol = policy_from_legacy(algorithm, strategy, dynamic, lifetime_mean_s)
+    res = SimEngine(top, params, device=device).run(
+        QuerySpec(origins=(int(origin),)), pol)
+    return res.metrics.query_metrics(0, 0), None
 
 
 # --------------------------------------------------------------------------
@@ -1342,3 +1396,73 @@ def _retrieval_shared(out: dict, draws: EntryDraws,
     inter = match.sum(axis=1)
     corr = (match & ~srv_elem).sum(axis=1)
     out["accuracy"][:] = np.maximum(0, inter - corr) / k
+
+
+def run_queries(top: Topology, origins,
+                params: Optional[SimParams] = None,
+                n_trials: int = 1, *, algorithm: str = "fd",
+                strategy: str = "st1+2", dynamic: bool = True,
+                lifetime_mean_s: float = float("inf"),
+                seeds=None, independent_streams: bool = False,
+                device=None) -> BatchMetrics:
+    """Batched multi-query simulation — thin shim over
+    ``repro_torch.engine``.
+
+    Evaluates (len(origins) × n_trials) queries in one call; see
+    ``repro_torch.engine.SimEngine`` (the entrypoint, which additionally
+    caches the compiled ``NetworkPlan`` across calls) for the execution
+    model, and ``QuerySpec`` for the RNG modes:
+
+      * default (shared stream) — one generator seeded ``params.seed``
+        issues batch-shaped draws; a batch of ONE reproduces
+        ``run_query`` bit-for-bit, larger batches are i.i.d.;
+      * ``independent_streams=True`` (implied by passing ``seeds``) —
+        entry (q, t) reproduces ``run_query`` with seed
+        ``params.seed + q * n_trials + t`` (or ``seeds[q, t]``)
+        bit-for-bit, entry by entry.
+
+    ``device`` goes to the engine (``"cuda"`` by default).
+
+    .. deprecated:: use ``repro_torch.engine.SimEngine`` with a
+       ``QuerySpec`` (``QuerySpec(origins=origins, n_trials=n_trials,
+       rng="independent")``) — see the README migration table.
+    """
+    _legacy_gate(
+        "run_queries is deprecated; use repro_torch.engine.SimEngine with "
+        "a QuerySpec(origins=..., n_trials=..., rng=...) — see the README "
+        "migration table")
+    from repro_torch.engine import QuerySpec, SimEngine, policy_from_legacy
+    pol = policy_from_legacy(algorithm, strategy, dynamic, lifetime_mean_s)
+    spec = QuerySpec(
+        origins=tuple(int(o) for o in np.atleast_1d(np.asarray(origins))),
+        n_trials=n_trials, seeds=seeds,
+        rng="independent" if independent_streams else "shared")
+    return SimEngine(top, params, device=device).run(spec, pol).metrics
+
+
+def run_statistics_heuristic(top: Topology, origin: int,
+                             params: SimParams, z: float, *, device=None):
+    """Two-round statistics heuristic — thin shim over the engine's
+    ``"fd-stats"`` policy (see ``SimEngine._run_stats``): round 1 full
+    FD gathers per-child best-rank stats; round 2 forwards Q only to
+    children whose best past score ranked above z*k in the parent's
+    merged list.  Returns (metrics_full, metrics_pruned,
+    comm_reduction, accuracy).  ``device`` goes to the engine
+    (``"cuda"`` by default), though both rounds run on the host.
+
+    .. deprecated:: use ``repro_torch.engine.SimEngine`` with the
+       ``"fd-stats"`` policy (``get_policy("fd-stats").variant(z=z)``;
+       rounds land in ``TopKResult.extras``) — see the README migration
+       table.
+    """
+    _legacy_gate(
+        "run_statistics_heuristic is deprecated; use repro_torch.engine."
+        "SimEngine with get_policy('fd-stats').variant(z=z) — rounds "
+        "land in TopKResult.extras; see the README migration table")
+    from repro_torch.engine import QuerySpec, SimEngine, get_policy
+    res = SimEngine(top, params, device=device).run(
+        QuerySpec(origins=(int(origin),)),
+        get_policy("fd-stats").variant(z=z))
+    ex = res.extras
+    return (ex["metrics_full"], ex["metrics_pruned"],
+            ex["comm_reduction"], ex["accuracy"])
