@@ -7,7 +7,7 @@ Drives the port's paths — the FD overlay top-k query served by a
 ``QueryServer``, statically and under churn with the CN / CN* baselines,
 the ``DeviceEngine``'s FD collectives over 64 virtual peers, a
 live overlay whose peers join and leave between queries, the serving
-CLI and entry sharding —
+CLI and entry sharding, and the LM decode with FD top-k sampling —
 through the hand-written CUDA kernels, and fails (exit code 1, no
 result line) when any phase fails:
 
@@ -116,6 +116,30 @@ result line) when any phase fails:
      tolerance report where validated), the
      kernels launched and held to their plain versions at a chunk's
      shapes;
+  11. the LM decode on the card: ``repro_torch.launch.serve.main(
+     ["decode", "--arch", "qwen2-0.5b", "--batch", "4", "--prompt-len",
+     "32", "--gen", "16", "--model-par", "16", "--device", "cuda"])`` in
+     process (the reference's documented decode command without
+     ``--smoke``: qwen2-0.5b's full width and depth, random weights, the
+     vocabulary of 153,600
+     sharded over 16 virtual peers): tokens (4, 16) inside the padded
+     vocabulary, the top-k and merge launched on each of its 15 steps;
+     the same model and prompt again with the device synchronised:
+     prefill seconds, each step's seconds, the CLI's unsynchronised
+     tok/s, and one profiler window of 5 steps split into the model's
+     and the FD sampling's device time with the device's idle share;
+     on one step's f32 scores the top-k on the card == the port's CPU
+     path bit for bit under FD halving / doubling / ring, CN, CN* and at
+     one peer (values == ``topk_ref`` of the whole row, indices too but
+     under ring, whose tie order is its own), the sampled token equal
+     given one noise tensor; qwen2-0.5b at full width and 2 layers in
+     f32 with TF32 off, card == CPU path (prefill logits, padded caches,
+     4 teacher-forced steps; rtol 1e-4, atol 1e-5, the measured error
+     printed); the top-k at the decode's (64, 9,600), (4, 16, 9,600) and
+     (4, 153,600) and the merge on each halving round's (4, 16, 20)
+     lists (non-receivers masked to -inf / -1) bit-equal to their plain
+     versions; its launches are the ``decode`` key of the kernels line's
+     ``launches_by_path``;
   6. time each kernel (the churn variant at the churn sweep's level
      shapes) at the shapes its path gives it (CUDA events,
      median of several runs) beside its plain version, one PyTorch
@@ -135,8 +159,10 @@ result line) when any phase fails:
      (long) beside ``torch.topk``, with each shape's route, its launches
      a call (the profiler must see the route's kernels, one launch each),
      their device ms, and the sort alone (``repro_topk_select_sort``,
-     held to ``topk_ref``).  A profiler window that misses one of the
-     launches it should hold is taken again, up to 3 windows.
+     held to ``topk_ref``); the top-k row also times the decode's two
+     shapes, (64, 9,600) and (4, 153,600) at k = 20, beside
+     ``torch.topk`` (``decode_shapes``).  A profiler window that misses
+     one of the launches it should hold is taken again, up to 3 windows.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2077,6 +2103,358 @@ def _shard(engine, p, dev, gen, errs, _build):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the LM decode path on the card
+# ---------------------------------------------------------------------------
+
+# the reference's documented decode command (launch/serve.py's
+# docstring) without --smoke: qwen2-0.5b's full width and depth, random
+# weights from seed 0, the vocabulary sharded over 16 peers: the
+# production mesh's model axis (launch/mesh.py:23)
+DEC_ARCH, DEC_B, DEC_PROMPT, DEC_GEN, DEC_P, DEC_K = (
+    "qwen2-0.5b", 4, 32, 16, 16, 20)
+DECODE_ARGV = ["decode", "--arch", DEC_ARCH, "--batch", str(DEC_B),
+               "--prompt-len", str(DEC_PROMPT), "--gen", str(DEC_GEN),
+               "--model-par", str(DEC_P), "--device", "cuda"]
+# the model against the CPU path: full width, 2 layers, f32, TF32 off,
+# 4 teacher-forced steps; the tolerance of tests/test_torch_models.py
+DEC_XCHECK_LAYERS, DEC_FORCED = 2, 4
+DEC_TOL = {"rtol": 1e-4, "atol": 1e-5}
+# decode steps in the profiled window
+DEC_PROFILE_STEPS = 5
+
+
+def _decode_cli(card, _build):
+    """``repro_torch.launch.serve.main(DECODE_ARGV)`` in process: tokens
+    (4, 16) inside the padded vocabulary, and the top-k and the merge
+    launched on every step (FD halving over 16 peers: one top-k and
+    log2(16) merges a step).  Returns (launches, the CLI's own numbers,
+    parsed from its two-decimal print)."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    _build.reset_launches()              # count the CLI's run alone
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        toks = serve.main(DECODE_ARGV)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print(buf.getvalue(), end="")
+    print("[decode] CLI launches " + json.dumps(launches))
+    steps = DEC_GEN - 1
+    v_pad = get_config(DEC_ARCH).padded_vocab()
+    _require(toks.shape == (DEC_B, DEC_GEN) and int(toks.min()) >= 0
+             and int(toks.max()) < v_pad,
+             f"decode CLI: tokens {toks.shape} in [{toks.min()}, "
+             f"{toks.max()}], want ({DEC_B}, {DEC_GEN}) in [0, {v_pad})")
+    rounds = int(math.log2(DEC_P))
+    _require(launches["topk"] >= steps and launches["merge"]
+             >= steps * rounds, f"decode CLI: {launches['topk']} top-k and "
+             f"{launches['merge']} merge launches in {steps} steps")
+    m = re.search(r"prefill \d+ tok in ([\d.]+)s; decoded \d+ steps in "
+                  r"([\d.]+)s \(([\d.]+) tok/s\)", buf.getvalue())
+    _require(m is not None, "decode CLI: no timing line")
+    res = {"prefill_s": float(m[1]), "decode_s": float(m[2]),
+           "tok_per_s": float(m[3]), "main_s": wall,
+           "topk_per_step": launches["topk"] / steps,
+           "merge_per_step": launches["merge"] / steps,
+           "ids_past_vocab": int((toks >= get_config(DEC_ARCH).vocab_size)
+                                 .sum())}
+    print("[decode] CLI " + json.dumps(res) + f"; {card}")
+    return launches, res
+
+
+def _decode_model(dev, card):
+    """The CLI's model and prompt built again: prefill and each decode
+    step timed with the device synchronised, the CLI's unsynchronised
+    loop, and one profiler window of ``DEC_PROFILE_STEPS`` steps split
+    into the model's and the sampling's device time, with the device's
+    idle share.  Returns (one step's f32 scores (4, 153,600), numbers)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import state_from_prefill
+    from repro_torch.models import model as M
+    from repro_torch.runtime.steps import (gumbel, make_serve_step,
+                                           sample_topk)
+    cfg = get_config(DEC_ARCH)
+    s_max = DEC_PROMPT + DEC_GEN
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                           max_seq=s_max, device=dev)
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0,
+           "params": M.count_params(params),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters())}
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (DEC_B, DEC_PROMPT)).astype(np.int32)).to(dev)
+    mesh = make_host_mesh(DEC_P, device=dev, cfg=cfg)
+    step = make_serve_step(cfg, mesh, k=DEC_K)
+
+    def prefilled():
+        last, pst = M.prefill(params, cfg, {"tokens": tokens})
+        st = state_from_prefill(cfg, pst, s_max)
+        return st, torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+
+    prefill_s = []
+    for _ in range(3):                   # the first is cold
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, tok = prefilled()
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    gen = torch.Generator(dev).manual_seed(1)
+    step_s = []
+    for _ in range(DEC_GEN - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, state = step(params, state, tok, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    # the CLI's loop: no synchronise between steps, tokens read at the end
+    state, tok = prefilled()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = []
+    for _ in range(DEC_GEN - 1):
+        tok, state = step(params, state, tok, gen)
+        toks.append(tok)
+    torch.cat(toks, dim=1).cpu()
+    loop_s = time.perf_counter() - t0
+    res.update({
+        "prefill_s": prefill_s, "step_s": step_s,
+        "step_ms_mean_warm": statistics.fmean(step_s[1:]) * 1e3,
+        "loop_s": loop_s,
+        "tok_per_s": (DEC_GEN - 1) * DEC_B / loop_s})
+
+    # one window of steps at the last position, split by tag
+    box = {}
+
+    def model_part():
+        box["logits"], _ = M.decode_step(params, cfg, state, tok)
+
+    def sampling_part():
+        vals, idx = step.select(box["logits"][:, 0].float())
+        box["tok"] = sample_topk(vals, idx, gumbel(vals.shape, gen))
+
+    calls = [tagged("model", model_part), tagged("sampling", sampling_part)]
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DEC_PROFILE_STEPS):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, tags = _trace_kernels(prof)
+    n = DEC_PROFILE_STEPS
+    by_tag = {}
+    for tag, name, _, dur in kernels:
+        by_tag.setdefault(tag, {}).setdefault(name, []).append(dur)
+    _require(set(by_tag) >= {"model", "sampling"},
+             f"decode profile: kernels by tag {sorted(map(str, by_tag))}")
+    ivs = sorted((ts, ts + dur) for tag, _, ts, dur in kernels
+                 if tag is not None)
+    busy, end = 0.0, -math.inf
+    for a, b in ivs:                     # the union of kernel intervals
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = end - tags[0][0]
+    split = {tag: {"device_ms": sum(map(sum, ks.values())) / n / 1e3,
+                   "kernels_per_step": sum(map(len, ks.values())) / n,
+                   "top": sorted(((k, sum(v) / n / 1e3)
+                                  for k, v in ks.items()),
+                                 key=lambda kv: -kv[1])[:6]}
+             for tag, ks in by_tag.items() if tag is not None}
+    res["profile"] = {
+        "steps": n, "wall_ms_per_step": wall / n * 1e3,
+        "span_ms_per_step": span / n / 1e3,
+        "busy_ms_per_step": busy / n / 1e3,
+        "idle_share": 1 - busy / span,
+        # the same busy time against a step timed without the profiler
+        "idle_share_of_synced_step": 1 - busy / n / 1e3
+        / res["step_ms_mean_warm"], "by_tag": split}
+    print("[decode] model " + json.dumps(res) + f"; {card}")
+    return box["logits"][:, 0].float(), res
+
+
+def _decode_topk_ok(what, v, i, scores, k):
+    """A k-list of each row: descending, its indices distinct and
+    pointing at their scores."""
+    import torch
+    _require(v.shape == (scores.shape[0], k) and i.dtype == torch.int32
+             and bool((v[:, :-1] >= v[:, 1:]).all())
+             and _same(torch.gather(scores, 1, i.long()), v)
+             and all(len(set(r.tolist())) == k for r in i),
+             f"{what}: not a top-{k} of its scores")
+
+
+def _decode_sampling(scores):
+    """On one step's f32 scores: the serve step's top-k on the card ==
+    the port's CPU path, bit for bit, at 16 peers (FD halving, doubling,
+    ring; CN; CN*) and at one peer; values == ``topk_ref`` of the whole
+    row, and indices too except under ring (peer 0 merges its partners
+    from the top down, so tied winners may come in another order, or
+    another of the tied scores at the k-th may win); the sampled token
+    equal given one noise tensor."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.topk import topk_ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.steps import gumbel, make_serve_step, \
+        sample_topk
+    cfg = get_config(DEC_ARCH)
+    host = scores.cpu()
+    rv, ri = topk_ref(host, DEC_K)
+    noise = gumbel(rv.shape, torch.Generator(scores.device).manual_seed(2))
+    # ties among a row's top k + 1 scores (bf16 logits cast to f32 tie)
+    top = topk_ref(host, DEC_K + 1)[0]
+    ties = int((top[:, 1:] == top[:, :-1]).sum())
+    cases = [(DEC_P, "fd", sch) for sch in SCHEDULES] + [
+        (DEC_P, "cn", "halving"), (DEC_P, "cn_star", "halving"),
+        (1, "fd", "halving")]
+    for p, alg, sch in cases:
+        what = f"decode sampling P={p} {alg}/{sch}"
+        kw = dict(k=DEC_K, algorithm=alg, schedule=sch)
+        card = make_serve_step(cfg, make_host_mesh(
+            p, device=scores.device, cfg=cfg), **kw).select(scores)
+        cpu = make_serve_step(cfg, make_host_mesh(
+            p, device="cpu", cfg=cfg), **kw).select(host)
+        _require(_same(card[0].cpu(), cpu[0]) and _same(card[1].cpu(),
+                                                        cpu[1]),
+                 f"{what}: card != CPU path")
+        _decode_topk_ok(what, cpu[0], cpu[1], host, DEC_K)
+        _require(_same(cpu[0], rv) and (sch == "ring" or _same(cpu[1], ri)),
+                 f"{what}: != topk_ref of the whole row")
+        t_card = sample_topk(*card, noise)
+        _require(_same(t_card.cpu(), sample_topk(*cpu, noise.cpu())),
+                 f"{what}: sampled token card != CPU path")
+    print(f"[decode] sampling on one step's scores {tuple(scores.shape)}: "
+          f"{len(cases)} top-k cases card == CPU path bit for bit, values "
+          f"== topk_ref (indices too but under ring), sampled tokens equal "
+          f"given one noise tensor; {ties} tied neighbours among the rows' "
+          f"top {DEC_K + 1}")
+
+
+def _decode_xcheck(dev, errs):
+    """qwen2-0.5b at full width and ``DEC_XCHECK_LAYERS`` layers in f32,
+    TF32 off: prefill's last logits, ``state_from_prefill``'s caches and
+    ``DEC_FORCED`` teacher-forced steps (logits and caches) on the card
+    against the port's CPU path on the same weights, within
+    ``DEC_TOL``."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import state_from_prefill
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(DEC_ARCH),
+                              n_layers=DEC_XCHECK_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    host = M.init_params(torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (DEC_B, DEC_PROMPT)).astype(np.int32))
+    forced = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (DEC_B, DEC_FORCED)).astype(np.int32))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs = []
+        for params, d in ((card, dev), (host, "cpu")):
+            last, st = M.prefill(params, cfg, {"tokens": tokens.to(d)})
+            st = state_from_prefill(cfg, st, DEC_PROMPT + DEC_FORCED)
+            got = {"prefill": last}
+            for c, layer in enumerate(st.caches):
+                got[f"padded cache {c}"] = torch.cat(
+                    [layer["self"].k.clone(), layer["self"].v.clone()])
+            for i in range(DEC_FORCED):
+                lg, st = M.decode_step(params, cfg, st,
+                                       forced[:, i:i + 1].to(d))
+                got[f"step {i}"] = lg[:, 0]
+            for c, layer in enumerate(st.caches):
+                got[f"cache {c}"] = torch.cat([layer["self"].k,
+                                               layer["self"].v])
+            outs.append({k: v.cpu() for k, v in got.items()})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    worst = {}
+    for name, want in outs[1].items():
+        got = outs[0][name]
+        worst[name] = _max_abs_err(got, want)
+        try:
+            torch.testing.assert_close(got, want, **DEC_TOL)
+        except AssertionError as e:
+            raise PhaseError(f"decode cross-check {name}: card != CPU path "
+                             f"within {DEC_TOL}: {e}") from None
+    errs["decode_model"] = max(worst.values())
+    print(f"[decode] {cfg.name} at full width, {cfg.n_layers} layers, f32, "
+          f"TF32 off: prefill logits, padded caches and {DEC_FORCED} "
+          f"teacher-forced steps, card == CPU path within {DEC_TOL}; max "
+          f"abs err " + json.dumps(worst) + f" ({time.perf_counter() - t0:.3f}"
+          " s)")
+
+
+def _decode_kernels(scores, errs):
+    """The kernels at the decode's shapes, bit-equal to their plain
+    versions: the top-k over the 16 peers' shards (64, 9,600), as the
+    (4, 16, 9,600) view the FD step hands it, and over the whole row
+    (4, 153,600); the merge on each halving round's (4, 16, 20) lists,
+    the non-receivers masked to -inf / -1, into outputs filled with NaN.
+    """
+    import torch
+    from repro_torch.core import fd
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.kernels.merge import merge_ref
+    from repro_torch.kernels.merge.merge import merge_cuda
+    from repro_torch.kernels.topk import topk_cuda, topk_ref
+    local = scores.view(DEC_B, DEC_P, -1)
+    n = 0
+    for what, x in (("the peers' shards", local.reshape(DEC_B * DEC_P, -1)),
+                    ("the (B, P, n) view", local), ("the whole row", scores)):
+        v1, i1 = topk_cuda(x, DEC_K)
+        v2, i2 = topk_ref(x, DEC_K)
+        errs["topk"] = max(errs["topk"], _max_abs_err(v1, v2))
+        _require(_same(v1, v2) and _same(i1, i2),
+                 f"topk at the decode's {what} {tuple(x.shape)}: kernel != "
+                 "plain version")
+        n += 1
+    vals, idx = fd._local_lists(local, DEC_K)
+    masked = 0
+    for perm, recv in fd.schedule_rounds("halving", DEC_P, scores.device):
+        pv = torch.where(recv[:, None], mesh_mod.ppermute(vals, perm),
+                         float("-inf"))
+        pi = torch.where(recv[:, None], mesh_mod.ppermute(idx, perm), -1)
+        masked += int((~recv).sum()) * DEC_B
+        got = merge_cuda(vals, idx, pv, pi,
+                         out=_nan_out(vals.shape, vals.dtype, vals.device))
+        want = merge_ref(vals, idx, pv, pi)
+        errs["merge"] = max(errs["merge"], _max_abs_err(got[0], want[0]))
+        _require(_same(got[0], want[0]) and _same(got[1], want[1]),
+                 f"merge at the decode's {tuple(vals.shape)} lists: kernel "
+                 "!= plain version")
+        vals, idx = want
+        n += 1
+    print(f"[decode] {n} kernel checks at the decode's shapes bit-equal to "
+          f"the plain versions ({masked} masked lists)")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at main-path shapes
 # ---------------------------------------------------------------------------
 
@@ -2384,50 +2762,64 @@ def _sum_or_none(xs):
     return None if any(x is None for x in xs) else sum(xs)
 
 
-def _topk_row(scores, errs, launches):
-    """The top-k at the device path's three shapes: local execution of
-    the 32 queries on 64 peers, CN over the full rows, CN* over the
-    gathered k-lists; each held to its plain version, then timed."""
+def _topk_shape(what, x, errs):
+    """The tile-route top-k at k = 20 on ``x``: held to its plain version,
+    then timed beside it and ``torch.topk`` (events, and device ms from a
+    profiler window retaken until it holds every launch), with its bound
+    (each score read once, each (value, index) written once)."""
     import torch
     from repro_torch.kernels.topk import topk_cuda, topk_ref
     from repro_torch.kernels.topk.topk import plan as topk_plan
+    v1, i1 = topk_cuda(x, DEV_K)
+    v2, i2 = topk_ref(x, DEV_K)
+    errs["topk"] = max(errs["topk"], _max_abs_err(v1, v2))
+    _require(_same(v1, v2) and _same(i1, i2),
+             f"topk at the {what} shape: kernel != plain version")
+    # plain, kernel, kernel, plain: take the lower of each pair
+    p1 = _cuda_ms(lambda: topk_ref(x, DEV_K))
+    k1 = _cuda_ms(lambda: topk_cuda(x, DEV_K))
+    k2 = _cuda_ms(lambda: topk_cuda(x, DEV_K))
+    p2 = _cuda_ms(lambda: topk_ref(x, DEV_K))
+    lib = _cuda_ms(lambda: torch.topk(x, DEV_K, dim=-1))
+    # one launch a call for a one-tile row, else the final pass too; a
+    # window that misses one is taken again
+    n_launch = 1 if topk_plan(x.shape[-1], DEV_K).tiles == 1 else 2
+    each = _device_ms_each(lambda: topk_cuda(x, DEV_K), n_launch,
+                           ("topk_tiles", "topk_final"))
+    rows = x.numel() // x.shape[-1]
+    nbytes = x.numel() * x.element_size() + rows * DEV_K * 8
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = x.numel() / OPS32_PER_S * 1e3    # one compare a score
+    row = {"what": what, "shape": list(x.shape),
+           "launches_per_call": n_launch,
+           "ms": min(k1, k2), "plain_ms": min(p1, p2),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": lib,
+           "device_ms": None if each is None else sum(each),
+           "library_device_ms": _device_ms(
+               lambda: torch.topk(x, DEV_K, dim=-1)), "bytes": nbytes}
+    print(f"[times] topk {what} {tuple(x.shape)} f32 k={DEV_K}: "
+          + json.dumps(row))
+    return row
+
+
+def _topk_row(scores, dec_scores, errs, launches):
+    """The top-k at the device path's three shapes: local execution of
+    the 32 queries on 64 peers, CN over the full rows, CN* over the
+    gathered k-lists; each held to its plain version, then timed.  The
+    decode's two shapes (its 16 peers' shards, and the whole row at one
+    peer) are timed the same way under ``decode_shapes``, outside the
+    row's sums."""
+    from repro_torch.kernels.topk import topk_cuda
     lists = topk_cuda(scores.view(DEV_B, DEV_PEERS, DEV_LOCAL), DEV_K)[0]
     shapes = (("local execution", scores.view(DEV_B * DEV_PEERS, DEV_LOCAL)),
               ("CN", scores),
               ("CN*", lists.reshape(DEV_B, DEV_PEERS * DEV_K)))
-    per = []
-    for what, x in shapes:
-        v1, i1 = topk_cuda(x, DEV_K)
-        v2, i2 = topk_ref(x, DEV_K)
-        errs["topk"] = max(errs["topk"], _max_abs_err(v1, v2))
-        _require(_same(v1, v2) and _same(i1, i2),
-                 f"topk at the {what} shape: kernel != plain version")
-        # plain, kernel, kernel, plain: take the lower of each pair
-        p1 = _cuda_ms(lambda: topk_ref(x, DEV_K))
-        k1 = _cuda_ms(lambda: topk_cuda(x, DEV_K))
-        k2 = _cuda_ms(lambda: topk_cuda(x, DEV_K))
-        p2 = _cuda_ms(lambda: topk_ref(x, DEV_K))
-        lib = _cuda_ms(lambda: torch.topk(x, DEV_K, dim=-1))
-        # one launch a call for a one-tile row, else the final pass too;
-        # a window that misses one is taken again
-        n_launch = 1 if topk_plan(x.shape[-1], DEV_K).tiles == 1 else 2
-        each = _device_ms_each(lambda: topk_cuda(x, DEV_K), n_launch,
-                               ("topk_tiles", "topk_final"))
-        dev_ms = None if each is None else sum(each)
-        lib_dev = _device_ms(lambda: torch.topk(x, DEV_K, dim=-1))
-        # each score read once, each (value, index) written once
-        nbytes = x.numel() * x.element_size() + x.shape[0] * DEV_K * 8
-        t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-        t_ops = x.numel() / OPS32_PER_S * 1e3    # one compare a score
-        per.append({"what": what, "shape": list(x.shape),
-                    "ms": min(k1, k2), "plain_ms": min(p1, p2),
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops
-                    else "operations",
-                    "library_ms": lib, "device_ms": dev_ms,
-                    "library_device_ms": lib_dev, "bytes": nbytes})
-        print(f"[times] topk {what} {tuple(x.shape)} f32 k={DEV_K}: "
-              + json.dumps(per[-1]))
+    per = [_topk_shape(what, x, errs) for what, x in shapes]
+    decode = [_topk_shape(what, x, errs) for what, x in (
+        ("decode, 16 peers' shards", dec_scores.reshape(DEC_B * DEC_P, -1)),
+        ("decode, one peer", dec_scores))]
     by_path = {path: n["topk"] for path, n in launches.items()}
     t_bytes = sum(r["bytes"] for r in per) / MEM_BYTES_PER_S * 1e3
     t_ops = sum(math.prod(r["shape"]) for r in per) / OPS32_PER_S * 1e3
@@ -2447,7 +2839,7 @@ def _topk_row(scores, errs, launches):
         "device_ms_per_launch": None if dev_ms is None else dev_ms / len(per),
         "library_device_ms": _sum_or_none(r["library_device_ms"]
                                           for r in per),
-        "shapes": per,
+        "shapes": per, "decode_shapes": decode,
         "shape_note": (f"one call at each device-path shape: local "
                        f"execution of {DEV_B} queries on {DEV_PEERS} "
                        f"peers, CN, CN*")}
@@ -2473,27 +2865,14 @@ def _kernel_name(name):
     return m.group(1) if m else name
 
 
-def kernels_by_tag(calls, reps=10):
-    """The kernels that the functions ``calls`` launch inside
-    :func:`tagged` ranges: one ``torch.profiler`` window runs each in
-    turn, ``reps`` times, and every kernel is joined to the range that
-    holds its launch through the launch's correlation id in the
-    exported trace, so a kernel the trace lacks drops out of its own
-    range only and a kernel of no range is left out.  Returns {tag:
-    {kernel name: [us, ...]}} (shared with tools/)."""
+def _trace_kernels(prof):
+    """(tag, kernel name, start us, duration us) of every kernel in a
+    profiler window, joined to the :func:`tagged` range that holds its
+    launch through the launch's correlation id in the exported trace
+    (tag None outside every range), and the tagged ranges (start, end,
+    tag)."""
     import bisect
     import tempfile
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for fn in calls:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in calls:
-                fn()
-        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as d:
         prof.export_chrome_trace(f"{d}/trace.json")
         events = json.loads(Path(d, "trace.json").read_text())["traceEvents"]
@@ -2505,15 +2884,40 @@ def kernels_by_tag(calls, reps=10):
                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
                  and "Launch" in e.get("name", "")
                  and "correlation" in e.get("args", {})}
-    per = {}
+    out = []
     for e in events:
         if e.get("cat") != "kernel":
             continue
         t = launch_ts.get(e.get("args", {}).get("correlation"))
         i = -1 if t is None else bisect.bisect_right(starts, t) - 1
-        if i >= 0 and t <= tags[i][1]:
-            per.setdefault(tags[i][2], {}).setdefault(
-                _kernel_name(e["name"]), []).append(e["dur"])
+        tag = tags[i][2] if i >= 0 and t <= tags[i][1] else None
+        out.append((tag, _kernel_name(e["name"]), e["ts"], e["dur"]))
+    return out, tags
+
+
+def kernels_by_tag(calls, reps=10):
+    """The kernels that the functions ``calls`` launch inside
+    :func:`tagged` ranges: one ``torch.profiler`` window runs each in
+    turn, ``reps`` times, and every kernel is joined to the range that
+    holds its launch (:func:`_trace_kernels`), so a kernel the trace
+    lacks drops out of its own range only and a kernel of no range is
+    left out.  Returns {tag: {kernel name: [us, ...]}} (shared with
+    tools/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    per = {}
+    for tag, name, _, dur in _trace_kernels(prof)[0]:
+        if tag is not None:
+            per.setdefault(tag, {}).setdefault(name, []).append(dur)
     return per
 
 
@@ -2711,11 +3115,19 @@ def main() -> int:
     cli_launches = _cli(card, _build)
     shard_launches = _shard(engine, p, dev, gen, errs, _build)
     print(f"[phase 10] {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    decode_launches, _ = _decode_cli(card, _build)
+    dec_scores, _ = _decode_model(dev, card)
+    _decode_sampling(dec_scores)
+    _decode_xcheck(dev, errs)
+    _decode_kernels(dec_scores, errs)
+    print(f"[phase 11] {time.perf_counter() - t0:.3f} s")
 
     launches = {"serve": serve_launches, "serve_churn": churn_launches,
                 "device": dev_launches, "topologies": topo_launches,
                 **prec_launches, "overlay": overlay_launches,
-                "cli": cli_launches, "shard": shard_launches}
+                "cli": cli_launches, "shard": shard_launches,
+                "decode": decode_launches}
     # phase 3b extended origin 0's slices with the reroute tables
     rr = _device_slices(engine.plan.depth_slices(sts[0]), dev)[2]
     _require(rr is not None, "phase 3b built no reroute tables")
@@ -2724,7 +3136,7 @@ def main() -> int:
     for row in rows:
         if row["name"] in by_dtype:
             row["by_dtype"] = by_dtype[row["name"]]
-    rows.append(_topk_row(scores, errs, launches))
+    rows.append(_topk_row(scores, dec_scores, errs, launches))
     rows.append(_topk_select_row(scores, errs, launches))
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,4 +1,5 @@
-"""Serving entrypoint of the port: always-on overlay query serving.
+"""Serving entrypoints of the port: always-on overlay query serving +
+LM decode.
 
 ``overlay`` — the paper-shaped service: a long-lived
 :class:`repro_torch.engine.QueryServer` hosting warm ``SimEngine``
@@ -11,22 +12,61 @@ histogram).
       --topology ba --n-peers 2000 --device cuda \\
       --policies fd-dynamic,cn --requests 256 --concurrency 16
 
-``--device`` is ``cuda`` by default and raises without a CUDA device;
-``--device cpu`` runs the kernels' plain PyTorch versions.
+``decode`` — the LM end-to-end path: prefill + decode where every
+decode step runs a top-k "query" over the vocabulary, sharded over
+``--model-par`` virtual peers, with the FD merge-and-backward (the
+top-k and merge kernels on the card).  ``--policy`` selects a member of
+the ``repro_torch.engine`` registry (``fd-dynamic`` / ``cn`` /
+``cn-star``); the legacy ``--algorithm cn|cn_star`` flag still works.
+Random weights from a seed; nothing is downloaded.
 
-``decode`` — the reference's LM prefill + decode path — is not ported
-yet: it, and the flag-style invocation that routes to it, exit with a
-message saying so.
+  PYTHONPATH=src python -m repro_torch.launch.serve decode \\
+      --arch qwen2-0.5b --batch 4 --prompt-len 32 --gen 16 --model-par 16
+
+``--device`` is ``cuda`` by default and raises without a CUDA device;
+``--device cpu`` runs the kernels' plain PyTorch versions.  Flag-style
+invocations without a subcommand (``... serve --arch ...``) route to
+``decode``, as in the reference.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-_DECODE_MISSING = (
-    "serve decode: the LM decode path (models, runtime.steps, "
-    "launch.mesh) is not ported to repro_torch yet; run it from the "
-    "reference package (python -m repro.launch.serve decode ...)")
+
+def _require_device(device: str, what: str) -> None:
+    import torch
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"serve {what} --device cuda (the default) needs a CUDA "
+            "device and none is available; pass --device cpu to run the "
+            "plain PyTorch path")
+
+
+def state_from_prefill(cfg, prefill_state, s_max: int, cache_dtype=None):
+    """Convert prompt-length caches into pre-sized decode caches: each
+    layer's ``KVCache`` padded with zeros (or trimmed) to ``s_max`` along
+    its sequence dim and cast to ``cache_dtype`` (f32 by default).  The
+    reference's window and MLA conversions wait for those slices."""
+    import torch
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+
+    if cache_dtype is None:
+        cache_dtype = torch.float32
+
+    def pad_seq(a):
+        cur = a.shape[1]
+        if cur >= s_max:
+            return a[:, :s_max].to(cache_dtype)
+        return torch.nn.functional.pad(
+            a, (0, 0, 0, 0, 0, s_max - cur)).to(cache_dtype)
+
+    caches = [{key: A.KVCache(pad_seq(c.k), pad_seq(c.v))
+               for key, c in layer.items()}
+              for layer in prefill_state.caches]
+    return M.DecodeState(caches, prefill_state.pos)
 
 
 def main_overlay(argv=None):
@@ -66,11 +106,7 @@ def main_overlay(argv=None):
     from repro_torch.engine.serve import ServerError
     from repro_torch.p2psim import SimParams, build_topology
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "serve overlay --device cuda (the default) needs a CUDA "
-            "device and none is available; pass --device cpu to run the "
-            "plain PyTorch path")
+    _require_device(args.device, "overlay")
     device = torch.device(args.device)
     params = SimParams(k=args.k)
     engines = {}
@@ -137,9 +173,94 @@ def main_overlay(argv=None):
 
 
 def main_decode(argv=None):
-    """The reference's LM prefill + decode driver: not ported yet, so
-    it exits with a message instead of decoding."""
-    raise SystemExit(_DECODE_MISSING)
+    """LM prefill + decode driver (FD top-k sampling each step); prints
+    the reference's two lines and returns the tokens (batch, gen)."""
+    ap = argparse.ArgumentParser(prog="serve decode")
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="virtual peers the vocabulary is sharded over")
+    ap.add_argument("--k", type=int, default=20)
+    ap.add_argument("--policy", default=None,
+                    help="engine policy name (fd-dynamic / cn / cn-star; "
+                         "see repro_torch.engine); overrides --algorithm")
+    ap.add_argument("--algorithm", default="fd",
+                    choices=("fd", "cn", "cn_star"),
+                    help="legacy algorithm flag (mapped onto a policy)")
+    ap.add_argument("--schedule", default="halving",
+                    choices=("halving", "doubling", "ring"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the model and the sampling run; cuda "
+                         "raises without a CUDA device")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.data.pipeline import extra_model_inputs
+    from repro_torch.engine import get_policy, policy_from_legacy
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.runtime.steps import make_serve_step
+
+    _require_device(args.device, "decode")
+    try:
+        pol = (get_policy(args.policy) if args.policy
+               else policy_from_legacy(args.algorithm))
+    except KeyError as e:
+        raise SystemExit(f"--policy: {e.args[0]}")
+    if pol.algorithm not in ("fd", "cn", "cn_star"):
+        raise SystemExit(f"policy {pol.name!r} has no device backend")
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    M.check_ported(cfg)
+    device = torch.device(args.device)
+    mesh = make_host_mesh(model=args.model_par, device=device, cfg=cfg)
+    s_max = args.prompt_len + args.gen
+
+    params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
+                           max_seq=s_max, device=device)
+
+    rng = np.random.default_rng(0)
+    batch_np = {"tokens": rng.integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)}
+    batch = extra_model_inputs(cfg, batch_np)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    serve_step = make_serve_step(cfg, mesh, k=args.k,
+                                 algorithm=pol.algorithm,
+                                 schedule=args.schedule)
+    if device.type == "cuda":
+        _build.ensure_built()           # the kernels' one-time build
+
+    t0 = time.perf_counter()
+    last_logits, pstate = M.prefill(params, cfg, batch)
+    state = state_from_prefill(cfg, pstate, s_max)
+    tok = torch.argmax(last_logits, dim=-1)[:, None].to(torch.int32)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t_prefill = time.perf_counter() - t0
+
+    out_tokens = [tok]
+    gen = torch.Generator(device).manual_seed(1)
+    t0 = time.perf_counter()
+    for _ in range(args.gen - 1):
+        tok, state = serve_step(params, state, tok, gen)
+        out_tokens.append(tok)
+    toks = torch.cat(out_tokens, dim=1).cpu().numpy()
+    t_decode = time.perf_counter() - t0
+    print(f"arch={cfg.name} policy={pol.name} "
+          f"prefill {args.prompt_len} tok in {t_prefill:.2f}s; "
+          f"decoded {args.gen - 1} steps in {t_decode:.2f}s "
+          f"({(args.gen - 1) * args.batch / max(t_decode, 1e-9):.1f} tok/s)")
+    print("sample tokens:", toks[0, :12].tolist())
+    return toks
 
 
 def main(argv=None):

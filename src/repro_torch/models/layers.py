@@ -1,0 +1,102 @@
+"""Basic layers of the port: init helpers, norms and dense FFNs.
+
+Parameters are ``nn.ParameterDict``s keyed as the reference's pytree
+leaves (``{"scale", "bias"}``, ``{"w_gate", "w_up", "w_down"}``, ...),
+and the apply functions compute what the reference's do, in the same
+order and the same dtypes.
+
+The reference's sharding helpers (``constrain``, ``batch_spec``,
+``model_size``, ``head_axis``) annotate activations for GSPMD; on one
+card they have no counterpart and are left out.  ``rwkv_cmix`` (the
+RWKV channel mix) waits for the slice that ports RWKV.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def param_dict(tensors: dict) -> nn.ParameterDict:
+    """``tensors`` as frozen parameters: the port serves, and no slice
+    trains yet."""
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tensors.items()})
+
+
+# --------------------------------------------------------------------------
+# init helpers
+# --------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               scale: float | None = None) -> torch.Tensor:
+    """A (d_in, d_out) weight, N(0, 1) * ``scale`` drawn in f32 on the
+    generator's device, then cast; applied as ``x @ w``."""
+    scale = scale if scale is not None else d_in ** -0.5
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype) -> torch.Tensor:
+    """A (vocab, d) table, N(0, 1) * 0.02: every row, the padding rows
+    past ``vocab_size`` too, as in the reference."""
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def norm_init(d: int, kind: str, dtype, device) -> dict:
+    if kind == "rms":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def apply_norm(params, x: torch.Tensor, kind: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm (``"rms"``) or LayerNorm (``"ln"``), computed in f32 and
+    returned in ``x``'s dtype."""
+    xf = x.float()
+    if kind == "rms":
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        return (y * params["scale"].float()).to(x.dtype)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# dense FFN (SwiGLU / GELU)
+# --------------------------------------------------------------------------
+
+def ffn_init(gen: torch.Generator, d: int, d_ff: int, act: str,
+             dtype) -> dict:
+    dev = gen.device
+    if act == "swiglu":
+        return {"w_gate": dense_init(gen, d, d_ff, dtype),
+                "w_up": dense_init(gen, d, d_ff, dtype),
+                "w_down": dense_init(gen, d_ff, d, dtype,
+                                     scale=d_ff ** -0.5)}
+    return {"w_up": dense_init(gen, d, d_ff, dtype),
+            "b_up": torch.zeros((d_ff,), dtype=dtype, device=dev),
+            "w_down": dense_init(gen, d_ff, d, dtype, scale=d_ff ** -0.5),
+            "b_down": torch.zeros((d,), dtype=dtype, device=dev)}
+
+
+def apply_ffn(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    """SwiGLU, or GELU with the tanh approximation (``jax.nn.gelu``'s
+    default)."""
+    if act == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+        return h @ params["w_down"]
+    h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
+    return h @ params["w_down"] + params["b_down"]

@@ -2,17 +2,23 @@
 
 Mirrors tests/test_serving.py::test_launch_overlay_serves_mixed_stream
 with ``--device cpu``, in process and as ``python -m``; ``--device``
-defaults to ``cuda`` and raises without a CUDA device; ``decode`` and
-the flag-style invocation that routes to it exit with a message naming
-the LM decode path as not ported, and decode nothing.
+defaults to ``cuda`` and raises without a CUDA device, for ``overlay``,
+``decode`` and the flag-style invocation that routes to ``decode``.
+``decode --smoke --device cpu`` prints the reference's two lines and
+returns the tokens (batch, gen), in process and as ``python -m``;
+``--model-par 4`` (4 virtual peers, FD halving) samples the same tokens
+as ``--model-par 1``; an unported arch and a ``--model-par`` that does
+not divide the padded vocabulary are refused.
 """
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
+from repro_torch.configs.base import get_config, smoke_config
 from repro_torch.launch import serve as serve_mod
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -54,7 +60,58 @@ def test_overlay_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("argv", [["decode"], ["decode", "--smoke"],
                                   ["--arch", "qwen2-0.5b"], []])
-def test_decode_refuses_instead_of_decoding(argv):
-    with pytest.raises(SystemExit, match="not ported") as exc:
+def test_decode_refuses_instead_of_decoding(monkeypatch, argv):
+    """Without a card, ``decode`` (and the bare flags that route to it)
+    raises naming ``--device cpu`` before it builds anything."""
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu") as exc:
         serve_mod.main(argv)
-    assert "decode" in str(exc.value.code)
+    assert "serve decode" in str(exc.value)
+
+
+DECODE = ["decode", "--smoke", "--batch", "2", "--prompt-len", "8",
+          "--gen", "6", "--device", "cpu"]
+
+
+def test_decode_smoke_on_the_cpu(capsys):
+    toks = serve_mod.main(DECODE)
+    assert toks.shape == (2, 6) and toks.dtype == np.int32
+    cfg = smoke_config(get_config("qwen2-0.5b"))
+    assert 0 <= toks.min() and toks.max() < cfg.padded_vocab()
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("arch=qwen2-0.5b policy=fd-dynamic prefill 8 "
+                             "tok in ")
+    assert "decoded 5 steps in " in out[0] and "tok/s)" in out[0]
+    assert out[1] == f"sample tokens: {toks[0, :12].tolist()}"
+
+
+def test_decode_as_a_module():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *DECODE],
+        env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "arch=qwen2-0.5b policy=fd-dynamic" in out.stdout
+    assert "sample tokens: [" in out.stdout
+
+
+@pytest.mark.parametrize("extra", [["--model-par", "4"],
+                                   ["--model-par", "4", "--schedule",
+                                    "ring"],
+                                   ["--model-par", "4", "--policy",
+                                    "cn-star"]])
+def test_decode_peers_sample_the_one_peer_tokens(extra):
+    np.testing.assert_array_equal(
+        serve_mod.main(DECODE + extra),
+        serve_mod.main(DECODE + ["--model-par", "1"]))
+
+
+def test_decode_refuses_an_unported_arch():
+    with pytest.raises(NotImplementedError, match="rwkv6-3b"):
+        serve_mod.main(["decode", "--arch", "rwkv6-3b", "--smoke",
+                        "--device", "cpu"])
+
+
+def test_decode_refuses_a_ragged_vocab_shard():
+    with pytest.raises(ValueError, match="model=3 does not divide"):
+        serve_mod.main(DECODE + ["--model-par", "3"])
