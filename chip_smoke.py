@@ -7,7 +7,9 @@ Drives the port's paths — the FD overlay top-k query served by a
 ``QueryServer``, statically and under churn with the CN / CN* baselines,
 the ``DeviceEngine``'s FD collectives over 64 virtual peers, a
 live overlay whose peers join and leave between queries, the serving
-CLI and entry sharding, and the LM decode with FD top-k sampling —
+CLI and entry sharding, and the LM decode with FD top-k sampling, for
+the dense GQA archs and the attention variants (MLA, the
+encoder-decoder, M-RoPE) —
 through the hand-written CUDA kernels, and fails (exit code 1, no
 result line) when any phase fails:
 
@@ -140,6 +142,22 @@ result line) when any phase fails:
      lists (non-receivers masked to -inf / -1) bit-equal to their plain
      versions; its launches are the ``decode`` key of the kernels line's
      ``launches_by_path``;
+  12. the attention variants on the card, each the phase-11 decode
+     command (batch 4, prompt 32, 16 tokens, 16 peers): minicpm3-4b
+     (MLA) and whisper-large-v3 (32 + 32 layers, cross attention over
+     1,500 frames) at full size through ``serve.main(["decode", "--arch",
+     ...])``, qwen2-vl-72b (M-RoPE, the vision stub) at full width and 4
+     of its 80 layers (145.46 GB in bf16 does not fit one card) through
+     ``init_params``, ``prefill``, ``state_from_prefill`` and
+     ``make_serve_step``: tokens (4, 16) inside the padded vocabulary,
+     top-k and merge launched on each of the 15 steps; prefill seconds,
+     synchronised steps, tok/s and a 2-step profiler window split into
+     the model's and the sampling's device time with the idle share; an
+     f32 cross-check at full width, card == CPU path within rtol 1e-4,
+     atol 1e-5 with TF32 off (minicpm3-4b 2 layers, whisper 2 + 2
+     layers over 1,500 frames, qwen2-vl 1 layer; batch 4); the top-k
+     and merge at each arch's decode shapes bit-equal to their plain
+     versions; launch keys ``variants_<arch>``;
   6. time each kernel (the churn variant at the churn sweep's level
      shapes) at the shapes its path gives it (CUDA events,
      median of several runs) beside its plain version, one PyTorch
@@ -159,8 +177,10 @@ result line) when any phase fails:
      (long) beside ``torch.topk``, with each shape's route, its launches
      a call (the profiler must see the route's kernels, one launch each),
      their device ms, and the sort alone (``repro_topk_select_sort``,
-     held to ``topk_ref``); the top-k row also times the decode's two
-     shapes, (64, 9,600) and (4, 153,600) at k = 20, beside
+     held to ``topk_ref``); the top-k row also times each decode's two
+     shapes at k = 20, qwen2-0.5b's and qwen2-vl-72b's (64, 9,600) and
+     (4, 153,600), minicpm3-4b's (64, 4,608) and (4, 73,728),
+     whisper-large-v3's (64, 3,328) and (4, 53,248), beside
      ``torch.topk`` (``decode_shapes``).  A profiler window that misses
      one of the launches it should hold is taken again, up to 3 windows.
 
@@ -236,24 +256,54 @@ def _cuda_ms(fn, reps=7, warm=2):
     return statistics.median(times)
 
 
+def _profiled(body, tries=4):
+    """A ``torch.profiler`` window around ``body()`` that holds every
+    kernel ``body`` launches.  Late in a long run on the H100 a window
+    loses its first 1 to 3 kernel records, whatever the pause before
+    them (seen once a window had held 13,500 kernels: from then on every
+    window lost its first record, a 1 s pause or none).  So marker
+    kernels (``torch.cuda._sleep``: ``spin_kernel``) go ahead
+    of ``body`` on its stream: a trace that holds one of them holds
+    every kernel after it.  A window that lost every marker is taken
+    again with twice as many, up to ``tries`` windows.  Returns the
+    profiler; its markers lie outside every :func:`tagged` range and
+    are left out of every sum."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    markers = 8
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(markers):
+                torch.cuda._sleep(100)
+            body()
+            torch.cuda.synchronize()
+        if any(ev.device_type == DeviceType.CUDA and _MARKER in ev.name
+               for ev in prof.events()):
+            return prof
+        print(f"[profiler] window {attempt} of {tries} lost all {markers} "
+              "markers; taken again")
+        markers *= 2
+    raise PhaseError(f"no profiler window of {tries} held a marker")
+
+
+_MARKER = "spin_kernel"
+
+
 def _device_ms(fn, match=None, reps=10):
     """Device milliseconds of one call of ``fn``: the CUDA time of the
     kernels whose names hold one of ``match`` (all kernels when None),
     summed over one ``torch.profiler`` window around ``reps`` calls and
     divided by ``reps``.  None when the profiler saw no such kernel."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof = _profiled(lambda: [fn() for _ in range(reps)])
     us = 0.0
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or _MARKER in ev.key:
             continue
         if match is not None and not any(m in ev.key for m in match):
             continue
@@ -269,19 +319,11 @@ def _device_ms_each(fn, n_launch, match, reps=10, tries=3):
     in one ``torch.profiler`` window.  A window in which the profiler
     did not see ``n_launch * reps`` such kernels is taken again, up to
     ``tries`` windows, then None."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     match = (match,) if isinstance(match, str) else tuple(match)
     fn()
-    torch.cuda.synchronize()
     for attempt in range(1, tries + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.05)             # the tracer up before the first
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        prof = _profiled(lambda: [fn() for _ in range(reps)])
         ks = sorted((ev.time_range.start, ev.time_range.elapsed_us())
                     for ev in prof.events()
                     if ev.device_type == DeviceType.CUDA
@@ -2112,9 +2154,6 @@ def _shard(engine, p, dev, gen, errs, _build):
 # production mesh's model axis (launch/mesh.py:23)
 DEC_ARCH, DEC_B, DEC_PROMPT, DEC_GEN, DEC_P, DEC_K = (
     "qwen2-0.5b", 4, 32, 16, 16, 20)
-DECODE_ARGV = ["decode", "--arch", DEC_ARCH, "--batch", str(DEC_B),
-               "--prompt-len", str(DEC_PROMPT), "--gen", str(DEC_GEN),
-               "--model-par", str(DEC_P), "--device", "cuda"]
 # the model against the CPU path: full width, 2 layers, f32, TF32 off,
 # 4 teacher-forced steps; the tolerance of tests/test_torch_models.py
 DEC_XCHECK_LAYERS, DEC_FORCED = 2, 4
@@ -2123,12 +2162,36 @@ DEC_TOL = {"rtol": 1e-4, "atol": 1e-5}
 DEC_PROFILE_STEPS = 5
 
 
-def _decode_cli(card, _build):
-    """``repro_torch.launch.serve.main(DECODE_ARGV)`` in process: tokens
-    (4, 16) inside the padded vocabulary, and the top-k and the merge
-    launched on every step (FD halving over 16 peers: one top-k and
-    log2(16) merges a step).  Returns (launches, the CLI's own numbers,
-    parsed from its two-decimal print)."""
+def _decode_argv(arch):
+    return ["decode", "--arch", arch, "--batch", str(DEC_B),
+            "--prompt-len", str(DEC_PROMPT), "--gen", str(DEC_GEN),
+            "--model-par", str(DEC_P), "--device", "cuda"]
+
+
+def _check_decode_run(what, cfg, toks, launches):
+    """Tokens (4, 16) inside the padded vocabulary, and the top-k and
+    the merge launched on every step (FD halving over 16 peers: one
+    top-k and log2(16) merges a step)."""
+    steps = DEC_GEN - 1
+    v_pad = cfg.padded_vocab()
+    _require(tuple(toks.shape) == (DEC_B, DEC_GEN) and int(toks.min()) >= 0
+             and int(toks.max()) < v_pad,
+             f"{what}: tokens {tuple(toks.shape)} in [{toks.min()}, "
+             f"{toks.max()}], want ({DEC_B}, {DEC_GEN}) in [0, {v_pad})")
+    rounds = int(math.log2(DEC_P))
+    _require(launches["topk"] >= steps and launches["merge"]
+             >= steps * rounds, f"{what}: {launches['topk']} top-k and "
+             f"{launches['merge']} merge launches in {steps} steps")
+    return {"tokens_shape": list(toks.shape),
+            "topk_per_step": launches["topk"] / steps,
+            "merge_per_step": launches["merge"] / steps,
+            "ids_past_vocab": int((toks >= cfg.vocab_size).sum())}
+
+
+def _decode_cli(card, _build, arch=DEC_ARCH, what="decode"):
+    """``repro_torch.launch.serve.main`` with ``_decode_argv(arch)`` in
+    process, checked by :func:`_check_decode_run`.  Returns (launches,
+    the CLI's own numbers, parsed from its two-decimal print)."""
     import contextlib
     import io
     import re
@@ -2138,50 +2201,52 @@ def _decode_cli(card, _build):
     _build.reset_launches()              # count the CLI's run alone
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        toks = serve.main(DECODE_ARGV)
+        toks = serve.main(_decode_argv(arch))
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     print(buf.getvalue(), end="")
-    print("[decode] CLI launches " + json.dumps(launches))
-    steps = DEC_GEN - 1
-    v_pad = get_config(DEC_ARCH).padded_vocab()
-    _require(toks.shape == (DEC_B, DEC_GEN) and int(toks.min()) >= 0
-             and int(toks.max()) < v_pad,
-             f"decode CLI: tokens {toks.shape} in [{toks.min()}, "
-             f"{toks.max()}], want ({DEC_B}, {DEC_GEN}) in [0, {v_pad})")
-    rounds = int(math.log2(DEC_P))
-    _require(launches["topk"] >= steps and launches["merge"]
-             >= steps * rounds, f"decode CLI: {launches['topk']} top-k and "
-             f"{launches['merge']} merge launches in {steps} steps")
+    print(f"[{what}] CLI launches " + json.dumps(launches))
+    checked = _check_decode_run(f"{what} CLI", get_config(arch), toks,
+                                launches)
     m = re.search(r"prefill \d+ tok in ([\d.]+)s; decoded \d+ steps in "
                   r"([\d.]+)s \(([\d.]+) tok/s\)", buf.getvalue())
-    _require(m is not None, "decode CLI: no timing line")
+    _require(m is not None, f"{what} CLI: no timing line")
     res = {"prefill_s": float(m[1]), "decode_s": float(m[2]),
-           "tok_per_s": float(m[3]), "main_s": wall,
-           "topk_per_step": launches["topk"] / steps,
-           "merge_per_step": launches["merge"] / steps,
-           "ids_past_vocab": int((toks >= get_config(DEC_ARCH).vocab_size)
-                                 .sum())}
-    print("[decode] CLI " + json.dumps(res) + f"; {card}")
+           "tok_per_s": float(m[3]), "main_s": wall, **checked}
+    print(f"[{what}] CLI " + json.dumps(res) + f"; {card}")
     return launches, res
 
 
-def _decode_model(dev, card):
-    """The CLI's model and prompt built again: prefill and each decode
-    step timed with the device synchronised, the CLI's unsynchronised
-    loop, and one profiler window of ``DEC_PROFILE_STEPS`` steps split
-    into the model's and the sampling's device time, with the device's
-    idle share.  Returns (one step's f32 scores (4, 153,600), numbers)."""
+def _decode_batch(cfg, rng, batch, dev):
+    """A prompt of ``DEC_PROMPT`` tokens from ``rng`` and the modality
+    stubs' inputs (``extra_model_inputs``: f32 frames, f32 vision
+    embeddings), on ``dev``."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import extra_model_inputs
+    tokens = rng.integers(0, cfg.vocab_size,
+                          (batch, DEC_PROMPT)).astype(np.int32)
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in extra_model_inputs(cfg, {"tokens": tokens}).items()}
+
+
+def _decode_model(dev, card, cfg=None, what="decode",
+                  profile_steps=DEC_PROFILE_STEPS):
+    """The CLI's model (``cfg``, qwen2-0.5b by default) and prompt built
+    again: prefill and each decode step timed with the device
+    synchronised, the CLI's unsynchronised loop, and one profiler window
+    of ``profile_steps`` steps split into the model's and the sampling's
+    device time, with the device's idle share.  Returns (one step's f32
+    scores (4, V_pad), numbers)."""
+    import numpy as np
+    import torch
     from repro_torch.configs.base import get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import state_from_prefill
     from repro_torch.models import model as M
     from repro_torch.runtime.steps import (gumbel, make_serve_step,
                                            sample_topk)
-    cfg = get_config(DEC_ARCH)
+    cfg = cfg or get_config(DEC_ARCH)
     s_max = DEC_PROMPT + DEC_GEN
     t0 = time.perf_counter()
     params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
@@ -2191,14 +2256,12 @@ def _decode_model(dev, card):
            "params": M.count_params(params),
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters())}
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (DEC_B, DEC_PROMPT)).astype(np.int32)).to(dev)
+    batch = _decode_batch(cfg, np.random.default_rng(0), DEC_B, dev)
     mesh = make_host_mesh(DEC_P, device=dev, cfg=cfg)
     step = make_serve_step(cfg, mesh, k=DEC_K)
 
     def prefilled():
-        last, pst = M.prefill(params, cfg, {"tokens": tokens})
+        last, pst = M.prefill(params, cfg, batch)
         st = state_from_prefill(cfg, pst, s_max)
         return st, torch.argmax(last, dim=-1)[:, None].to(torch.int32)
 
@@ -2246,22 +2309,23 @@ def _decode_model(dev, card):
     calls = [tagged("model", model_part), tagged("sampling", sampling_part)]
     for fn in calls:
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
         t0 = time.perf_counter()
-        for _ in range(DEC_PROFILE_STEPS):
+        for _ in range(profile_steps):
             for fn in calls:
                 fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels, tags = _trace_kernels(prof)
-    n = DEC_PROFILE_STEPS
+        box["wall"] = time.perf_counter() - t0
+
+    kernels, tags = _trace_kernels(_profiled(window))
+    wall = box["wall"]
+    n = profile_steps
     by_tag = {}
     for tag, name, _, dur in kernels:
         by_tag.setdefault(tag, {}).setdefault(name, []).append(dur)
     _require(set(by_tag) >= {"model", "sampling"},
-             f"decode profile: kernels by tag {sorted(map(str, by_tag))}")
+             f"{what} profile: kernels by tag {sorted(map(str, by_tag))}")
     ivs = sorted((ts, ts + dur) for tag, _, ts, dur in kernels
                  if tag is not None)
     busy, end = 0.0, -math.inf
@@ -2283,7 +2347,8 @@ def _decode_model(dev, card):
         # the same busy time against a step timed without the profiler
         "idle_share_of_synced_step": 1 - busy / n / 1e3
         / res["step_ms_mean_warm"], "by_tag": split}
-    print("[decode] model " + json.dumps(res) + f"; {card}")
+    print(f"[{what}] model {cfg.name}, {cfg.n_layers} layers "
+          + json.dumps(res) + f"; {card}")
     return box["logits"][:, 0].float(), res
 
 
@@ -2345,30 +2410,40 @@ def _decode_sampling(scores):
           f"top {DEC_K + 1}")
 
 
-def _decode_xcheck(dev, errs):
-    """qwen2-0.5b at full width and ``DEC_XCHECK_LAYERS`` layers in f32,
-    TF32 off: prefill's last logits, ``state_from_prefill``'s caches and
-    ``DEC_FORCED`` teacher-forced steps (logits and caches) on the card
-    against the port's CPU path on the same weights, within
-    ``DEC_TOL``."""
+def _decode_xcheck(dev, errs, cfg=None, batch=DEC_B, key="decode_model",
+                   what="decode"):
+    """``cfg`` (qwen2-0.5b at ``DEC_XCHECK_LAYERS`` layers by default;
+    full width) in f32, TF32 off: prefill's last logits,
+    ``state_from_prefill``'s caches and ``DEC_FORCED`` teacher-forced
+    steps (logits and every cache tensor) on the card against the
+    port's CPU path on the same weights (drawn on the card, copied to
+    the host), within ``DEC_TOL``."""
     import copy
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import state_from_prefill
     from repro_torch.models import model as M
-    cfg = dataclasses.replace(get_config(DEC_ARCH),
-                              n_layers=DEC_XCHECK_LAYERS,
-                              param_dtype="float32", compute_dtype="float32")
+    cfg = dataclasses.replace(
+        cfg or dataclasses.replace(get_config(DEC_ARCH),
+                                   n_layers=DEC_XCHECK_LAYERS),
+        param_dtype="float32", compute_dtype="float32")
+    s_max = DEC_PROMPT + DEC_FORCED
     t0 = time.perf_counter()
-    host = M.init_params(torch.Generator().manual_seed(0), cfg,
-                         device="cpu")
-    card = copy.deepcopy(host).to(dev)
+    card = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                         max_seq=s_max, device=dev)
+    host = copy.deepcopy(card).to("cpu")
     rng = np.random.default_rng(3)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (DEC_B, DEC_PROMPT)).astype(np.int32))
+    inputs = _decode_batch(cfg, rng, batch, "cpu")
     forced = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (DEC_B, DEC_FORCED)).astype(np.int32))
+        0, cfg.vocab_size, (batch, DEC_FORCED)).astype(np.int32))
+
+    def cache_tensors(prefix, st):
+        return {f"{prefix} {c} {name} {j}": a.clone()
+                for c, layer in enumerate(st.caches)
+                for name, cache in layer.items()
+                for j, a in enumerate(cache)}
+
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2376,19 +2451,15 @@ def _decode_xcheck(dev, errs):
     try:
         outs = []
         for params, d in ((card, dev), (host, "cpu")):
-            last, st = M.prefill(params, cfg, {"tokens": tokens.to(d)})
-            st = state_from_prefill(cfg, st, DEC_PROMPT + DEC_FORCED)
-            got = {"prefill": last}
-            for c, layer in enumerate(st.caches):
-                got[f"padded cache {c}"] = torch.cat(
-                    [layer["self"].k.clone(), layer["self"].v.clone()])
+            last, st = M.prefill(params, cfg, {k: v.to(d)
+                                               for k, v in inputs.items()})
+            st = state_from_prefill(cfg, st, s_max)
+            got = {"prefill": last, **cache_tensors("padded cache", st)}
             for i in range(DEC_FORCED):
                 lg, st = M.decode_step(params, cfg, st,
                                        forced[:, i:i + 1].to(d))
                 got[f"step {i}"] = lg[:, 0]
-            for c, layer in enumerate(st.caches):
-                got[f"cache {c}"] = torch.cat([layer["self"].k,
-                                               layer["self"].v])
+            got.update(cache_tensors("cache", st))
             outs.append({k: v.cpu() for k, v in got.items()})
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
@@ -2400,39 +2471,45 @@ def _decode_xcheck(dev, errs):
         try:
             torch.testing.assert_close(got, want, **DEC_TOL)
         except AssertionError as e:
-            raise PhaseError(f"decode cross-check {name}: card != CPU path "
+            raise PhaseError(f"{what} cross-check {name}: card != CPU path "
                              f"within {DEC_TOL}: {e}") from None
-    errs["decode_model"] = max(worst.values())
-    print(f"[decode] {cfg.name} at full width, {cfg.n_layers} layers, f32, "
-          f"TF32 off: prefill logits, padded caches and {DEC_FORCED} "
-          f"teacher-forced steps, card == CPU path within {DEC_TOL}; max "
-          f"abs err " + json.dumps(worst) + f" ({time.perf_counter() - t0:.3f}"
-          " s)")
+    errs[key] = max(worst.values())
+    top = dict(sorted(worst.items(), key=lambda kv: -kv[1])[:8])
+    print(f"[{what}] {cfg.name} at full width, {cfg.n_layers} layers"
+          + (f" + {cfg.n_encoder_layers} encoder layers over "
+             f"{cfg.encoder_seq} frames" if cfg.is_encoder_decoder else "")
+          + f", batch {batch}, f32, TF32 off: prefill logits, padded "
+          f"caches and {DEC_FORCED} teacher-forced steps ({len(worst)} "
+          f"tensors), card == CPU path within {DEC_TOL}; max abs err "
+          f"{errs[key]}, largest " + json.dumps(top)
+          + f" ({time.perf_counter() - t0:.3f} s)")
 
 
-def _decode_kernels(scores, errs):
-    """The kernels at the decode's shapes, bit-equal to their plain
-    versions: the top-k over the 16 peers' shards (64, 9,600), as the
-    (4, 16, 9,600) view the FD step hands it, and over the whole row
-    (4, 153,600); the merge on each halving round's (4, 16, 20) lists,
-    the non-receivers masked to -inf / -1, into outputs filled with NaN.
-    """
+def _decode_kernels(scores, errs, what="decode"):
+    """The kernels at a decode's shapes, bit-equal to their plain
+    versions: the top-k over the 16 peers' shards (64, V_pad / 16; for
+    qwen2-0.5b (64, 9,600)), as the (4, 16, V_pad / 16) view the FD step
+    hands it, and over the whole row (4, V_pad); the merge on each
+    halving round's (4, 16, 20) lists, the non-receivers masked to
+    -inf / -1, into outputs filled with NaN."""
     import torch
     from repro_torch.core import fd
     from repro_torch.core import mesh as mesh_mod
     from repro_torch.kernels.merge import merge_ref
     from repro_torch.kernels.merge.merge import merge_cuda
     from repro_torch.kernels.topk import topk_cuda, topk_ref
-    local = scores.view(DEC_B, DEC_P, -1)
-    n = 0
-    for what, x in (("the peers' shards", local.reshape(DEC_B * DEC_P, -1)),
+    b = scores.shape[0]
+    local = scores.view(b, DEC_P, -1)
+    n, shapes = 0, []
+    for part, x in (("the peers' shards", local.reshape(b * DEC_P, -1)),
                     ("the (B, P, n) view", local), ("the whole row", scores)):
         v1, i1 = topk_cuda(x, DEC_K)
         v2, i2 = topk_ref(x, DEC_K)
         errs["topk"] = max(errs["topk"], _max_abs_err(v1, v2))
         _require(_same(v1, v2) and _same(i1, i2),
-                 f"topk at the decode's {what} {tuple(x.shape)}: kernel != "
+                 f"{what}: topk at {part} {tuple(x.shape)}: kernel != "
                  "plain version")
+        shapes.append(tuple(x.shape))
         n += 1
     vals, idx = fd._local_lists(local, DEC_K)
     masked = 0
@@ -2440,18 +2517,127 @@ def _decode_kernels(scores, errs):
         pv = torch.where(recv[:, None], mesh_mod.ppermute(vals, perm),
                          float("-inf"))
         pi = torch.where(recv[:, None], mesh_mod.ppermute(idx, perm), -1)
-        masked += int((~recv).sum()) * DEC_B
+        masked += int((~recv).sum()) * b
         got = merge_cuda(vals, idx, pv, pi,
                          out=_nan_out(vals.shape, vals.dtype, vals.device))
         want = merge_ref(vals, idx, pv, pi)
         errs["merge"] = max(errs["merge"], _max_abs_err(got[0], want[0]))
         _require(_same(got[0], want[0]) and _same(got[1], want[1]),
-                 f"merge at the decode's {tuple(vals.shape)} lists: kernel "
+                 f"{what}: merge at {tuple(vals.shape)} lists: kernel "
                  "!= plain version")
         vals, idx = want
         n += 1
-    print(f"[decode] {n} kernel checks at the decode's shapes bit-equal to "
-          f"the plain versions ({masked} masked lists)")
+    print(f"[{what}] {n} kernel checks bit-equal to the plain versions: "
+          f"top-k at {shapes}, merge at {tuple(vals.shape)} ({masked} "
+          "masked lists)")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the attention variants on the card
+# ---------------------------------------------------------------------------
+
+# the same decode command for each variant: MLA and the encoder-decoder
+# at full size through the CLI; qwen2-vl-72b (145.46 GB in bf16) at its
+# full width with its depth cut to fit one card, through the functions
+# the CLI calls
+VAR_CLI = ("minicpm3-4b", "whisper-large-v3")
+VAR_VL, VAR_VL_LAYERS = "qwen2-vl-72b", 4
+# the f32 cross-checks at full width: (layers, encoder layers, batch);
+# qwen2-vl at batch 4, not 1: at batch 1 the CPU path's own 8,192-wide
+# f32 products (one row: a less exact matrix-vector route) miss rtol
+# 1e-4 / atol 1e-5 against an f64 run (tools/decode_xcheck_error.py)
+VAR_XCHECK = {"minicpm3-4b": (2, 0, DEC_B), "whisper-large-v3": (2, 2, DEC_B),
+              VAR_VL: (1, 0, DEC_B)}
+# decode steps in each variant's profiled window
+VAR_PROFILE_STEPS = 2
+
+
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _decode_functions(dev, card, _build, cfg, what):
+    """The decode CLI's steps through the functions it calls
+    (``init_params``, ``prefill``, ``state_from_prefill``,
+    ``make_serve_step``) for a ``cfg`` the CLI cannot name (a cut
+    depth), checked by :func:`_check_decode_run`.  Returns (launches,
+    numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import state_from_prefill
+    from repro_torch.models import model as M
+    from repro_torch.runtime.steps import make_serve_step
+    s_max = DEC_PROMPT + DEC_GEN
+    _build.reset_launches()              # count this run alone
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(DEC_P, device=dev, cfg=cfg)
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                           max_seq=s_max, device=dev)
+    batch = _decode_batch(cfg, np.random.default_rng(0), DEC_B, dev)
+    step = make_serve_step(cfg, mesh, k=DEC_K)
+    t1 = time.perf_counter()
+    last, pst = M.prefill(params, cfg, batch)
+    state = state_from_prefill(cfg, pst, s_max)
+    tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t1
+    gen = torch.Generator(dev).manual_seed(1)
+    out = [tok]
+    t1 = time.perf_counter()
+    for _ in range(DEC_GEN - 1):
+        tok, state = step(params, state, tok, gen)
+        out.append(tok)
+    toks = torch.cat(out, dim=1).cpu().numpy()
+    t_decode = time.perf_counter() - t1
+    launches = dict(_build.LAUNCHES)
+    print(f"[{what}] launches " + json.dumps(launches))
+    res = {"prefill_s": t_prefill, "decode_s": t_decode,
+           "tok_per_s": (DEC_GEN - 1) * DEC_B / t_decode,
+           "main_s": time.perf_counter() - t0,
+           **_check_decode_run(what, cfg, toks, launches)}
+    print(f"[{what}] {cfg.name} at {cfg.n_layers} layers "
+          + json.dumps(res) + f"; {card}")
+    return launches, res
+
+
+def _variants(dev, card, errs, _build):
+    """Phase 12: minicpm3-4b (MLA) and whisper-large-v3 (encoder,
+    cross attention, learned positions) through the decode CLI at full
+    size, qwen2-vl-72b (M-RoPE, the vision stub) at full width and
+    ``VAR_VL_LAYERS`` layers through the CLI's functions; each timed and
+    profiled (:func:`_decode_model`), held in f32 to the CPU path
+    (:func:`_decode_xcheck`) and its kernels to their plain versions at
+    its shapes (:func:`_decode_kernels`).  Returns (launches by path,
+    one step's f32 scores by arch)."""
+    from repro_torch.configs.base import get_config
+    launches, scores = {}, {}
+    for arch in VAR_CLI + (VAR_VL,):
+        t0 = time.perf_counter()
+        what = f"variants {arch}"
+        cfg = get_config(arch)
+        if arch == VAR_VL:
+            cfg = dataclasses.replace(cfg, n_layers=VAR_VL_LAYERS)
+            launches[f"variants_{arch}"], _ = _decode_functions(
+                dev, card, _build, cfg, what)
+        else:
+            launches[f"variants_{arch}"], _ = _decode_cli(card, _build, arch,
+                                                          what)
+        _free_card()
+        scores[arch], _ = _decode_model(dev, card, cfg, what,
+                                        VAR_PROFILE_STEPS)
+        _free_card()
+        layers, enc_layers, batch = VAR_XCHECK[arch]
+        _decode_xcheck(dev, errs, dataclasses.replace(
+            cfg, n_layers=layers, n_encoder_layers=enc_layers),
+            batch, f"variants_{arch}", what)
+        _free_card()
+        _decode_kernels(scores[arch], errs, what)
+        print(f"[{what}] {time.perf_counter() - t0:.3f} s")
+    return launches, scores
 
 
 # ---------------------------------------------------------------------------
@@ -2804,22 +2990,24 @@ def _topk_shape(what, x, errs):
     return row
 
 
-def _topk_row(scores, dec_scores, errs, launches):
+def _topk_row(scores, dec_scores, errs, launches, var_scores):
     """The top-k at the device path's three shapes: local execution of
     the 32 queries on 64 peers, CN over the full rows, CN* over the
     gathered k-lists; each held to its plain version, then timed.  The
     decode's two shapes (its 16 peers' shards, and the whole row at one
-    peer) are timed the same way under ``decode_shapes``, outside the
-    row's sums."""
+    peer), qwen2-0.5b's and each variant's (``var_scores``), are timed
+    the same way under ``decode_shapes``, outside the row's sums."""
     from repro_torch.kernels.topk import topk_cuda
     lists = topk_cuda(scores.view(DEV_B, DEV_PEERS, DEV_LOCAL), DEV_K)[0]
     shapes = (("local execution", scores.view(DEV_B * DEV_PEERS, DEV_LOCAL)),
               ("CN", scores),
               ("CN*", lists.reshape(DEV_B, DEV_PEERS * DEV_K)))
     per = [_topk_shape(what, x, errs) for what, x in shapes]
-    decode = [_topk_shape(what, x, errs) for what, x in (
-        ("decode, 16 peers' shards", dec_scores.reshape(DEC_B * DEC_P, -1)),
-        ("decode, one peer", dec_scores))]
+    decode = [_topk_shape(f"{arch} decode, {part}", x, errs)
+              for arch, sc in ((DEC_ARCH, dec_scores), *var_scores.items())
+              for part, x in (("16 peers' shards",
+                               sc.reshape(sc.shape[0] * DEC_P, -1)),
+                              ("one peer", sc))]
     by_path = {path: n["topk"] for path, n in launches.items()}
     t_bytes = sum(r["bytes"] for r in per) / MEM_BYTES_PER_S * 1e3
     t_ops = sum(math.prod(r["shape"]) for r in per) / OPS32_PER_S * 1e3
@@ -2903,22 +3091,33 @@ def kernels_by_tag(calls, reps=10):
     lacks drops out of its own range only and a kernel of no range is
     left out.  Returns {tag: {kernel name: [us, ...]}} (shared with
     tools/)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     for fn in calls:
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in calls:
-                fn()
-        torch.cuda.synchronize()
+    prof = _profiled(lambda: [fn() for _ in range(reps) for fn in calls])
     per = {}
     for tag, name, _, dur in _trace_kernels(prof)[0]:
         if tag is not None:
             per.setdefault(tag, {}).setdefault(name, []).append(dur)
     return per
+
+
+def _kernels_of(fn, n, reps=10, tries=3):
+    """(kernel name, device us) of each kernel, in launch order, that
+    ``reps`` calls of ``fn`` launch, from a profiler window that holds
+    nothing else.  Read from the kernel records alone, not joined to
+    their launches (late in a long run on the H100 the trace lacks some
+    launch records).  A window without ``n`` kernels is taken again, up
+    to ``tries`` windows; the last one is returned."""
+    fn()
+    for attempt in range(1, tries + 1):
+        ks = [(name, dur) for _, name, _, dur in sorted(
+            _trace_kernels(_profiled(lambda: [fn() for _ in range(reps)]))[0],
+            key=lambda k: k[2]) if name != _MARKER]
+        if len(ks) == n:
+            break
+        print(f"[times] profiler window {attempt} of {tries} saw {len(ks)} "
+              f"kernels of {n}")
+    return ks
 
 
 # the select routes' shapes: local execution of the device path's
@@ -2971,10 +3170,10 @@ def _sort_ms(x, k, reps=10):
     torch.cuda.synchronize()
     _require(_same(vo, v) and _same(io, topk_ref(x, k)[1]),
              f"topk select sort at k={k}: != topk_ref")
-    per = kernels_by_tag([tagged("sort", call)], reps).get("sort", {})
-    n = sum(len(us) for us in per.values())
-    _require(n == reps, f"topk select sort: {n} kernels in {reps} calls")
-    return sum(map(sum, per.values())) / reps / 1e3
+    ks = _kernels_of(call, reps, reps)
+    _require(len(ks) == reps,
+             f"topk select sort: {len(ks)} kernels in {reps} calls")
+    return sum(us for _, us in ks) / reps / 1e3
 
 
 def _topk_select_row(scores, errs, launches):
@@ -3003,20 +3202,17 @@ def _topk_select_row(scores, errs, launches):
         p2 = _cuda_ms(lambda: topk_ref(x, k))
         lib = _cuda_ms(lambda: torch.topk(x, k, dim=-1))
         reps = 10
-        seen = kernels_by_tag([tagged("kernel", lambda: topk_cuda(x, k)),
-                               tagged("library",
-                                      lambda: torch.topk(x, k, dim=-1))],
-                              reps)
-        kern = {n: sum(us) for n, us in seen.get("kernel", {}).items()}
-        n_kern = sum(len(us) for us in seen.get("kernel", {}).values())
         want = _SELECT_KERNELS[route]
-        _require(n_kern == reps * len(want) and set(kern) == set(want),
+        ks = _kernels_of(lambda: topk_cuda(x, k), reps * len(want), reps)
+        kern = {}
+        for name, us in ks:
+            kern[name] = kern.get(name, 0.0) + us
+        _require(len(ks) == reps * len(want) and set(kern) == set(want),
                  f"topk select at the {what} shape, k={k}: the profiler saw "
-                 f"{n_kern} kernels {sorted(kern)} in {reps} calls, the "
+                 f"{len(ks)} kernels {sorted(kern)} in {reps} calls, the "
                  f"{route} route launches {want} once each")
         dev_ms = sum(kern.values()) / reps / 1e3
-        lib_us = [sum(us) for us in seen.get("library", {}).values()]
-        lib_dev = sum(lib_us) / reps / 1e3 if lib_us else None
+        lib_dev = _device_ms(lambda: torch.topk(x, k, dim=-1), reps=reps)
         # each score read once, each (value, index) written once
         nbytes = x.numel() * x.element_size() + x.shape[0] * k * 8
         t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
@@ -3122,12 +3318,16 @@ def main() -> int:
     _decode_xcheck(dev, errs)
     _decode_kernels(dec_scores, errs)
     print(f"[phase 11] {time.perf_counter() - t0:.3f} s")
+    _free_card()
+    t0 = time.perf_counter()
+    var_launches, var_scores = _variants(dev, card, errs, _build)
+    print(f"[phase 12] {time.perf_counter() - t0:.3f} s")
 
     launches = {"serve": serve_launches, "serve_churn": churn_launches,
                 "device": dev_launches, "topologies": topo_launches,
                 **prec_launches, "overlay": overlay_launches,
                 "cli": cli_launches, "shard": shard_launches,
-                "decode": decode_launches}
+                "decode": decode_launches, **var_launches}
     # phase 3b extended origin 0's slices with the reroute tables
     rr = _device_slices(engine.plan.depth_slices(sts[0]), dev)[2]
     _require(rr is not None, "phase 3b built no reroute tables")
@@ -3136,7 +3336,7 @@ def main() -> int:
     for row in rows:
         if row["name"] in by_dtype:
             row["by_dtype"] = by_dtype[row["name"]]
-    rows.append(_topk_row(scores, dec_scores, errs, launches))
+    rows.append(_topk_row(scores, dec_scores, errs, launches, var_scores))
     rows.append(_topk_select_row(scores, errs, launches))
     print(card)
     print(json.dumps({"kernels": rows}))

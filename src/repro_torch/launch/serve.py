@@ -44,13 +44,16 @@ def _require_device(device: str, what: str) -> None:
 
 
 def state_from_prefill(cfg, prefill_state, s_max: int, cache_dtype=None):
-    """Convert prompt-length caches into pre-sized decode caches: each
-    layer's ``KVCache`` padded with zeros (or trimmed) to ``s_max`` along
-    its sequence dim and cast to ``cache_dtype`` (f32 by default).  The
-    reference's window and MLA conversions wait for those slices."""
+    """Convert prompt-length caches into pre-sized decode caches, cast
+    to ``cache_dtype`` (f32 by default): each layer's self-attention
+    cache (``KVCache``, or MLA's ``MLACache``) padded with zeros (or
+    trimmed) to ``s_max`` along its sequence dim.  An encoder-decoder's
+    ``"cross"`` cache holds the encoder's frames, not the prompt, and
+    is kept whole (the reference pads or trims it to ``s_max`` too, so
+    its decode attends to other frames).  The reference's window
+    conversion waits for the Griffin slice."""
     import torch
 
-    from repro_torch.models import attention as A
     from repro_torch.models import model as M
 
     if cache_dtype is None:
@@ -60,11 +63,15 @@ def state_from_prefill(cfg, prefill_state, s_max: int, cache_dtype=None):
         cur = a.shape[1]
         if cur >= s_max:
             return a[:, :s_max].to(cache_dtype)
-        return torch.nn.functional.pad(
-            a, (0, 0, 0, 0, 0, s_max - cur)).to(cache_dtype)
+        pad = [0, 0] * (a.dim() - 2) + [0, s_max - cur]
+        return torch.nn.functional.pad(a, pad).to(cache_dtype)
 
-    caches = [{key: A.KVCache(pad_seq(c.k), pad_seq(c.v))
-               for key, c in layer.items()}
+    def conv(key, c):
+        if key == "cross":
+            return type(c)(*(a.to(cache_dtype) for a in c))
+        return type(c)(*(pad_seq(a) for a in c))
+
+    caches = [{key: conv(key, c) for key, c in layer.items()}
               for layer in prefill_state.caches]
     return M.DecodeState(caches, prefill_state.pos)
 

@@ -1,7 +1,10 @@
-"""GQA attention of the port: train, prefill and decode, on one blocked
-online-softmax core (``flash_attention``) as in the reference.
+"""Attention token mixers of the port: GQA (+QKV bias, M-RoPE), MLA, and
+encoder / cross attention, on one blocked online-softmax core
+(``flash_attention``) as in the reference.
 
-Shapes follow (B, S, H, Dh); a layer's KV cache is (B, S_max, H_kv, Dh).
+Shapes follow (B, S, H, Dh); a layer's KV cache is (B, S_max, H_kv, Dh),
+an MLA layer's (B, S_max, kv_lora_rank) and (B, S_max, qk_rope_dim), a
+cross-attention layer's (B, S_enc, H_kv, Dh) over the encoder's frames.
 
 The reference's ``flash_attention`` is plain ``jnp`` (a scan over kv
 blocks), not Pallas; the port keeps its numerics: scores in f32, per kv
@@ -12,8 +15,9 @@ and is not used here.
 
 Decode writes the caches IN PLACE (``cache[:, pos] = new``): the same
 bits as the reference's select against an iota, which returns a new
-cache that its serve step donates.  MLA, the window ring-buffer cache
-(``gqa_decode_window``) and cross attention wait for later slices.
+cache that its serve step donates.  The window ring-buffer cache
+(``WindowKVCache``, ``gqa_decode_window``) waits for the Griffin slice,
+the one arch that sets ``local_window``.
 """
 from __future__ import annotations
 
@@ -21,8 +25,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.layers import dense_init
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.layers import apply_norm, dense_init, norm_init
+from repro_torch.models.rope import apply_mrope, apply_rope
 
 NEG_INF = -1e30
 
@@ -112,7 +116,7 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
 
 
 # --------------------------------------------------------------------------
-# GQA attention (MHA, MQA, local window)
+# GQA attention (MHA, MQA, local window, M-RoPE, cross attention)
 # --------------------------------------------------------------------------
 
 def gqa_init(gen: torch.Generator, cfg, dtype) -> dict:
@@ -134,54 +138,168 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+def _rotate_qk(q, k, cfg, positions):
+    """q and k rotated by RoPE, or by M-RoPE over (3, B, S) positions
+    where ``cfg.mrope_sections`` is set; unrotated unless
+    ``cfg.pos_kind == "rope"``."""
+    if cfg.pos_kind != "rope":
+        return q, k
+    if cfg.mrope_sections is not None:
+        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _proj(params, x, name, heads, hd):
+    """``x @ w_<name> (+ b_<name>)`` as (B, S, heads, hd)."""
+    y = x @ params[f"w_{name}"]
+    if f"b_{name}" in params:
+        y = y + params[f"b_{name}"]
+    return y.reshape(x.shape[0], x.shape[1], heads, hd)
+
+
 def _qkv(params, x, cfg, positions):
     """The rotated q (B, S, Hq, Dh) and k, v (B, S, Hkv, Dh) of ``x``."""
-    b, s, _ = x.shape
     hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = x @ params["w_q"]
-    k = x @ params["w_k"]
-    v = x @ params["w_v"]
-    if "b_q" in params:
-        q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
-    q = q.reshape(b, s, nq, hd)
-    k = k.reshape(b, s, nkv, hd)
-    v = v.reshape(b, s, nkv, hd)
-    if cfg.pos_kind == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q = _proj(params, x, "q", nq, hd)
+    k = _proj(params, x, "k", nkv, hd)
+    v = _proj(params, x, "v", nkv, hd)
+    q, k = _rotate_qk(q, k, cfg, positions)
     return q, k, v
 
 
 def gqa_attention(params, x, cfg, *, positions, mode: str,
                   cache: Optional[KVCache] = None, cache_pos=None,
-                  window: int = 0, q_block: int = 1024,
+                  kv_source=None, window: int = 0, q_block: int = 1024,
                   kv_block: int = 1024):
-    """GQA attention for train / prefill / decode.
+    """GQA attention for train / prefill / decode / encode, and cross
+    attention when ``kv_source`` is given.
 
-    x: (B, S, D); positions: (B, S).  decode mode: S == 1, ``cache``
-    holds S_max slots and ``cache_pos`` (an int) is the write position;
-    the cache is written in place.  Returns (y, new_cache): the prompt's
-    KVCache in prefill, the written cache in decode, None in train.
+    x: (B, S, D); positions: (B, S), or (3, B, S) under M-RoPE.  decode
+    mode: S == 1, ``cache`` holds S_max slots and ``cache_pos`` (an int)
+    is the write position; the cache is written in place.  ``"encode"``
+    is train without the causal mask.  With ``kv_source`` (B, S_enc, D),
+    k and v are projected from it, unrotated, and attended without a
+    mask (cross decode is :func:`cross_decode`).  Returns (y,
+    new_cache): the prompt's KVCache in prefill, the encoder's KVCache
+    under cross attention, the written cache in decode, None in train
+    and encode.
     """
     b, s, _ = x.shape
-    q, k, v = _qkv(params, x, cfg, positions)
-    new_cache = None
-    if mode == "decode":
-        if cache is None:
-            raise ValueError("gqa_attention: decode needs a cache")
-        ck = _masked_cache_write(cache.k, k, cache_pos)
-        cv = _masked_cache_write(cache.v, v, cache_pos)
-        new_cache = KVCache(ck, cv)
-        k, v = ck, cv
-        q_offset, kv_valid, causal = cache_pos, cache_pos + 1, False
+    if kv_source is not None:
+        if mode == "decode":
+            raise ValueError("gqa_attention: cross decode is cross_decode")
+        hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
+        q = _proj(params, x, "q", cfg.n_heads, hd)
+        k = _proj(params, kv_source, "k", nkv, hd)
+        v = _proj(params, kv_source, "v", nkv, hd)
+        new_cache = KVCache(k, v)
+        q_offset, kv_valid, causal, window = 0, None, False, 0
     else:
-        q_offset, kv_valid, causal = 0, None, mode != "encode"
-        if mode == "prefill":
-            new_cache = KVCache(k, v)
+        q, k, v = _qkv(params, x, cfg, positions)
+        new_cache = None
+        if mode == "decode":
+            if cache is None:
+                raise ValueError("gqa_attention: decode needs a cache")
+            ck = _masked_cache_write(cache.k, k, cache_pos)
+            cv = _masked_cache_write(cache.v, v, cache_pos)
+            new_cache = KVCache(ck, cv)
+            k, v = ck, cv
+            q_offset, kv_valid, causal = cache_pos, cache_pos + 1, False
+        else:
+            q_offset, kv_valid, causal = 0, None, mode != "encode"
+            if mode == "prefill":
+                new_cache = KVCache(k, v)
     y = flash_attention(q, k, v, causal=causal, window=window,
                         q_offset=q_offset, kv_valid_len=kv_valid,
                         q_block=q_block, kv_block=kv_block)
     y = y.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
+    return y @ params["w_o"], new_cache
+
+
+# --------------------------------------------------------------------------
+# MLA: multi-head latent attention (MiniCPM3 / DeepSeek-V2)
+# --------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg, dtype) -> dict:
+    m = cfg.mla
+    d, h, dev = cfg.d_model, cfg.n_heads, gen.device
+    return {
+        "w_dq": dense_init(gen, d, m.q_lora_rank, dtype),
+        "q_norm": norm_init(m.q_lora_rank, "rms", dtype, dev),
+        "w_uq": dense_init(gen, m.q_lora_rank,
+                           h * (m.qk_nope_dim + m.qk_rope_dim), dtype),
+        "w_dkv": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_dim, dtype),
+        "kv_norm": norm_init(m.kv_lora_rank, "rms", dtype, dev),
+        "w_uk": dense_init(gen, m.kv_lora_rank, h * m.qk_nope_dim, dtype),
+        "w_uv": dense_init(gen, m.kv_lora_rank, h * m.v_head_dim, dtype),
+        "w_o": dense_init(gen, h * m.v_head_dim, d, dtype,
+                          scale=(h * m.v_head_dim) ** -0.5),
+    }
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor    # (B, S_max, kv_lora_rank), after kv_norm
+    k_rope: torch.Tensor  # (B, S_max, qk_rope_dim), rotated
+
+
+def mla_attention(params, x, cfg, *, positions, mode: str,
+                  cache: Optional[MLACache] = None, cache_pos=None,
+                  q_block: int = 1024, kv_block: int = 1024):
+    """MLA: latent-compressed KV.  Train / prefill expand to the
+    multi-head form (q and k of nope + rope dims, the rope part of k
+    shared by the heads) through ``flash_attention``; decode uses the
+    absorbed form in f32 (``q_nope . W_uk`` against the latent cache),
+    so the cache stays (kv_lora + rope) wide, and writes both caches in
+    place.  Returns (y, the prompt's MLACache in prefill, the written
+    cache in decode, None in train)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+
+    cq = apply_norm(params["q_norm"], x @ params["w_dq"], "rms")
+    q = (cq @ params["w_uq"]).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+
+    dkv = x @ params["w_dkv"]                                 # (B,S,rank+dr)
+    c_kv = apply_norm(params["kv_norm"], dkv[..., :m.kv_lora_rank], "rms")
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(dkv[..., m.kv_lora_rank:][:, :, None, :], positions,
+                        cfg.rope_theta)                       # (B,S,1,dr)
+
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("mla_attention: decode needs a cache")
+        cc = _masked_cache_write(cache.c_kv, c_kv, cache_pos)
+        cr = _masked_cache_write(cache.k_rope, k_rope[:, :, 0], cache_pos)
+        s_max = cc.shape[1]
+        ccf = cc.float()
+        # absorbed: q_abs[b, 1, h, r] = q_nope . W_uk(r, h, dn)
+        w_uk = params["w_uk"].reshape(m.kv_lora_rank, h, dn).float()
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope.float(), w_uk)
+        scores = torch.einsum("bshr,btr->bhst", q_abs, ccf)
+        scores = scores + torch.einsum("bshd,btd->bhst", q_rope.float(),
+                                       cr.float())
+        scores = scores * (dn + dr) ** -0.5
+        valid = (torch.arange(s_max, device=x.device)
+                 <= cache_pos)[None, None, None]
+        p = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", p, ccf)
+        w_uv = params["w_uv"].reshape(m.kv_lora_rank, h, dv).float()
+        y = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
+        y = y.reshape(b, s, h * dv).to(x.dtype)
+        return y @ params["w_o"], MLACache(cc, cr)
+
+    k_nope = (c_kv @ params["w_uk"]).reshape(b, s, h, dn)
+    v = (c_kv @ params["w_uv"]).reshape(b, s, h, dv)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    new_cache = MLACache(c_kv, k_rope[:, :, 0]) if mode == "prefill" else None
+    y = flash_attention(q_full, k, v, causal=True, q_block=q_block,
+                        kv_block=kv_block)
+    y = y.reshape(b, s, h * dv)
     return y @ params["w_o"], new_cache
 
 
@@ -236,3 +354,16 @@ def gqa_decode(params, x, cfg, *, cache: KVCache, cache_pos: int,
     y = _plain_decode_attn(q, ck, cv, mask)
     y = y.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
     return y @ params["w_o"], KVCache(ck, cv)
+
+
+def cross_decode(params, x, cfg, *, cache: KVCache):
+    """Cross-attention decode: the encoder's KV from prefill, static and
+    unmasked.  Returns (y (B, 1, D), the cache)."""
+    b = x.shape[0]
+    hd, nq = cfg.resolved_head_dim, cfg.n_heads
+    q = _proj(params, x, "q", nq, hd)
+    mask = torch.ones((1, 1, 1, cache.k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    y = _plain_decode_attn(q, cache.k, cache.v, mask)
+    y = y.reshape(b, 1, nq * hd)
+    return y @ params["w_o"], cache

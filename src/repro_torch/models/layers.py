@@ -19,9 +19,13 @@ from torch import nn
 
 def param_dict(tensors: dict) -> nn.ParameterDict:
     """``tensors`` as frozen parameters: the port serves, and no slice
-    trains yet."""
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tensors.items()})
+    trains yet.  A nested dict (MLA's ``q_norm``) becomes a nested
+    ``ParameterDict``, so ``params["q_norm"]["scale"]`` reads as the
+    reference's pytree does."""
+    return nn.ParameterDict({
+        k: param_dict(v) if isinstance(v, dict)
+        else nn.Parameter(v, requires_grad=False)
+        for k, v in tensors.items()})
 
 
 # --------------------------------------------------------------------------

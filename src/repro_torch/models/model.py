@@ -1,4 +1,4 @@
-"""The port's model API for the dense GQA architectures.
+"""The port's model API for the attention architectures.
 
 One parameter module (:class:`LM`) and the reference's entry points:
 
@@ -6,6 +6,7 @@ One parameter module (:class:`LM`) and the reference's entry points:
     from an explicit ``torch.Generator``, on the card by default
   * ``forward(params, cfg, batch, mode=...)`` — logits (and the prompt's
     caches in prefill)
+  * ``encode(params, cfg, frames)`` — the encoder of an encoder-decoder
   * ``prefill(params, cfg, batch)`` — last logits + a ``DecodeState``
   * ``decode_step(params, cfg, state, tokens)`` — one token; writes the
     caches in place (the reference's serve step donates them)
@@ -14,10 +15,16 @@ One parameter module (:class:`LM`) and the reference's entry points:
     compute the same function
 
 This slice runs the dense GQA configs (qwen2-0.5b, qwen1.5-0.5b,
-phi3-medium-14b and their smoke configs); :func:`check_ported` refuses
-every other with ``NotImplementedError``, naming what is missing.  The
-reference's third output of ``forward`` (MoE's auxiliary loss) and
-``loss_fn`` wait for the MoE and training slices.
+phi3-medium-14b), MLA (minicpm3-4b), the encoder-decoder with cross
+attention and learned positions (whisper-large-v3) and M-RoPE with the
+vision stub (qwen2-vl-72b), and their smoke configs; :func:`check_ported`
+refuses MoE, the recurrent mixers and sliding-window attention with
+``NotImplementedError``, naming what is missing.  The modality
+frontends are stubs, as in the reference: whisper consumes precomputed
+frame embeddings (B, encoder_seq, D), qwen2-vl precomputed patch
+embeddings over the first n_vis slots.  The reference's third output
+of ``forward`` (MoE's auxiliary loss) and ``loss_fn`` wait for the MoE
+and training slices.
 
 The logits cover every row of ``cfg.padded_vocab()``, and the padding
 rows of the embedding are random like the rest, as in the reference;
@@ -25,7 +32,7 @@ so the sampler can emit an id >= ``cfg.vocab_size``.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mesh import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.rope import sinusoidal_embedding
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -46,12 +54,9 @@ def _dt(cfg: ModelConfig):
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming ``cfg`` and what of it the
-    port lacks, unless it is a dense GQA config this slice runs."""
+    port lacks: MoE, the recurrent mixers (RWKV, Griffin) and
+    sliding-window attention."""
     missing = []
-    if cfg.family != "dense":
-        missing.append(f"family {cfg.family!r}")
-    if cfg.attn_kind != "gqa":
-        missing.append(f"attn_kind {cfg.attn_kind!r}")
     if cfg.moe is not None:
         missing.append("MoE")
     if cfg.recurrent is not None or any(k != "attn"
@@ -59,33 +64,42 @@ def check_ported(cfg: ModelConfig) -> None:
         missing.append(f"recurrent mixers {cfg.mixer_pattern}")
     if cfg.local_window:
         missing.append("sliding-window attention")
-    if cfg.mrope_sections is not None:
-        missing.append("M-RoPE")
-    if cfg.is_encoder_decoder:
-        missing.append("the encoder-decoder stack")
-    if cfg.pos_kind != "rope":
-        missing.append(f"pos_kind {cfg.pos_kind!r}")
-    if cfg.act not in ("swiglu", "gelu"):
-        missing.append(f"act {cfg.act!r}")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
-            "yet (this slice runs the dense GQA configs)")
+            "yet (this slice runs the attention archs: dense GQA, MLA, "
+            "the encoder-decoder, M-RoPE)")
+
+
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder: ``layers`` (one
+    :class:`~transformer.Block` a layer) and its ``norm_f``."""
+
+    def __init__(self, layers: List[T.Block], norm_f: dict):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.norm_f = L.param_dict(norm_f)
 
 
 class LM(nn.Module):
-    """The parameters of a dense decoder LM: ``embed`` (V_pad, D),
-    ``norm_f``, ``layers`` (one :class:`~transformer.Block` a layer) and,
-    untied, ``w_lm`` (D, V_pad)."""
+    """The parameters of an LM: ``embed`` (V_pad, D), ``norm_f``,
+    ``layers`` (one :class:`~transformer.Block` a decoder layer),
+    untied ``w_lm`` (D, V_pad), learned ``pos_embed`` (max_seq, D) and
+    an encoder-decoder's ``enc`` (:class:`Encoder`); each None where the
+    config has none."""
 
     def __init__(self, embed: torch.Tensor, norm_f: dict,
-                 layers: List[T.Block], w_lm=None):
+                 layers: List[T.Block], w_lm=None, pos_embed=None,
+                 enc: Optional[Encoder] = None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.norm_f = L.param_dict(norm_f)
         self.layers = nn.ModuleList(layers)
         self.w_lm = (None if w_lm is None
                      else nn.Parameter(w_lm, requires_grad=False))
+        self.pos_embed = (None if pos_embed is None
+                          else nn.Parameter(pos_embed, requires_grad=False))
+        self.enc = enc
 
 
 # --------------------------------------------------------------------------
@@ -96,8 +110,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
                 max_seq: int = 4096, device=None) -> LM:
     """Random weights drawn from ``gen`` on ``device`` (the card unless
     the caller names another; ``gen`` must be a generator of that
-    device).  ``max_seq`` sizes a learned position table, which this
-    slice does not port."""
+    device).  ``max_seq`` sizes a learned position table."""
     check_ported(cfg)
     device = resolve_device(device, "init_params")
     if gen.device.type != device.type:
@@ -106,20 +119,49 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     dtype = _dt(cfg)
     d, v = cfg.d_model, cfg.padded_vocab()
     embed = L.embed_init(gen, v, d, dtype)
-    layers = [T.block_init(gen, cfg, kind, dtype)
+    layers = [T.block_init(gen, cfg, kind, dtype, cfg.is_encoder_decoder)
               for kind in cfg.layer_kinds()]
     w_lm = None if cfg.tie_embeddings else L.dense_init(gen, d, v, dtype)
+    pos_embed = None
+    if cfg.pos_kind == "learned":
+        pos_embed = (torch.randn((max_seq, d), generator=gen,
+                                 dtype=torch.float32, device=gen.device)
+                     * 0.01).to(dtype)
+    enc = None
+    if cfg.is_encoder_decoder:
+        enc = Encoder([T.block_init(gen, cfg, "attn", dtype)
+                       for _ in range(cfg.n_encoder_layers)],
+                      L.norm_init(d, cfg.norm, dtype, gen.device))
     return LM(embed, L.norm_init(d, cfg.norm, dtype, gen.device), layers,
-              w_lm)
+              w_lm, pos_embed, enc)
+
+
+def _stack_from_reference(stack: dict, pattern: tuple, conv) -> list:
+    """The blocks of a reference stack (``groups[slot]`` leaves stacked
+    over the layer groups, ``rem`` a list): layer ``g * len(pattern) +
+    slot`` is group g of slot ``slot``; the remainder layers follow."""
+    def index(t, g):
+        return ({k: index(v, g) for k, v in t.items()}
+                if isinstance(t, dict) else t[g])
+
+    slots = [conv(g) for g in stack["groups"]]
+    n_groups = (next(iter(slots[0]["norm1"].values())).shape[0]
+                if slots and slots[0] else 0)
+    layers = [T.Block(kind, index(slots[slot], g))
+              for g in range(n_groups)
+              for slot, kind in enumerate(pattern)]
+    for r, rem in enumerate(stack.get("rem", [])):
+        layers.append(T.Block(pattern[r % len(pattern)], conv(rem)))
+    return layers
 
 
 def params_from_reference(tree: dict, cfg: ModelConfig, *,
                           device=None) -> LM:
     """The reference's ``init_params`` pytree, its leaves as numpy
-    arrays (``dec.groups[slot]`` leaves stacked over the layer groups,
-    ``dec.rem`` a list), as an :class:`LM` on ``device`` (the card
-    unless the caller names another).  Layer ``g * len(pattern) + slot``
-    is group g of slot ``slot``; the remainder layers follow."""
+    arrays, as an :class:`LM` on ``device`` (the card unless the caller
+    names another): ``dec`` and ``enc.stack`` as blocks, ``embed``,
+    ``norm_f``, ``w_lm``, ``pos_embed`` and ``enc.norm_f`` as they are
+    (an empty ``rem`` list may be missing)."""
     check_ported(cfg)
     device = resolve_device(device, "params_from_reference")
 
@@ -128,24 +170,23 @@ def params_from_reference(tree: dict, cfg: ModelConfig, *,
             return {k: conv(v) for k, v in x.items()}
         return torch.from_numpy(np.array(x)).to(device)
 
-    dec = tree["dec"]
-    pattern = cfg.mixer_pattern
-    slots = [conv(g) for g in dec["groups"]]
-    n_groups = (next(iter(slots[0]["norm1"].values())).shape[0]
-                if slots and slots[0] else 0)
-    layers = []
-    for g in range(n_groups):
-        for slot, kind in enumerate(pattern):
-            layers.append(T.Block(kind, {
-                part: {k: t[g] for k, t in ts.items()}
-                for part, ts in slots[slot].items()}))
-    for r, rem in enumerate(dec["rem"]):
-        layers.append(T.Block(pattern[r % len(pattern)], conv(rem)))
+    layers = _stack_from_reference(tree["dec"], cfg.mixer_pattern, conv)
     if len(layers) != cfg.n_layers:
         raise ValueError(f"the tree holds {len(layers)} layers, "
                          f"{cfg.name} has {cfg.n_layers}")
+    enc = None
+    if cfg.is_encoder_decoder:
+        enc_layers = _stack_from_reference(tree["enc"]["stack"], ("attn",),
+                                           conv)
+        if len(enc_layers) != cfg.n_encoder_layers:
+            raise ValueError(f"the tree holds {len(enc_layers)} encoder "
+                             f"layers, {cfg.name} has "
+                             f"{cfg.n_encoder_layers}")
+        enc = Encoder(enc_layers, conv(tree["enc"]["norm_f"]))
     return LM(conv(tree["embed"]), conv(tree["norm_f"]), layers,
-              None if cfg.tie_embeddings else conv(tree["w_lm"]))
+              None if cfg.tie_embeddings else conv(tree["w_lm"]),
+              conv(tree["pos_embed"]) if cfg.pos_kind == "learned" else None,
+              enc)
 
 
 # --------------------------------------------------------------------------
@@ -154,14 +195,37 @@ def params_from_reference(tree: dict, cfg: ModelConfig, *,
 
 def make_positions(cfg: ModelConfig, batch: int, seq: int, offset: int = 0,
                    device=None) -> torch.Tensor:
-    """(B, S) int32 positions ``offset, offset + 1, ...``."""
+    """(B, S) int32 positions ``offset, offset + 1, ...``, or (3, B, S)
+    M-RoPE streams (text: all three equal)."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None] + offset
-    return pos.expand(batch, seq)
+    pos = pos.expand(batch, seq)
+    if cfg.mrope_sections is not None:
+        pos = pos[None].expand(3, batch, seq)
+    return pos
 
 
-def embed_tokens(params: LM, cfg: ModelConfig, tokens) -> torch.Tensor:
-    """tokens: (B, S) int32 -> (B, S, D), rows of the embedding."""
-    return torch.nn.functional.embedding(tokens, params.embed)
+def embed_tokens(params: LM, cfg: ModelConfig, tokens, *,
+                 vision_embeds=None, pos_offset: int = 0) -> torch.Tensor:
+    """tokens: (B, S) int32 -> (B, S, D), rows of the embedding.  The
+    VLM stub's ``vision_embeds`` (B, n_vis, D) overwrite the first n_vis
+    slots (all S of them, the tokens unused, where n_vis >= S); learned
+    positions add ``pos_embed[pos_offset:pos_offset + S]``, and an
+    offset past the table raises (the reference's slice would clamp)."""
+    s = tokens.shape[1]
+    if vision_embeds is not None and vision_embeds.shape[1] >= s:
+        x = vision_embeds[:, :s].to(params.embed.dtype)
+    else:
+        x = torch.nn.functional.embedding(tokens, params.embed)
+        if vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(x.dtype),
+                           x[:, vision_embeds.shape[1]:]], dim=1)
+    if cfg.pos_kind == "learned":
+        if not 0 <= pos_offset <= params.pos_embed.shape[0] - s:
+            raise IndexError(f"positions {pos_offset}..{pos_offset + s - 1} "
+                             f"outside a position table of "
+                             f"{params.pos_embed.shape[0]}")
+        x = x + params.pos_embed[pos_offset:pos_offset + s].to(x.dtype)
+    return x
 
 
 def logits_fn(params: LM, cfg: ModelConfig, x) -> torch.Tensor:
@@ -172,25 +236,51 @@ def logits_fn(params: LM, cfg: ModelConfig, x) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# encoder (whisper's stub frontend: precomputed frame embeddings)
+# --------------------------------------------------------------------------
+
+def encode(params: LM, cfg: ModelConfig, frames, *, q_block: int = 1024,
+           kv_block: int = 1024) -> torch.Tensor:
+    """frames: (B, enc_seq, D) precomputed embeddings, cast to the
+    param dtype, plus the sinusoidal table, through the encoder stack
+    (not causal, no cache) and its ``norm_f`` -> (B, enc_seq, D)."""
+    b, s, d = frames.shape
+    x = frames.to(_dt(cfg))
+    x = x + sinusoidal_embedding(s, d, x.dtype, device=x.device)[None]
+    pos = torch.arange(s, dtype=torch.int32,
+                       device=x.device)[None].expand(b, s)
+    x, _ = T.stack_apply(params.enc.layers, cfg, x, mode="encode",
+                         positions=pos, q_block=q_block, kv_block=kv_block)
+    return L.apply_norm(params.enc.norm_f, x, cfg.norm)
+
+
+# --------------------------------------------------------------------------
 # forward (train / prefill)
 # --------------------------------------------------------------------------
 
 def forward(params: LM, cfg: ModelConfig, batch: dict, *,
             mode: str = "train", q_block: int = 1024,
             kv_block: int = 1024):
-    """batch keys: tokens (B, S) int32; optional positions (B, S).
-    Returns (logits (B, S, V_pad), caches): the per-layer caches of the
-    prompt in prefill, None in train."""
+    """batch keys: tokens (B, S) int32; frames (B, enc_seq, D) for an
+    encoder-decoder; optional vision_embeds (B, n_vis, D) and positions
+    ((B, S), or (3, B, S) under M-RoPE).  Returns (logits (B, S, V_pad),
+    caches): the per-layer caches of the prompt in prefill (with the
+    encoder's cross KV), None in train."""
     check_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = batch.get("positions")
     if positions is None:
         positions = make_positions(cfg, b, s, device=tokens.device)
-    x = embed_tokens(params, cfg, tokens)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(params, cfg, batch["frames"], q_block=q_block,
+                         kv_block=kv_block)
+    x = embed_tokens(params, cfg, tokens,
+                     vision_embeds=batch.get("vision_embeds"))
     x, caches = T.stack_apply(params.layers, cfg, x, mode=mode,
-                              positions=positions, q_block=q_block,
-                              kv_block=kv_block)
+                              positions=positions, enc_out=enc_out,
+                              q_block=q_block, kv_block=kv_block)
     return logits_fn(params, cfg, x), caches
 
 
@@ -199,8 +289,11 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
 # --------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
-    caches: list          # one {"self": KVCache} a layer
-    pos: int              # the next write position
+    """``caches``: one dict a layer, ``{"self": KVCache | MLACache}``
+    and, in an encoder-decoder, ``"cross": KVCache``; ``pos``: the next
+    write position."""
+    caches: list
+    pos: int
 
 
 def init_decode_state(cfg: ModelConfig, *, batch: int, s_max: int,
@@ -224,12 +317,12 @@ def prefill(params: LM, cfg: ModelConfig, batch: dict, *,
 
 def decode_step(params: LM, cfg: ModelConfig, state: DecodeState, tokens):
     """One decode step.  tokens: (B, 1) int32.  Writes each layer's
-    cache at ``state.pos`` in place and returns (logits (B, 1, V_pad),
-    the state at ``pos + 1``)."""
+    cache at ``state.pos`` in place (the cross caches are read only) and
+    returns (logits (B, 1, V_pad), the state at ``pos + 1``)."""
     b = tokens.shape[0]
     positions = make_positions(cfg, b, 1, offset=state.pos,
                                device=tokens.device)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, pos_offset=state.pos)
     x, caches = T.stack_apply(params.layers, cfg, x, mode="decode",
                               positions=positions, caches=state.caches,
                               cache_pos=state.pos)

@@ -7,8 +7,10 @@ defaults to ``cuda`` and raises without a CUDA device, for ``overlay``,
 ``decode --smoke --device cpu`` prints the reference's two lines and
 returns the tokens (batch, gen), in process and as ``python -m``;
 ``--model-par 4`` (4 virtual peers, FD halving) samples the same tokens
-as ``--model-par 1``; an unported arch and a ``--model-par`` that does
-not divide the padded vocabulary are refused.
+as ``--model-par 1``; the same for the attention variants (minicpm3-4b:
+MLA, whisper-large-v3: the encoder-decoder, qwen2-vl-72b: M-RoPE and
+the vision stub) at their smoke configs; an unported arch and a
+``--model-par`` that does not divide the padded vocabulary are refused.
 """
 import os
 import subprocess
@@ -95,15 +97,35 @@ def test_decode_as_a_module():
     assert "sample tokens: [" in out.stdout
 
 
-@pytest.mark.parametrize("extra", [["--model-par", "4"],
-                                   ["--model-par", "4", "--schedule",
-                                    "ring"],
-                                   ["--model-par", "4", "--policy",
-                                    "cn-star"]])
+PEERS = [["--model-par", "4"], ["--model-par", "4", "--schedule", "ring"],
+         ["--model-par", "4", "--policy", "cn-star"]]
+VARIANTS = ("minicpm3-4b", "whisper-large-v3", "qwen2-vl-72b")
+
+
+@pytest.mark.parametrize("extra", PEERS)
 def test_decode_peers_sample_the_one_peer_tokens(extra):
     np.testing.assert_array_equal(
         serve_mod.main(DECODE + extra),
         serve_mod.main(DECODE + ["--model-par", "1"]))
+
+
+@pytest.mark.parametrize("arch", VARIANTS)
+def test_decode_smoke_serves_the_attention_variants(capsys, arch):
+    toks = serve_mod.main(DECODE + ["--arch", arch])
+    assert toks.shape == (2, 6) and toks.dtype == np.int32
+    cfg = smoke_config(get_config(arch))
+    assert 0 <= toks.min() and toks.max() < cfg.padded_vocab()
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"arch={arch} policy=fd-dynamic prefill 8 ")
+    assert out[1] == f"sample tokens: {toks[0, :12].tolist()}"
+
+
+@pytest.mark.parametrize("arch", VARIANTS)
+@pytest.mark.parametrize("extra", PEERS)
+def test_decode_variants_peers_sample_the_one_peer_tokens(arch, extra):
+    np.testing.assert_array_equal(
+        serve_mod.main(DECODE + ["--arch", arch] + extra),
+        serve_mod.main(DECODE + ["--arch", arch, "--model-par", "1"]))
 
 
 def test_decode_refuses_an_unported_arch():
