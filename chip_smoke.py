@@ -158,6 +158,26 @@ result line) when any phase fails:
      layers over 1,500 frames, qwen2-vl 1 layer; batch 4); the top-k
      and merge at each arch's decode shapes bit-equal to their plain
      versions; launch keys ``variants_<arch>``;
+  13. the last four archs on the card, each the same decode command at
+     full size: granite-moe-1b-a400m (MoE, 32 experts, top-8) through
+     ``serve.main(["decode", ...])``, moonshot-v1-16b-a3b (64 experts,
+     top-6, 2 shared; 57.78 GB in bf16), rwkv6-3b (RWKV-6) and
+     recurrentgemma-2b (RG-LRU and window attention, a 2,080-token
+     prompt, so its 2,048-slot ring wraps while it decodes) through the
+     CLI's functions: tokens (4, 16) inside the padded vocabulary,
+     exactly 1 + (MoE layers) top-k and 4 merge launches a step (and a
+     top-k a MoE layer in the prefill); recurrentgemma's rings holding
+     the last 2,048 positions after decode; prefill seconds, synchronised
+     steps, tok/s and a 2-step profiler window with the idle share; each
+     MoE router's top-k on the card bit-equal to ``topk_ref`` on the
+     probabilities captured from one prefill and one decode step; an f32
+     cross-check at full width with TF32 off, the card's f32 == the CPU
+     path run in f64 within rtol 1e-4, atol 1e-5 (MoE 2 layers, rwkv6-3b
+     1, recurrentgemma 3, one whole group, its window cut to 16 slots so
+     the 32-token prompt wraps it; the MoE's smallest router gap
+     printed); the sampling's top-k and merge
+     at each arch's shapes bit-equal to their plain versions; launch
+     keys ``decode_<arch>``;
   6. time each kernel (the churn variant at the churn sweep's level
      shapes) at the shapes its path gives it (CUDA events,
      median of several runs) beside its plain version, one PyTorch
@@ -180,8 +200,10 @@ result line) when any phase fails:
      held to ``topk_ref``); the top-k row also times each decode's two
      shapes at k = 20, qwen2-0.5b's and qwen2-vl-72b's (64, 9,600) and
      (4, 153,600), minicpm3-4b's (64, 4,608) and (4, 73,728),
-     whisper-large-v3's (64, 3,328) and (4, 53,248), beside
-     ``torch.topk`` (``decode_shapes``).  A profiler window that misses
+     whisper-large-v3's (64, 3,328) and (4, 53,248), and phase 13's
+     four archs', beside ``torch.topk`` (``decode_shapes``), and the MoE
+     routers' (4, 32) / (128, 32) at k = 8 and (4, 64) / (128, 64) at
+     k = 6 on captured probabilities (``router_shapes``).  A profiler window that misses
      one of the launches it should hold is taken again, up to 3 windows.
 
 The line before the last is the ``kernels`` JSON object; the last line
@@ -2217,27 +2239,30 @@ def _decode_cli(card, _build, arch=DEC_ARCH, what="decode"):
     return launches, res
 
 
-def _decode_batch(cfg, rng, batch, dev):
-    """A prompt of ``DEC_PROMPT`` tokens from ``rng`` and the modality
+def _decode_batch(cfg, rng, batch, dev, prompt=DEC_PROMPT):
+    """A prompt of ``prompt`` tokens from ``rng`` and the modality
     stubs' inputs (``extra_model_inputs``: f32 frames, f32 vision
     embeddings), on ``dev``."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import extra_model_inputs
     tokens = rng.integers(0, cfg.vocab_size,
-                          (batch, DEC_PROMPT)).astype(np.int32)
+                          (batch, prompt)).astype(np.int32)
     return {k: torch.from_numpy(v).to(dev)
             for k, v in extra_model_inputs(cfg, {"tokens": tokens}).items()}
 
 
 def _decode_model(dev, card, cfg=None, what="decode",
-                  profile_steps=DEC_PROFILE_STEPS):
-    """The CLI's model (``cfg``, qwen2-0.5b by default) and prompt built
-    again: prefill and each decode step timed with the device
-    synchronised, the CLI's unsynchronised loop, and one profiler window
-    of ``profile_steps`` steps split into the model's and the sampling's
-    device time, with the device's idle share.  Returns (one step's f32
-    scores (4, V_pad), numbers)."""
+                  profile_steps=DEC_PROFILE_STEPS, prompt=DEC_PROMPT,
+                  after=None):
+    """The CLI's model (``cfg``, qwen2-0.5b by default) and prompt
+    (``prompt`` tokens) built again: prefill and each decode step timed
+    with the device synchronised, the CLI's unsynchronised loop, and one
+    profiler window of ``profile_steps`` steps split into the model's
+    and the sampling's device time, with the device's idle share; then
+    ``after(params, batch, state, tok)``, its result under
+    ``res["after"]``.  Returns (one step's f32 scores (4, V_pad),
+    numbers)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -2247,7 +2272,7 @@ def _decode_model(dev, card, cfg=None, what="decode",
     from repro_torch.runtime.steps import (gumbel, make_serve_step,
                                            sample_topk)
     cfg = cfg or get_config(DEC_ARCH)
-    s_max = DEC_PROMPT + DEC_GEN
+    s_max = prompt + DEC_GEN
     t0 = time.perf_counter()
     params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
                            max_seq=s_max, device=dev)
@@ -2256,7 +2281,7 @@ def _decode_model(dev, card, cfg=None, what="decode",
            "params": M.count_params(params),
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters())}
-    batch = _decode_batch(cfg, np.random.default_rng(0), DEC_B, dev)
+    batch = _decode_batch(cfg, np.random.default_rng(0), DEC_B, dev, prompt)
     mesh = make_host_mesh(DEC_P, device=dev, cfg=cfg)
     step = make_serve_step(cfg, mesh, k=DEC_K)
 
@@ -2349,6 +2374,8 @@ def _decode_model(dev, card, cfg=None, what="decode",
         / res["step_ms_mean_warm"], "by_tag": split}
     print(f"[{what}] model {cfg.name}, {cfg.n_layers} layers "
           + json.dumps(res) + f"; {card}")
+    if after is not None:
+        res["after"] = after(params, batch, state, tok)
     return box["logits"][:, 0].float(), res
 
 
@@ -2411,13 +2438,17 @@ def _decode_sampling(scores):
 
 
 def _decode_xcheck(dev, errs, cfg=None, batch=DEC_B, key="decode_model",
-                   what="decode"):
+                   what="decode", exact=False):
     """``cfg`` (qwen2-0.5b at ``DEC_XCHECK_LAYERS`` layers by default;
     full width) in f32, TF32 off: prefill's last logits,
     ``state_from_prefill``'s caches and ``DEC_FORCED`` teacher-forced
     steps (logits and every cache tensor) on the card against the
     port's CPU path on the same weights (drawn on the card, copied to
-    the host), within ``DEC_TOL``."""
+    the host), within ``DEC_TOL``.  With ``exact`` the CPU path runs
+    the model cast to f64 (its products, norms and recurrences in f64;
+    ``flash_attention``'s, the decode attention's and the top-k's values
+    stay f32), so the card's f32 is held to the exact function rather
+    than to the CPU's own f32 rounding."""
     import copy
     import numpy as np
     import torch
@@ -2433,55 +2464,71 @@ def _decode_xcheck(dev, errs, cfg=None, batch=DEC_B, key="decode_model",
     card = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
                          max_seq=s_max, device=dev)
     host = copy.deepcopy(card).to("cpu")
+    host_dt = torch.float64 if exact else torch.float32
+    host = host.to(host_dt)
     rng = np.random.default_rng(3)
     inputs = _decode_batch(cfg, rng, batch, "cpu")
     forced = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, DEC_FORCED)).astype(np.int32))
 
     def cache_tensors(prefix, st):
+        # a recurrent state is one tensor, an attention cache a tuple
         return {f"{prefix} {c} {name} {j}": a.clone()
                 for c, layer in enumerate(st.caches)
                 for name, cache in layer.items()
-                for j, a in enumerate(cache)}
+                for j, a in enumerate([cache] if torch.is_tensor(cache)
+                                      else cache)}
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        outs = []
-        for params, d in ((card, dev), (host, "cpu")):
-            last, st = M.prefill(params, cfg, {k: v.to(d)
-                                               for k, v in inputs.items()})
-            st = state_from_prefill(cfg, st, s_max)
-            got = {"prefill": last, **cache_tensors("padded cache", st)}
-            for i in range(DEC_FORCED):
-                lg, st = M.decode_step(params, cfg, st,
-                                       forced[:, i:i + 1].to(d))
-                got[f"step {i}"] = lg[:, 0]
-            got.update(cache_tensors("cache", st))
+        outs, routed = [], []
+        for params, d, dt in ((card, dev, torch.float32),
+                              (host, "cpu", host_dt)):
+            with _router_probs() as seen:
+                last, st = M.prefill(params, cfg, {
+                    k: v.to(d, dt) if v.is_floating_point() else v.to(d)
+                    for k, v in inputs.items()})
+                st = state_from_prefill(cfg, st, s_max, cache_dtype=dt)
+                got = {"prefill": last, **cache_tensors("padded cache", st)}
+                for i in range(DEC_FORCED):
+                    lg, st = M.decode_step(params, cfg, st,
+                                           forced[:, i:i + 1].to(d))
+                    got[f"step {i}"] = lg[:, 0]
+                got.update(cache_tensors("cache", st))
             outs.append({k: v.cpu() for k, v in got.items()})
+            routed.append(seen)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
+    # the routers' smallest gap between a token's k-th and (k+1)-th
+    # expert probability: a tie within rounding could pick another expert
+    margin = _router_margin(routed[1]) if routed[1] else None
     worst = {}
     for name, want in outs[1].items():
-        got = outs[0][name]
+        got = outs[0][name].to(want.dtype)
         worst[name] = _max_abs_err(got, want)
         try:
             torch.testing.assert_close(got, want, **DEC_TOL)
         except AssertionError as e:
             raise PhaseError(f"{what} cross-check {name}: card != CPU path "
-                             f"within {DEC_TOL}: {e}") from None
+                             f"within {DEC_TOL} (router margin {margin}): "
+                             f"{e}") from None
     errs[key] = max(worst.values())
     top = dict(sorted(worst.items(), key=lambda kv: -kv[1])[:8])
     print(f"[{what}] {cfg.name} at full width, {cfg.n_layers} layers"
           + (f" + {cfg.n_encoder_layers} encoder layers over "
              f"{cfg.encoder_seq} frames" if cfg.is_encoder_decoder else "")
+          + (f", window {cfg.local_window}" if cfg.local_window else "")
           + f", batch {batch}, f32, TF32 off: prefill logits, padded "
           f"caches and {DEC_FORCED} teacher-forced steps ({len(worst)} "
-          f"tensors), card == CPU path within {DEC_TOL}; max abs err "
-          f"{errs[key]}, largest " + json.dumps(top)
+          f"tensors), card == CPU path"
+          + (" in f64" if exact else "") + f" within {DEC_TOL}; max abs err "
+          f"{errs[key]}"
+          + ("" if margin is None else f", router margin {margin}")
+          + ", largest " + json.dumps(top)
           + f" ({time.perf_counter() - t0:.3f} s)")
 
 
@@ -2559,25 +2606,27 @@ def _free_card():
     torch.cuda.empty_cache()
 
 
-def _decode_functions(dev, card, _build, cfg, what):
+def _decode_functions(dev, card, _build, cfg, what, prompt=DEC_PROMPT,
+                      on_state=None):
     """The decode CLI's steps through the functions it calls
     (``init_params``, ``prefill``, ``state_from_prefill``,
-    ``make_serve_step``) for a ``cfg`` the CLI cannot name (a cut
-    depth), checked by :func:`_check_decode_run`.  Returns (launches,
-    numbers)."""
+    ``make_serve_step``) for a ``cfg`` or a ``prompt`` length the CLI
+    cannot name (a cut depth, a prompt past a window), checked by
+    :func:`_check_decode_run`; ``on_state`` sees the last decode state.
+    Returns (launches, numbers)."""
     import numpy as np
     import torch
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import state_from_prefill
     from repro_torch.models import model as M
     from repro_torch.runtime.steps import make_serve_step
-    s_max = DEC_PROMPT + DEC_GEN
+    s_max = prompt + DEC_GEN
     _build.reset_launches()              # count this run alone
     t0 = time.perf_counter()
     mesh = make_host_mesh(DEC_P, device=dev, cfg=cfg)
     params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
                            max_seq=s_max, device=dev)
-    batch = _decode_batch(cfg, np.random.default_rng(0), DEC_B, dev)
+    batch = _decode_batch(cfg, np.random.default_rng(0), DEC_B, dev, prompt)
     step = make_serve_step(cfg, mesh, k=DEC_K)
     t1 = time.perf_counter()
     last, pst = M.prefill(params, cfg, batch)
@@ -2595,6 +2644,8 @@ def _decode_functions(dev, card, _build, cfg, what):
     t_decode = time.perf_counter() - t1
     launches = dict(_build.LAUNCHES)
     print(f"[{what}] launches " + json.dumps(launches))
+    if on_state is not None:
+        on_state(state)
     res = {"prefill_s": t_prefill, "decode_s": t_decode,
            "tok_per_s": (DEC_GEN - 1) * DEC_B / t_decode,
            "main_s": time.perf_counter() - t0,
@@ -2638,6 +2689,181 @@ def _variants(dev, card, errs, _build):
         _decode_kernels(scores[arch], errs, what)
         print(f"[{what}] {time.perf_counter() - t0:.3f} s")
     return launches, scores
+
+
+# ---------------------------------------------------------------------------
+# phase 13: MoE, RWKV-6 and Griffin with the window cache on the card
+# ---------------------------------------------------------------------------
+
+# the same decode command for the last four archs at full size (random
+# bf16 weights from seed 0, f32 caches, batch 4, 16 tokens, FD halving
+# over 16 peers, k = 20): granite-moe through the CLI, the rest through
+# the functions the CLI calls; recurrentgemma's prompt is 2,080 tokens,
+# so its 2,048-slot ring wraps while it decodes (s_max 2,096)
+ARCH_CLI = "granite-moe-1b-a400m"
+ARCHS = (ARCH_CLI, "moonshot-v1-16b-a3b", "rwkv6-3b", "recurrentgemma-2b")
+ARCH_PROMPT = {"recurrentgemma-2b": 2_080}
+# the f32 cross-checks at full width, the card's f32 against the CPU
+# path in f64 (the exact function): at these widths the CPU's own f32
+# rounding is as large as the card's, and recurrentgemma's card-vs-CPU
+# f32 logits missed the tolerance on 5 of 1,024,000 though each was
+# within it of f64 (tools/decode_xcheck_error.py --caches); layers:
+# recurrentgemma's 3 are one whole rglru, rglru, attn group; rwkv6-3b
+# at 1, since at 2 neither f32 path is within the tolerance of f64 on
+# layer 1's state (|state| up to 40; 53 and 54 of 655,360 outside);
+# recurrentgemma's window cut to 16 slots, so that the 32-token prompt
+# wraps the ring on the host without a 2,080-token prefill there
+ARCH_XCHECK = {ARCH_CLI: 2, "moonshot-v1-16b-a3b": 2, "rwkv6-3b": 1,
+               "recurrentgemma-2b": 3}
+ARCH_XCHECK_WINDOW = 16
+
+
+class _router_probs:
+    """A context in which every MoE layer's router probabilities (T, E)
+    and k, handed to the top-k, are kept (cloned) in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real, self.seen = moe.local_topk, []
+
+        def spy(probs, k, **kw):
+            self.seen.append((probs.detach().clone(), k))
+            return self.real(probs, k, **kw)
+        moe.local_topk = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.local_topk = self.real
+
+
+def _router_margin(seen):
+    """The smallest gap, over every token of every captured router call,
+    between its k-th and (k+1)-th largest expert probability."""
+    from repro_torch.kernels.topk import topk_ref
+    gaps = []
+    for probs, k in seen:
+        v, _ = topk_ref(probs.cpu(), k + 1)
+        gaps.append(float((v[:, k - 1] - v[:, k]).min()))
+    return min(gaps)
+
+
+def _router_check(what, cfg, errs):
+    """``after`` hook of :func:`_decode_model` for an MoE arch: one
+    prefill and one decode step with the routers' probabilities kept;
+    the top-k kernel on each (T, E) matrix bit-equal to ``topk_ref`` on
+    the host.  Returns layer 0's decode and prefill probabilities."""
+    from repro_torch.kernels.topk import topk_cuda, topk_ref
+    from repro_torch.models import model as M
+
+    def after(params, batch, state, tok):
+        with _router_probs() as seen:
+            M.prefill(params, cfg, batch)
+            n_pre = len(seen)
+            M.decode_step(params, cfg, state, tok)
+        n = cfg.n_layers
+        _require(n_pre == n and len(seen) == 2 * n,
+                 f"{what}: {n_pre} prefill and {len(seen) - n_pre} decode "
+                 f"router calls, want {n} each")
+        for probs, k in seen:
+            v1, i1 = topk_cuda(probs, k)
+            v2, i2 = topk_ref(probs.cpu(), k)
+            errs["topk"] = max(errs["topk"], _max_abs_err(v1.cpu(), v2))
+            _require(_same(v1.cpu(), v2) and _same(i1.cpu(), i2),
+                     f"{what}: router top-k at {tuple(probs.shape)} k={k}: "
+                     "kernel != topk_ref")
+        print(f"[{what}] router top-k on the card == topk_ref, bit for "
+              f"bit, on {len(seen)} captured (T, E) matrices: prefill "
+              f"{tuple(seen[0][0].shape)}, decode "
+              f"{tuple(seen[n_pre][0].shape)}, k = {seen[0][1]}; smallest "
+              f"k-th / (k+1)-th gap {_router_margin(seen)}")
+        return {"decode": seen[n_pre][0], "prefill": seen[0][0],
+                "k": seen[0][1]}
+    return after
+
+
+def _check_arch_launches(what, cfg, launches):
+    """Exactly one top-k a step for the sampling plus one a MoE layer for
+    the routers (and one a MoE layer in the prefill), and log2(16) = 4
+    merges a step."""
+    steps = DEC_GEN - 1
+    moe_layers = cfg.n_layers if cfg.moe is not None else 0
+    want = {"topk": moe_layers * (steps + 1) + steps,
+            "merge": steps * int(math.log2(DEC_P)), "topk_select": 0}
+    got = {k: launches[k] for k in want}
+    _require(got == want, f"{what}: launches {got}, want {want}")
+    print(f"[{what}] launches a step: top-k {1 + moe_layers} (sampling 1, "
+          f"routers {moe_layers}), merge {want['merge'] // steps}; prefill "
+          f"top-k {moe_layers}")
+
+
+def _check_window_wrapped(what, cfg, prompt):
+    """``on_state`` hook of :func:`_decode_functions`: every attention
+    layer's ring holds the last W positions, 15 of them written past
+    the prompt over slots the prefill filled."""
+    w, last = cfg.local_window, prompt + DEC_GEN - 2
+
+    def check(state):
+        rings = [layer["self"].pos_slots for layer in state.caches
+                 if "self" in layer]
+        _require(len(rings) == cfg.layer_kinds().count("attn"),
+                 f"{what}: {len(rings)} window caches")
+        want = sorted(range(last - w + 1, last + 1))
+        for ps in rings:
+            _require(ps.shape == (w,) and sorted(ps.tolist()) == want
+                     and int(ps[last % w]) == last,
+                     f"{what}: ring positions {ps.min()}..{ps.max()}, want "
+                     f"{want[0]}..{want[-1]}")
+        print(f"[{what}] {len(rings)} rings of {w} slots hold positions "
+              f"{want[0]}..{last}: decode wrapped past the window "
+              f"(positions {prompt}..{last} over slots {prompt % w}.."
+              f"{last % w})")
+    return check
+
+
+def _archs(dev, card, errs, _build):
+    """Phase 13: granite-moe-1b-a400m through the decode CLI,
+    moonshot-v1-16b-a3b, rwkv6-3b and recurrentgemma-2b (a 2,080-token
+    prompt) through the CLI's functions, all at full size; each checked
+    for its exact launches, timed and profiled (:func:`_decode_model`),
+    its routers' top-k held to ``topk_ref`` (MoE), held in f32 to the
+    CPU path (:func:`_decode_xcheck`) and its sampling kernels to their
+    plain versions (:func:`_decode_kernels`).  Returns (launches by path,
+    one step's f32 scores by arch, layer 0's router probabilities by MoE
+    arch)."""
+    from repro_torch.configs.base import get_config
+    launches, scores, router = {}, {}, {}
+    for arch in ARCHS:
+        t0 = time.perf_counter()
+        what = f"archs {arch}"
+        cfg = get_config(arch)
+        prompt = ARCH_PROMPT.get(arch, DEC_PROMPT)
+        if arch == ARCH_CLI:
+            n, _ = _decode_cli(card, _build, arch, what)
+        else:
+            n, _ = _decode_functions(
+                dev, card, _build, cfg, what, prompt,
+                _check_window_wrapped(what, cfg, prompt)
+                if cfg.local_window else None)
+        launches[f"decode_{arch}"] = n
+        _check_arch_launches(what, cfg, n)
+        _free_card()
+        scores[arch], res = _decode_model(
+            dev, card, cfg, what, VAR_PROFILE_STEPS, prompt,
+            _router_check(what, cfg, errs) if cfg.moe else None)
+        if cfg.moe:
+            router[arch] = res["after"]
+        del res
+        _free_card()
+        xcfg = dataclasses.replace(cfg, n_layers=ARCH_XCHECK[arch])
+        if cfg.local_window:
+            xcfg = dataclasses.replace(xcfg, local_window=ARCH_XCHECK_WINDOW)
+        _decode_xcheck(dev, errs, xcfg, DEC_B, f"decode_{arch}", what,
+                       exact=True)
+        _free_card()
+        _decode_kernels(scores[arch], errs, what)
+        print(f"[{what}] {time.perf_counter() - t0:.3f} s")
+    return launches, scores, router
 
 
 # ---------------------------------------------------------------------------
@@ -2948,35 +3174,36 @@ def _sum_or_none(xs):
     return None if any(x is None for x in xs) else sum(xs)
 
 
-def _topk_shape(what, x, errs):
-    """The tile-route top-k at k = 20 on ``x``: held to its plain version,
-    then timed beside it and ``torch.topk`` (events, and device ms from a
-    profiler window retaken until it holds every launch), with its bound
-    (each score read once, each (value, index) written once)."""
+def _topk_shape(what, x, errs, k=DEV_K):
+    """The tile-route top-k at ``k`` (20 by default) on ``x``: held to
+    its plain version, then timed beside it and ``torch.topk`` (events,
+    and device ms from a profiler window retaken until it holds every
+    launch), with its bound (each score read once, each (value, index)
+    written once)."""
     import torch
     from repro_torch.kernels.topk import topk_cuda, topk_ref
     from repro_torch.kernels.topk.topk import plan as topk_plan
-    v1, i1 = topk_cuda(x, DEV_K)
-    v2, i2 = topk_ref(x, DEV_K)
+    v1, i1 = topk_cuda(x, k)
+    v2, i2 = topk_ref(x, k)
     errs["topk"] = max(errs["topk"], _max_abs_err(v1, v2))
     _require(_same(v1, v2) and _same(i1, i2),
              f"topk at the {what} shape: kernel != plain version")
     # plain, kernel, kernel, plain: take the lower of each pair
-    p1 = _cuda_ms(lambda: topk_ref(x, DEV_K))
-    k1 = _cuda_ms(lambda: topk_cuda(x, DEV_K))
-    k2 = _cuda_ms(lambda: topk_cuda(x, DEV_K))
-    p2 = _cuda_ms(lambda: topk_ref(x, DEV_K))
-    lib = _cuda_ms(lambda: torch.topk(x, DEV_K, dim=-1))
+    p1 = _cuda_ms(lambda: topk_ref(x, k))
+    k1 = _cuda_ms(lambda: topk_cuda(x, k))
+    k2 = _cuda_ms(lambda: topk_cuda(x, k))
+    p2 = _cuda_ms(lambda: topk_ref(x, k))
+    lib = _cuda_ms(lambda: torch.topk(x, k, dim=-1))
     # one launch a call for a one-tile row, else the final pass too; a
     # window that misses one is taken again
-    n_launch = 1 if topk_plan(x.shape[-1], DEV_K).tiles == 1 else 2
-    each = _device_ms_each(lambda: topk_cuda(x, DEV_K), n_launch,
+    n_launch = 1 if topk_plan(x.shape[-1], k).tiles == 1 else 2
+    each = _device_ms_each(lambda: topk_cuda(x, k), n_launch,
                            ("topk_tiles", "topk_final"))
     rows = x.numel() // x.shape[-1]
-    nbytes = x.numel() * x.element_size() + rows * DEV_K * 8
+    nbytes = x.numel() * x.element_size() + rows * k * 8
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = x.numel() / OPS32_PER_S * 1e3    # one compare a score
-    row = {"what": what, "shape": list(x.shape),
+    row = {"what": what, "shape": list(x.shape), "k": k,
            "launches_per_call": n_launch,
            "ms": min(k1, k2), "plain_ms": min(p1, p2),
            "bound_ms": max(t_bytes, t_ops),
@@ -2984,19 +3211,22 @@ def _topk_shape(what, x, errs):
            "library_ms": lib,
            "device_ms": None if each is None else sum(each),
            "library_device_ms": _device_ms(
-               lambda: torch.topk(x, DEV_K, dim=-1)), "bytes": nbytes}
-    print(f"[times] topk {what} {tuple(x.shape)} f32 k={DEV_K}: "
+               lambda: torch.topk(x, k, dim=-1)), "bytes": nbytes}
+    print(f"[times] topk {what} {tuple(x.shape)} f32 k={k}: "
           + json.dumps(row))
     return row
 
 
-def _topk_row(scores, dec_scores, errs, launches, var_scores):
+def _topk_row(scores, dec_scores, errs, launches, var_scores, router):
     """The top-k at the device path's three shapes: local execution of
     the 32 queries on 64 peers, CN over the full rows, CN* over the
     gathered k-lists; each held to its plain version, then timed.  The
     decode's two shapes (its 16 peers' shards, and the whole row at one
-    peer), qwen2-0.5b's and each variant's (``var_scores``), are timed
-    the same way under ``decode_shapes``, outside the row's sums."""
+    peer), qwen2-0.5b's and each other arch's (``var_scores``), are
+    timed the same way under ``decode_shapes``, and each MoE arch's
+    router at its decode (4, E) and prefill (128, E) shapes
+    (``router``: layer 0's probabilities and k) under ``router_shapes``,
+    outside the row's sums."""
     from repro_torch.kernels.topk import topk_cuda
     lists = topk_cuda(scores.view(DEV_B, DEV_PEERS, DEV_LOCAL), DEV_K)[0]
     shapes = (("local execution", scores.view(DEV_B * DEV_PEERS, DEV_LOCAL)),
@@ -3008,6 +3238,9 @@ def _topk_row(scores, dec_scores, errs, launches, var_scores):
               for part, x in (("16 peers' shards",
                                sc.reshape(sc.shape[0] * DEC_P, -1)),
                               ("one peer", sc))]
+    routers = [_topk_shape(f"{arch} router, {part}", r[part], errs, r["k"])
+               for arch, r in router.items()
+               for part in ("decode", "prefill")]
     by_path = {path: n["topk"] for path, n in launches.items()}
     t_bytes = sum(r["bytes"] for r in per) / MEM_BYTES_PER_S * 1e3
     t_ops = sum(math.prod(r["shape"]) for r in per) / OPS32_PER_S * 1e3
@@ -3027,7 +3260,7 @@ def _topk_row(scores, dec_scores, errs, launches, var_scores):
         "device_ms_per_launch": None if dev_ms is None else dev_ms / len(per),
         "library_device_ms": _sum_or_none(r["library_device_ms"]
                                           for r in per),
-        "shapes": per, "decode_shapes": decode,
+        "shapes": per, "decode_shapes": decode, "router_shapes": routers,
         "shape_note": (f"one call at each device-path shape: local "
                        f"execution of {DEV_B} queries on {DEV_PEERS} "
                        f"peers, CN, CN*")}
@@ -3322,12 +3555,16 @@ def main() -> int:
     t0 = time.perf_counter()
     var_launches, var_scores = _variants(dev, card, errs, _build)
     print(f"[phase 12] {time.perf_counter() - t0:.3f} s")
+    _free_card()
+    t0 = time.perf_counter()
+    arch_launches, arch_scores, router = _archs(dev, card, errs, _build)
+    print(f"[phase 13] {time.perf_counter() - t0:.3f} s")
 
     launches = {"serve": serve_launches, "serve_churn": churn_launches,
                 "device": dev_launches, "topologies": topo_launches,
                 **prec_launches, "overlay": overlay_launches,
                 "cli": cli_launches, "shard": shard_launches,
-                "decode": decode_launches, **var_launches}
+                "decode": decode_launches, **var_launches, **arch_launches}
     # phase 3b extended origin 0's slices with the reroute tables
     rr = _device_slices(engine.plan.depth_slices(sts[0]), dev)[2]
     _require(rr is not None, "phase 3b built no reroute tables")
@@ -3336,7 +3573,8 @@ def main() -> int:
     for row in rows:
         if row["name"] in by_dtype:
             row["by_dtype"] = by_dtype[row["name"]]
-    rows.append(_topk_row(scores, dec_scores, errs, launches, var_scores))
+    rows.append(_topk_row(scores, dec_scores, errs, launches,
+                          {**var_scores, **arch_scores}, router))
     rows.append(_topk_select_row(scores, errs, launches))
     print(card)
     print(json.dumps({"kernels": rows}))

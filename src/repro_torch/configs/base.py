@@ -8,8 +8,7 @@ Every assigned architecture is a ``ModelConfig`` instance registered under its
 (arch x shape) defines the dry-run / roofline cells.
 
 Pure Python: importing it touches no device.  The port's model runs
-the dense GQA configs (``repro_torch.models.model.check_ported``); the
-others are registered so that the registry is the reference's.
+every registered config and its smoke config.
 """
 from __future__ import annotations
 

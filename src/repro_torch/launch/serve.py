@@ -47,17 +47,23 @@ def state_from_prefill(cfg, prefill_state, s_max: int, cache_dtype=None):
     """Convert prompt-length caches into pre-sized decode caches, cast
     to ``cache_dtype`` (f32 by default): each layer's self-attention
     cache (``KVCache``, or MLA's ``MLACache``) padded with zeros (or
-    trimmed) to ``s_max`` along its sequence dim.  An encoder-decoder's
-    ``"cross"`` cache holds the encoder's frames, not the prompt, and
-    is kept whole (the reference pads or trims it to ``s_max`` too, so
-    its decode attends to other frames).  The reference's window
-    conversion waits for the Griffin slice."""
+    trimmed) to ``s_max`` along its sequence dim; under a sliding
+    window (``cfg.local_window`` = W) a ``WindowKVCache`` of W slots
+    holding the prompt's last min(W, prompt) positions at ``pos % W``,
+    as the reference's ``conv_window``.  An encoder-decoder's
+    ``"cross"`` cache holds the encoder's frames, not the prompt, and is
+    kept whole (the reference pads or trims it to ``s_max`` too, so its
+    decode attends to other frames).  The recurrent states (RWKV's
+    ``state`` / ``xp_t`` / ``xp_c``, the RG-LRU's ``h`` / ``conv``,
+    all f32) pass through as they are, as in the reference."""
     import torch
 
+    from repro_torch.models import attention as A
     from repro_torch.models import model as M
 
     if cache_dtype is None:
         cache_dtype = torch.float32
+    pos = int(prefill_state.pos)
 
     def pad_seq(a):
         cur = a.shape[1]
@@ -66,9 +72,28 @@ def state_from_prefill(cfg, prefill_state, s_max: int, cache_dtype=None):
         pad = [0, 0] * (a.dim() - 2) + [0, s_max - cur]
         return torch.nn.functional.pad(a, pad).to(cache_dtype)
 
+    def conv_window(c, w):
+        take = min(w, c.k.shape[1], pos)
+        lo = max(pos - take, 0)
+        dev = c.k.device
+        slots = torch.arange(lo, pos, device=dev) % w
+        k = c.k.new_zeros((c.k.shape[0], w) + c.k.shape[2:],
+                          dtype=cache_dtype)
+        v = torch.zeros_like(k)
+        pos_slots = torch.full((w,), -1, dtype=torch.int32, device=dev)
+        k[:, slots] = c.k[:, lo:pos].to(cache_dtype)
+        v[:, slots] = c.v[:, lo:pos].to(cache_dtype)
+        pos_slots[slots] = torch.arange(lo, pos, dtype=torch.int32,
+                                        device=dev)
+        return A.WindowKVCache(k, v, pos_slots)
+
     def conv(key, c):
         if key == "cross":
             return type(c)(*(a.to(cache_dtype) for a in c))
+        if key != "self":
+            return c
+        if isinstance(c, A.KVCache) and cfg.local_window:
+            return conv_window(c, cfg.local_window)
         return type(c)(*(pad_seq(a) for a in c))
 
     caches = [{key: conv(key, c) for key, c in layer.items()}
@@ -227,7 +252,6 @@ def main_decode(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    M.check_ported(cfg)
     device = torch.device(args.device)
     mesh = make_host_mesh(model=args.model_par, device=device, cfg=cfg)
     s_max = args.prompt_len + args.gen

@@ -15,9 +15,10 @@ and is not used here.
 
 Decode writes the caches IN PLACE (``cache[:, pos] = new``): the same
 bits as the reference's select against an iota, which returns a new
-cache that its serve step donates.  The window ring-buffer cache
-(``WindowKVCache``, ``gqa_decode_window``) waits for the Griffin slice,
-the one arch that sets ``local_window``.
+cache that its serve step donates.  Sliding-window attention
+(``local_window``, recurrentgemma-2b's attention layers) decodes
+against a ring buffer of W slots (``WindowKVCache``,
+``gqa_decode_window``), written in place at ``pos % W``.
 """
 from __future__ import annotations
 
@@ -354,6 +355,35 @@ def gqa_decode(params, x, cfg, *, cache: KVCache, cache_pos: int,
     y = _plain_decode_attn(q, ck, cv, mask)
     y = y.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
     return y @ params["w_o"], KVCache(ck, cv)
+
+
+class WindowKVCache(NamedTuple):
+    """Ring-buffer KV cache for sliding-window attention (O(window)
+    memory): ``pos_slots`` holds each slot's absolute position (-1 =
+    empty)."""
+    k: torch.Tensor           # (B, W, H_kv, Dh)
+    v: torch.Tensor
+    pos_slots: torch.Tensor   # (W,) int32
+
+
+def gqa_decode_window(params, x, cfg, *, cache: WindowKVCache,
+                      cache_pos: int, positions):
+    """Single-token decode against a ring-buffer window cache: k, v and
+    the position written at slot ``cache_pos % W`` in place; the token
+    attends to every slot written, not in its future and within W of
+    it.  Returns (y (B, 1, D), the cache)."""
+    b = x.shape[0]
+    w = cache.k.shape[1]
+    q, k, v = _qkv(params, x, cfg, positions)
+    slot = cache_pos % w
+    ck = _masked_cache_write(cache.k, k, slot)
+    cv = _masked_cache_write(cache.v, v, slot)
+    ps = cache.pos_slots
+    ps[slot] = cache_pos
+    valid = (ps >= 0) & (ps <= cache_pos) & (cache_pos - ps < w)
+    y = _plain_decode_attn(q, ck, cv, valid[None, None, None])
+    y = y.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
+    return y @ params["w_o"], WindowKVCache(ck, cv, ps)
 
 
 def cross_decode(params, x, cfg, *, cache: KVCache):

@@ -7,8 +7,7 @@ order and the same dtypes.
 
 The reference's sharding helpers (``constrain``, ``batch_spec``,
 ``model_size``, ``head_axis``) annotate activations for GSPMD; on one
-card they have no counterpart and are left out.  ``rwkv_cmix`` (the
-RWKV channel mix) waits for the slice that ports RWKV.
+card they have no counterpart and are left out.
 """
 from __future__ import annotations
 
@@ -26,6 +25,13 @@ def param_dict(tensors: dict) -> nn.ParameterDict:
         k: param_dict(v) if isinstance(v, dict)
         else nn.Parameter(v, requires_grad=False)
         for k, v in tensors.items()})
+
+
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, the reference's dtype for norms, carries and
+    recurrences; an f64 tensor stays f64, so that a model cast to f64
+    (an error analysis) computes in f64 throughout."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 # --------------------------------------------------------------------------
@@ -64,17 +70,17 @@ def norm_init(d: int, kind: str, dtype, device) -> dict:
 
 def apply_norm(params, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm (``"rms"``) or LayerNorm (``"ln"``), computed in f32 and
-    returned in ``x``'s dtype."""
-    xf = x.float()
+    """RMSNorm (``"rms"``) or LayerNorm (``"ln"``), computed in f32
+    (:func:`wide`) and returned in ``x``'s dtype."""
+    xf = wide(x)
     if kind == "rms":
         var = (xf * xf).mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + eps)
-        return (y * params["scale"].float()).to(x.dtype)
+        return (y * params["scale"].to(xf.dtype)).to(x.dtype)
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, correction=0)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * params["scale"].float() + params["bias"].float()
+    y = y * params["scale"].to(xf.dtype) + params["bias"].to(xf.dtype)
     return y.to(x.dtype)
 
 
@@ -104,3 +110,29 @@ def apply_ffn(params, x: torch.Tensor, act: str) -> torch.Tensor:
         return h @ params["w_down"]
     h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
     return h @ params["w_down"] + params["b_down"]
+
+
+# --------------------------------------------------------------------------
+# RWKV channel mix (the rwkv_channel_mix "ffn")
+# --------------------------------------------------------------------------
+
+def rwkv_cmix_init(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
+    dev = gen.device
+    return {"w_k": dense_init(gen, d, d_ff, dtype),
+            "w_v": dense_init(gen, d_ff, d, dtype, scale=d_ff ** -0.5),
+            "w_r": dense_init(gen, d, d, dtype),
+            "mix_k": torch.full((d,), 0.5, dtype=dtype, device=dev),
+            "mix_r": torch.full((d,), 0.5, dtype=dtype, device=dev)}
+
+
+def apply_rwkv_cmix(params, x: torch.Tensor, x_prev: torch.Tensor):
+    """RWKV channel mix with token shift.  x: (B, S, D); x_prev: (B, 1,
+    D), the f32 carry.  Returns (y, x's last token in f32), so that the
+    decode cache's dtype stays f32."""
+    shifted = torch.cat([x_prev.to(x.dtype), x[:, :-1]], dim=1)
+    xk = x * params["mix_k"] + shifted * (1 - params["mix_k"])
+    xr = x * params["mix_r"] + shifted * (1 - params["mix_r"])
+    k = torch.square(torch.relu(xk @ params["w_k"]))
+    v = k @ params["w_v"]
+    r = torch.sigmoid(xr @ params["w_r"])
+    return r * v, wide(x[:, -1:])

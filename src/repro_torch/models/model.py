@@ -1,4 +1,4 @@
-"""The port's model API for the attention architectures.
+"""The port's model API.
 
 One parameter module (:class:`LM`) and the reference's entry points:
 
@@ -9,22 +9,22 @@ One parameter module (:class:`LM`) and the reference's entry points:
   * ``encode(params, cfg, frames)`` — the encoder of an encoder-decoder
   * ``prefill(params, cfg, batch)`` — last logits + a ``DecodeState``
   * ``decode_step(params, cfg, state, tokens)`` — one token; writes the
-    caches in place (the reference's serve step donates them)
+    attention caches in place (the reference's serve step donates them)
   * ``params_from_reference(tree, cfg)`` — the reference's parameter
     pytree (numpy leaves) carried into an :class:`LM`, so both packages
     compute the same function
 
-This slice runs the dense GQA configs (qwen2-0.5b, qwen1.5-0.5b,
-phi3-medium-14b), MLA (minicpm3-4b), the encoder-decoder with cross
-attention and learned positions (whisper-large-v3) and M-RoPE with the
-vision stub (qwen2-vl-72b), and their smoke configs; :func:`check_ported`
-refuses MoE, the recurrent mixers and sliding-window attention with
-``NotImplementedError``, naming what is missing.  The modality
-frontends are stubs, as in the reference: whisper consumes precomputed
-frame embeddings (B, encoder_seq, D), qwen2-vl precomputed patch
-embeddings over the first n_vis slots.  The reference's third output
-of ``forward`` (MoE's auxiliary loss) and ``loss_fn`` wait for the MoE
-and training slices.
+Every registered arch runs, and its smoke config: dense GQA
+(qwen2-0.5b, qwen1.5-0.5b, phi3-medium-14b), MLA (minicpm3-4b), the
+encoder-decoder with cross attention and learned positions
+(whisper-large-v3), M-RoPE with the vision stub (qwen2-vl-72b), MoE
+(granite-moe-1b-a400m, moonshot-v1-16b-a3b), RWKV-6 (rwkv6-3b) and
+Griffin's RG-LRU with sliding-window attention (recurrentgemma-2b).
+The modality frontends are stubs, as in the reference: whisper
+consumes precomputed frame embeddings (B, encoder_seq, D), qwen2-vl
+precomputed patch embeddings over the first n_vis slots.  The
+reference's third output of ``forward`` (MoE's auxiliary loss) and
+``loss_fn`` wait for the training slice.
 
 The logits cover every row of ``cfg.padded_vocab()``, and the padding
 rows of the embedding are random like the rest, as in the reference;
@@ -50,25 +50,6 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def _dt(cfg: ModelConfig):
     return DTYPES[cfg.param_dtype]
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming ``cfg`` and what of it the
-    port lacks: MoE, the recurrent mixers (RWKV, Griffin) and
-    sliding-window attention."""
-    missing = []
-    if cfg.moe is not None:
-        missing.append("MoE")
-    if cfg.recurrent is not None or any(k != "attn"
-                                        for k in cfg.mixer_pattern):
-        missing.append(f"recurrent mixers {cfg.mixer_pattern}")
-    if cfg.local_window:
-        missing.append("sliding-window attention")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
-            "yet (this slice runs the attention archs: dense GQA, MLA, "
-            "the encoder-decoder, M-RoPE)")
 
 
 class Encoder(nn.Module):
@@ -111,7 +92,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     """Random weights drawn from ``gen`` on ``device`` (the card unless
     the caller names another; ``gen`` must be a generator of that
     device).  ``max_seq`` sizes a learned position table."""
-    check_ported(cfg)
     device = resolve_device(device, "init_params")
     if gen.device.type != device.type:
         raise ValueError(f"init_params: a {gen.device} generator for "
@@ -162,7 +142,6 @@ def params_from_reference(tree: dict, cfg: ModelConfig, *,
     names another): ``dec`` and ``enc.stack`` as blocks, ``embed``,
     ``norm_f``, ``w_lm``, ``pos_embed`` and ``enc.norm_f`` as they are
     (an empty ``rem`` list may be missing)."""
-    check_ported(cfg)
     device = resolve_device(device, "params_from_reference")
 
     def conv(x):
@@ -266,7 +245,6 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
     ((B, S), or (3, B, S) under M-RoPE).  Returns (logits (B, S, V_pad),
     caches): the per-layer caches of the prompt in prefill (with the
     encoder's cross KV), None in train."""
-    check_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = batch.get("positions")
@@ -289,9 +267,11 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
 # --------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
-    """``caches``: one dict a layer, ``{"self": KVCache | MLACache}``
-    and, in an encoder-decoder, ``"cross": KVCache``; ``pos``: the next
-    write position."""
+    """``caches``: one dict a layer (``transformer.init_block_cache``):
+    ``{"self": KVCache | MLACache | WindowKVCache}`` and, in an
+    encoder-decoder, ``"cross": KVCache``; ``{"state", "xp_t", "xp_c"}``
+    for RWKV, ``{"h", "conv"}`` for the RG-LRU; ``pos``: the next write
+    position."""
     caches: list
     pos: int
 
@@ -299,7 +279,6 @@ class DecodeState(NamedTuple):
 def init_decode_state(cfg: ModelConfig, *, batch: int, s_max: int,
                       cache_dtype=torch.bfloat16,
                       device=None) -> DecodeState:
-    check_ported(cfg)
     device = resolve_device(device, "init_decode_state")
     return DecodeState(T.stack_caches(cfg, batch=batch, s_max=s_max,
                                       dtype=cache_dtype, device=device), 0)
@@ -316,8 +295,9 @@ def prefill(params: LM, cfg: ModelConfig, batch: dict, *,
 
 
 def decode_step(params: LM, cfg: ModelConfig, state: DecodeState, tokens):
-    """One decode step.  tokens: (B, 1) int32.  Writes each layer's
-    cache at ``state.pos`` in place (the cross caches are read only) and
+    """One decode step.  tokens: (B, 1) int32.  Writes each attention
+    cache at ``state.pos`` (a window cache at ``pos % W``) in place (the
+    cross caches are read only), replaces the recurrent states, and
     returns (logits (B, 1, V_pad), the state at ``pos + 1``)."""
     b = tokens.shape[0]
     positions = make_positions(cfg, b, 1, offset=state.pos,

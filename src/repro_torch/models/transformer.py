@@ -6,9 +6,13 @@ an encoder-decoder's decoder, ``norm_c`` and ``cross``); the stack is
 an ``nn.ModuleList`` run layer by layer.  The reference scans over
 stacked groups of layers because ``jit`` wants one traced body; eager
 PyTorch has no such need, so the layers are unrolled and a layer's
-cache is its own ``{"self": KVCache | MLACache, "cross": KVCache}``.
-This slice runs ``kind == "attn"`` blocks (GQA or MLA) with a dense
-FFN; ``models.model.check_ported`` refuses the rest.
+cache is its own dict: ``{"self": KVCache | MLACache | WindowKVCache,
+"cross": KVCache}`` for attention, ``{"state", "xp_t", "xp_c"}`` for
+RWKV (``xp_c`` the channel mix's carry), ``{"h", "conv"}`` for Griffin's
+RG-LRU.  The mixer is GQA or MLA attention (``kind == "attn"``, with a
+sliding window where ``cfg.local_window`` is set), RWKV-6 (``"rwkv"``)
+or the RG-LRU (``"rglru"``); the FFN is dense, MoE or the RWKV channel
+mix.
 """
 from __future__ import annotations
 
@@ -19,7 +23,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import griffin, rwkv
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 
 class Block(nn.Module):
@@ -40,65 +46,123 @@ class Block(nn.Module):
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
                with_cross: bool = False) -> Block:
     d, dev = cfg.d_model, gen.device
-    if kind != "attn":
-        raise NotImplementedError(f"a {kind!r} block is not ported")
     parts = {"norm1": L.norm_init(d, cfg.norm, dtype, dev),
-             "norm2": L.norm_init(d, cfg.norm, dtype, dev),
-             "mixer": (attn.mla_init(gen, cfg, dtype)
-                       if cfg.attn_kind == "mla"
-                       else attn.gqa_init(gen, cfg, dtype))}
+             "norm2": L.norm_init(d, cfg.norm, dtype, dev)}
+    if kind == "attn":
+        parts["mixer"] = (attn.mla_init(gen, cfg, dtype)
+                          if cfg.attn_kind == "mla"
+                          else attn.gqa_init(gen, cfg, dtype))
+    elif kind == "rwkv":
+        parts["mixer"] = rwkv.rwkv_init(gen, cfg, dtype)
+    elif kind == "rglru":
+        parts["mixer"] = griffin.griffin_init(gen, cfg, dtype)
+    else:
+        raise ValueError(f"unknown mixer kind {kind!r}")
     if with_cross:
         parts["norm_c"] = L.norm_init(d, cfg.norm, dtype, dev)
         parts["cross"] = attn.gqa_init(gen, cfg, dtype)
-    parts["ffn"] = L.ffn_init(gen, d, cfg.d_ff, cfg.act, dtype)
+    if cfg.moe is not None:
+        parts["ffn"] = moe_mod.moe_init(gen, cfg, dtype)
+    elif cfg.act == "rwkv_channel_mix":
+        parts["ffn"] = L.rwkv_cmix_init(gen, d, cfg.d_ff, dtype)
+    else:
+        parts["ffn"] = L.ffn_init(gen, d, cfg.d_ff, cfg.act, dtype)
     return Block(kind, parts)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                      dtype, device, with_cross: bool = False,
                      enc_seq: int = 0) -> dict:
-    """Zero caches for decode."""
-    if kind != "attn":
-        raise NotImplementedError(f"a {kind!r} block's cache is not ported")
+    """Zero caches for decode; the recurrent states in f32, a window
+    cache of min(window, s_max) empty slots."""
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
+    f32 = torch.float32
     hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
-    if cfg.attn_kind == "mla":
-        m = cfg.mla
-        c = {"self": attn.MLACache(zeros(batch, s_max, m.kv_lora_rank),
-                                   zeros(batch, s_max, m.qk_rope_dim))}
+    if kind == "attn":
+        if cfg.attn_kind == "mla":
+            m = cfg.mla
+            c = {"self": attn.MLACache(zeros(batch, s_max, m.kv_lora_rank),
+                                       zeros(batch, s_max, m.qk_rope_dim))}
+        elif cfg.local_window:
+            w = min(cfg.local_window, s_max)
+            c = {"self": attn.WindowKVCache(
+                zeros(batch, w, nkv, hd), zeros(batch, w, nkv, hd),
+                torch.full((w,), -1, dtype=torch.int32, device=device))}
+        else:
+            c = {"self": attn.KVCache(zeros(batch, s_max, nkv, hd),
+                                      zeros(batch, s_max, nkv, hd))}
+    elif kind == "rwkv":
+        kd = cfg.recurrent.rwkv_head_dim
+        h = cfg.d_model // kd
+        c = {"state": zeros(batch, h, kd, kd, dt=f32),
+             "xp_t": zeros(batch, 1, cfg.d_model, dt=f32),
+             "xp_c": zeros(batch, 1, cfg.d_model, dt=f32)}
+    elif kind == "rglru":
+        lw = cfg.recurrent.lru_width or cfg.d_model
+        c = {"h": zeros(batch, lw, dt=f32),
+             "conv": zeros(batch, cfg.recurrent.conv_width - 1, lw, dt=f32)}
     else:
-        c = {"self": attn.KVCache(zeros(batch, s_max, nkv, hd),
-                                  zeros(batch, s_max, nkv, hd))}
+        raise ValueError(f"unknown mixer kind {kind!r}")
     if with_cross:
         c["cross"] = attn.KVCache(zeros(batch, enc_seq, nkv, hd),
                                   zeros(batch, enc_seq, nkv, hd))
     return c
 
 
+def _attn_mixer(block: Block, cfg: ModelConfig, h, *, positions, mode,
+                cache, cache_pos, q_block, kv_block):
+    """The attention mixer: (y, its "self" cache or None)."""
+    if cfg.attn_kind == "mla":
+        return attn.mla_attention(
+            block.mixer, h, cfg, positions=positions, mode=mode,
+            cache=None if cache is None else cache["self"],
+            cache_pos=cache_pos, q_block=q_block, kv_block=kv_block)
+    if mode == "decode":
+        decode = (attn.gqa_decode_window if cfg.local_window
+                  else attn.gqa_decode)
+        return decode(block.mixer, h, cfg, cache=cache["self"],
+                      cache_pos=cache_pos, positions=positions)
+    return attn.gqa_attention(block.mixer, h, cfg, positions=positions,
+                              mode=mode, window=cfg.local_window,
+                              q_block=q_block, kv_block=kv_block)
+
+
 def block_apply(block: Block, cfg: ModelConfig, x, *, positions, mode: str,
                 cache: Optional[dict] = None, cache_pos=None, enc_out=None,
                 q_block: int = 1024, kv_block: int = 1024):
     """Apply one block.  Returns (x', cache'): the prompt's caches in
-    prefill, the caches written in place in decode, None in train and
-    encode."""
+    prefill (the recurrent ones run from zero states), the caches in
+    decode (attention's written in place, the recurrent states new
+    tensors), None in train and encode.  MoE's auxiliary loss is not
+    returned (the training slice's)."""
+    keep = mode in ("prefill", "decode")
+    new_cache = {} if keep else None
+    b, dev = x.shape[0], x.device
     h = L.apply_norm(block.norm1, x, cfg.norm)
-    if cfg.attn_kind == "mla":
-        y, c = attn.mla_attention(
-            block.mixer, h, cfg, positions=positions, mode=mode,
-            cache=None if cache is None else cache["self"],
-            cache_pos=cache_pos, q_block=q_block, kv_block=kv_block)
-    elif mode == "decode":
-        y, c = attn.gqa_decode(block.mixer, h, cfg, cache=cache["self"],
-                               cache_pos=cache_pos, positions=positions)
+    if block.kind == "attn":
+        y, c = _attn_mixer(block, cfg, h, positions=positions, mode=mode,
+                           cache=cache, cache_pos=cache_pos,
+                           q_block=q_block, kv_block=kv_block)
+        if keep and c is not None:
+            new_cache["self"] = c
+    elif block.kind == "rwkv":
+        st, xp = ((cache["state"], cache["xp_t"]) if cache is not None
+                  else rwkv.rwkv_init_state(cfg, b, dev))
+        y, (st, xp) = rwkv.apply_rwkv(block.mixer, h, cfg, state=st,
+                                      x_prev=xp)
+        if keep:
+            new_cache["state"], new_cache["xp_t"] = st, xp
+    elif block.kind == "rglru":
+        st = ((cache["h"], cache["conv"]) if cache is not None
+              else griffin.griffin_init_state(cfg, b, dev))
+        y, st = griffin.apply_griffin(block.mixer, h, cfg, state=st)
+        if keep:
+            new_cache["h"], new_cache["conv"] = st
     else:
-        y, c = attn.gqa_attention(block.mixer, h, cfg, positions=positions,
-                                  mode=mode, window=cfg.local_window,
-                                  q_block=q_block, kv_block=kv_block)
+        raise ValueError(f"unknown mixer kind {block.kind!r}")
     x = x + y
-    new_cache = None if c is None else {"self": c}
 
     if block.has_cross:
         hc = L.apply_norm(block.norm_c, x, cfg.norm)
@@ -110,13 +174,23 @@ def block_apply(block: Block, cfg: ModelConfig, x, *, positions, mode: str,
                                         positions=positions, mode=mode,
                                         kv_source=enc_out, q_block=q_block,
                                         kv_block=kv_block)
-        if new_cache is not None:
+        if keep:
             new_cache["cross"] = cc
         x = x + yc
 
     h = L.apply_norm(block.norm2, x, cfg.norm)
-    x = x + L.apply_ffn(block.ffn, h, cfg.act)
-    return x, new_cache
+    if cfg.moe is not None:
+        y, _ = moe_mod.apply_moe(block.ffn, h, cfg)
+    elif cfg.act == "rwkv_channel_mix":
+        xp = (cache["xp_c"] if cache is not None
+              else torch.zeros((b, 1, cfg.d_model), dtype=torch.float32,
+                               device=dev))
+        y, xp = L.apply_rwkv_cmix(block.ffn, h, xp)
+        if keep:
+            new_cache["xp_c"] = xp
+    else:
+        y = L.apply_ffn(block.ffn, h, cfg.act)
+    return x + y, new_cache
 
 
 def stack_caches(cfg: ModelConfig, *, batch: int, s_max: int, dtype,

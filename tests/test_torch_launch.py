@@ -9,8 +9,10 @@ returns the tokens (batch, gen), in process and as ``python -m``;
 ``--model-par 4`` (4 virtual peers, FD halving) samples the same tokens
 as ``--model-par 1``; the same for the attention variants (minicpm3-4b:
 MLA, whisper-large-v3: the encoder-decoder, qwen2-vl-72b: M-RoPE and
-the vision stub) at their smoke configs; an unported arch and a
-``--model-par`` that does not divide the padded vocabulary are refused.
+the vision stub), the MoE archs (granite-moe-1b-a400m,
+moonshot-v1-16b-a3b), RWKV-6 (rwkv6-3b) and Griffin (recurrentgemma-2b)
+at their smoke configs; a ``--model-par`` that does not divide the
+padded vocabulary is refused.
 """
 import os
 import subprocess
@@ -100,6 +102,8 @@ def test_decode_as_a_module():
 PEERS = [["--model-par", "4"], ["--model-par", "4", "--schedule", "ring"],
          ["--model-par", "4", "--policy", "cn-star"]]
 VARIANTS = ("minicpm3-4b", "whisper-large-v3", "qwen2-vl-72b")
+RECURRENT_MOE = ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "rwkv6-3b",
+                 "recurrentgemma-2b")
 
 
 @pytest.mark.parametrize("extra", PEERS)
@@ -109,7 +113,7 @@ def test_decode_peers_sample_the_one_peer_tokens(extra):
         serve_mod.main(DECODE + ["--model-par", "1"]))
 
 
-@pytest.mark.parametrize("arch", VARIANTS)
+@pytest.mark.parametrize("arch", VARIANTS + RECURRENT_MOE)
 def test_decode_smoke_serves_the_attention_variants(capsys, arch):
     toks = serve_mod.main(DECODE + ["--arch", arch])
     assert toks.shape == (2, 6) and toks.dtype == np.int32
@@ -120,18 +124,12 @@ def test_decode_smoke_serves_the_attention_variants(capsys, arch):
     assert out[1] == f"sample tokens: {toks[0, :12].tolist()}"
 
 
-@pytest.mark.parametrize("arch", VARIANTS)
+@pytest.mark.parametrize("arch", VARIANTS + RECURRENT_MOE)
 @pytest.mark.parametrize("extra", PEERS)
 def test_decode_variants_peers_sample_the_one_peer_tokens(arch, extra):
     np.testing.assert_array_equal(
         serve_mod.main(DECODE + ["--arch", arch] + extra),
         serve_mod.main(DECODE + ["--arch", arch, "--model-par", "1"]))
-
-
-def test_decode_refuses_an_unported_arch():
-    with pytest.raises(NotImplementedError, match="rwkv6-3b"):
-        serve_mod.main(["decode", "--arch", "rwkv6-3b", "--smoke",
-                        "--device", "cpu"])
 
 
 def test_decode_refuses_a_ragged_vocab_shard():

@@ -18,17 +18,15 @@ rtol=1e-4, atol=1e-5)`` on f32 outputs (the two packages sum in other
 orders and use other ``exp`` / ``sin`` / ``pow``; the largest error
 seen here is printed by a failing assertion).  The attention variants
 (MLA, the encoder-decoder, M-RoPE) are held to the reference in
-tests/test_torch_variants.py; the MoE, recurrent and sliding-window
-configs are refused.
+tests/test_torch_variants.py, MoE in tests/test_torch_moe.py, RWKV,
+Griffin and the sliding-window cache in tests/test_torch_recurrent.py.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
 from conftest import run_with_devices
 
-from repro_torch.configs.base import get_config, list_archs, smoke_config
+from repro_torch.configs.base import get_config, smoke_config
 from repro_torch.launch.serve import state_from_prefill
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -36,12 +34,6 @@ from repro_torch.models import model as M
 from repro_torch.models.rope import apply_rope
 
 ARCHS = ("qwen2-0.5b", "qwen1.5-0.5b", "phi3-medium-14b")
-VARIANTS = ("minicpm3-4b", "whisper-large-v3", "qwen2-vl-72b")
-# a dense GQA config with a sliding window: only recurrentgemma-2b sets
-# one, and its window cache comes with the Griffin slice
-WINDOWED = "qwen2-0.5b-window"
-UNPORTED = tuple(a for a in list_archs()
-                 if a not in ARCHS + VARIANTS) + (WINDOWED,)
 TOL = dict(rtol=1e-4, atol=1e-5)
 B, S, GEN = 2, 12, 4
 # flash_attention cases: name -> (B, Sq, Sk, Hq, Hkv, D, kwargs)
@@ -354,17 +346,3 @@ def test_teacher_forced_decode_matches_reference(ref, models, arch):
     for i, c in enumerate(st.caches):
         _close(c["self"].k, want[0][i])
         _close(c["self"].v, want[1][i])
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_configs_are_refused(arch):
-    if arch == WINDOWED:
-        cfg = dataclasses.replace(smoke_config(get_config("qwen2-0.5b")),
-                                  name=WINDOWED, local_window=32)
-    else:
-        cfg = smoke_config(get_config(arch))
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=arch):
-        M.init_params(gen, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=arch):
-        M.forward(None, cfg, {"tokens": torch.zeros((1, 2), dtype=torch.int32)})

@@ -536,13 +536,3 @@ def test_port_decode_differs_from_the_reference_on_a_cut_cross_cache(
     _close(logits, out[f"{WHISPER}/decode/0"])
     assert not torch.allclose(logits, _t(out[f"{WHISPER}/cut_decode"]),
                               **TOL)
-
-
-# --------------------------------------------------------------------------
-# check_ported
-# --------------------------------------------------------------------------
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_check_ported_accepts_the_attention_variants(arch):
-    M.check_ported(get_config(arch))
-    M.check_ported(smoke_config(get_config(arch)))

@@ -2,20 +2,24 @@
 """How far the card's and the CPU path's f32 decode each are from f64.
 
     python3 tools/decode_xcheck_error.py [--arch qwen2-vl-72b]
-        [--layers 1] [--batch 1 --batch 4] [--out FILE]
+        [--layers 1] [--batch 1 --batch 4] [--steps 1] [--window W]
+        [--caches] [--out FILE]
 
 Builds ``--arch`` (a decoder-only one) at its full width and
-``--layers`` layers in f32
-(weights drawn on the card from seed 0, copied to the host, and widened
-to f64 there), runs the f32 cross-check of ``chip_smoke.py`` (prefill
-over a 32-token prompt with the modality stubs' inputs, then one
-teacher-forced decode step; TF32 off) on the card, on the CPU path and
-on the CPU path in f64, and prints for each batch, for the prefill's
-last logits and the step's logits: the largest and the standard
-deviation of the card-vs-CPU, card-vs-f64 and CPU-vs-f64 differences,
-and how many elements fall outside rtol 1e-4 / atol 1e-5.  The f64 run
-keeps the model's f32 parts (RoPE, ``flash_attention``'s and the decode
-attention's sums); its large products are f64.
+``--layers`` layers in f32 (``--window`` replaces a sliding window's
+length) (weights drawn on the card from seed 0, copied to the host, and
+widened to f64 there), runs the f32 cross-check of ``chip_smoke.py``
+(prefill over a 32-token prompt with the modality stubs' inputs, then
+``--steps`` teacher-forced decode steps; TF32 off) on the card, on the
+CPU path and on the CPU path in f64, and prints for each batch, for the
+prefill's last logits and each step's logits (with ``--caches`` also
+every cache tensor after the prefill and after the steps): the largest
+and the standard deviation of the card-vs-CPU, card-vs-f64 and
+CPU-vs-f64 differences, how many elements fall outside rtol 1e-4 /
+atol 1e-5, and the largest |f64| value.  The f64 run keeps the model's
+f32 parts (RoPE, ``flash_attention``'s and the decode attention's sums,
+the top-k's values); its products, norms and recurrences (``wide``) are
+f64.
 
 Prints one JSON object as its last line (and writes it to ``--out``).
 Needs a CUDA device; exits 1 without one.
@@ -36,7 +40,7 @@ def _stats(a, b, tol):
     d = (a - b).abs()
     return {"max": float(d.max()), "std": float((a - b).std()),
             "outside_tol": int((d > tol["atol"] + tol["rtol"] * b.abs())
-                               .sum())}
+                               .sum()), "max_abs_value": float(b.abs().max())}
 
 
 def main() -> int:
@@ -54,6 +58,9 @@ def main() -> int:
     ap.add_argument("--arch", default="qwen2-vl-72b")
     ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--batch", type=int, action="append")
+    ap.add_argument("--steps", type=int, default=1)
+    ap.add_argument("--window", type=int, default=0)
+    ap.add_argument("--caches", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -62,28 +69,47 @@ def main() -> int:
     cfg = dataclasses.replace(
         get_config(args.arch), n_layers=args.layers, param_dtype="float32",
         compute_dtype="float32")
-    s_max = cs.DEC_PROMPT + 1
+    if args.window:
+        cfg = dataclasses.replace(cfg, local_window=args.window)
+    s_max = cs.DEC_PROMPT + args.steps
     card = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
                          max_seq=s_max, device=dev)
     host = copy.deepcopy(card).to("cpu")
     wide = copy.deepcopy(host).double()
+
+    def caches(prefix, st):
+        if not args.caches:
+            return {}
+        # a recurrent state is one tensor, an attention cache a tuple
+        # copies: a decode step writes the attention caches in place
+        return {f"{prefix} {c} {name} {j}": a.to("cpu", torch.float64,
+                                                 copy=True)
+                for c, layer in enumerate(st.caches)
+                for name, cache in layer.items()
+                for j, a in enumerate([cache] if torch.is_tensor(cache)
+                                      else cache)}
 
     def run(params, d, batch, dt):
         last, st = M.prefill(params, cfg, {
             k: v.to(d, dt) if v.is_floating_point() else v.to(d)
             for k, v in batch.items()})
         st = state_from_prefill(cfg, st, s_max, cache_dtype=dt)
-        lg, _ = M.decode_step(params, cfg, st, forced.to(d))
-        return {"prefill": last.cpu().double(),
-                "step": lg[:, 0].cpu().double()}
+        got = {"prefill": last.cpu().double(), **caches("padded cache", st)}
+        for i in range(args.steps):
+            lg, st = M.decode_step(params, cfg, st, forced[:, i:i + 1].to(d))
+            got["step" if args.steps == 1 else f"step {i}"] = \
+                lg[:, 0].cpu().double()
+        got.update(caches("cache", st))
+        return got
 
-    out = {"arch": cfg.name, "layers": cfg.n_layers, "card": cs._card_line(),
-           "tol": cs.DEC_TOL, "by_batch": {}}
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "window": cfg.local_window, "steps": args.steps,
+           "card": cs._card_line(), "tol": cs.DEC_TOL, "by_batch": {}}
     for b in args.batch or [1]:
         rng = np.random.default_rng(3)
         batch = cs._decode_batch(cfg, rng, b, "cpu")
         forced = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (b, 1)).astype(np.int32))
+            0, cfg.vocab_size, (b, args.steps)).astype(np.int32))
         got = {"card": run(card, dev, batch, torch.float32),
                "cpu": run(host, "cpu", batch, torch.float32),
                "f64": run(wide, "cpu", batch, torch.float64)}
@@ -92,7 +118,7 @@ def main() -> int:
                                       cs.DEC_TOL)
                    for x, y in (("card", "cpu"), ("card", "f64"),
                                 ("cpu", "f64"))}
-            for what in ("prefill", "step")}
+            for what in got["f64"]}
         print(f"[batch {b}] " + json.dumps(out["by_batch"][b]))
     line = json.dumps(out)
     if args.out:
