@@ -7,9 +7,8 @@ Drives the port's paths — the FD overlay top-k query served by a
 ``QueryServer``, statically and under churn with the CN / CN* baselines,
 the ``DeviceEngine``'s FD collectives over 64 virtual peers, a
 live overlay whose peers join and leave between queries, the serving
-CLI and entry sharding, and the LM decode with FD top-k sampling, for
-the dense GQA archs and the attention variants (MLA, the
-encoder-decoder, M-RoPE) —
+CLI and entry sharding, the LM decode with FD top-k sampling for
+every registered arch, and LM training with checkpoints —
 through the hand-written CUDA kernels, and fails (exit code 1, no
 result line) when any phase fails:
 
@@ -178,6 +177,29 @@ result line) when any phase fails:
      printed); the sampling's top-k and merge
      at each arch's shapes bit-equal to their plain versions; launch
      keys ``decode_<arch>``;
+  14. the training path on the card: ``repro_torch.launch.train`` in
+     process on granite-moe-1b-a400m at full size (bf16 weights, f32
+     AdamW moments, batch 8, seq 128): 20 steps with finite losses and
+     exactly 24 top-k launches a step (the routers, through the top-k
+     kernel with its new gradient), the checkpoint of step 20 restored
+     onto the card equal to the trained state bit for bit, a second
+     call to 24 steps resuming from step 20, and the checkpoint cycle
+     of ``--ckpt-every 5`` through the same CLI with ``--smoke`` (a
+     full-size checkpoint is 13.9 GB: the script writes two, 28 GB, not
+     the cycle's six, 83 GB): checkpoints 10, 15 and 20 kept (keep 3 across the forced
+     re-save, the repair of reference fault 3), then 15, 20 and 24;
+     granite (the CLI's settings) and qwen2-0.5b (2 microbatches, remat
+     ``"dots"``) timed over repeated-batch steps whose loss must fall,
+     one profiled step each (kernels, device ms, idle share) and
+     ``max_memory_allocated``; granite's 24 router top-k calls of one
+     step at (1,024, 32) k = 8 bit-equal to ``topk_ref``, the top-k's
+     input gradient bit-equal to the scatter, 24 top-k launches a step
+     and 48 under remat ``"full"`` and ``"dots"``; both archs at full
+     width and 2 layers in f32 with TF32 off against the CPU path (loss
+     rtol 1e-5, each gradient's relative L2 error at most 1e-4); its
+     launches are the ``train`` key of ``launches_by_path``, and the
+     router's training shape is timed under the top-k row's
+     ``router_shapes``;
   6. time each kernel (the churn variant at the churn sweep's level
      shapes) at the shapes its path gives it (CUDA events,
      median of several runs) beside its plain version, one PyTorch
@@ -2724,17 +2746,17 @@ class _router_probs:
 
     def __enter__(self):
         from repro_torch.models import moe
-        self.real, self.seen = moe.local_topk, []
+        self.real, self.seen = moe.topk_with_grad, []
 
         def spy(probs, k, **kw):
             self.seen.append((probs.detach().clone(), k))
             return self.real(probs, k, **kw)
-        moe.local_topk = spy
+        moe.topk_with_grad = spy
         return self.seen
 
     def __exit__(self, *exc):
         from repro_torch.models import moe
-        moe.local_topk = self.real
+        moe.topk_with_grad = self.real
 
 
 def _router_margin(seen):
@@ -2864,6 +2886,367 @@ def _archs(dev, card, errs, _build):
         _decode_kernels(scores[arch], errs, what)
         print(f"[{what}] {time.perf_counter() - t0:.3f} s")
     return launches, scores, router
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the training path on the card
+# ---------------------------------------------------------------------------
+
+# the training CLI at full size (random bf16 weights from seed 0, f32
+# AdamW moments, SyntheticLM data): granite-moe-1b-a400m, 20 steps at
+# batch 8, seq 128, then a second call to 24 steps that resumes from
+# step 20; qwen2-0.5b through build() and make_train_step with 2
+# microbatches and remat "dots".  granite's state is 13.9 GB a
+# checkpoint, so each full-size call writes only its final checkpoint
+# (the CLI's default --ckpt-every 50 > 24; 28 GB to disk in all), and
+# the checkpoint cycle of --ckpt-every 5 (five writes, six with the
+# resume: 83 GB at full size) runs through the same CLI with --smoke
+TRAIN_ARCH, TRAIN_B, TRAIN_SEQ = "granite-moe-1b-a400m", 8, 128
+TRAIN_STEPS, TRAIN_RESUME, TRAIN_EVERY = 20, 24, 5
+DENSE_ARCH, DENSE_STEPS, DENSE_MB, DENSE_REMAT = "qwen2-0.5b", 10, 2, "dots"
+# steps timed with the device synchronised (the first is cold)
+TRAIN_TIMED = 6
+# the f32 cross-check: full width, 2 layers, batch 2, seq 64, TF32 off
+TRAIN_XCHECK = (2, 2, 64)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+
+
+def _train_argv(steps, ckpt_dir, *extra):
+    return ["--arch", TRAIN_ARCH, "--device", "cuda", "--steps", str(steps),
+            "--batch", str(TRAIN_B), "--seq", str(TRAIN_SEQ), "--ckpt-dir",
+            str(ckpt_dir), *extra]
+
+
+def _check_losses(what, losses, n, falls=False):
+    """``n`` finite losses and, with ``falls``, the last below the
+    first."""
+    _require(len(losses) == n and all(math.isfinite(x) for x in losses),
+             f"{what}: losses {losses}, want {n} finite ones")
+    _require(not falls or losses[-1] < losses[0],
+             f"{what}: last loss {losses[-1]} not below the first "
+             f"{losses[0]}")
+
+
+def _run_cli(fn, argv):
+    """``fn(argv)`` (``train.run`` or ``train.main``) in process, its
+    print captured and echoed; returns (its result, the print, s)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        got = fn(argv)
+    wall = time.perf_counter() - t0
+    print(buf.getvalue(), end="")
+    return got, buf.getvalue(), wall
+
+
+def _check_resumed(what, out, losses, n):
+    _require(f"resumed from step {TRAIN_STEPS}\n" in out
+             and "done: first loss" in out and len(losses) == n
+             and all(math.isfinite(x) for x in losses),
+             f"{what}: {out!r}")
+
+
+def _train_cli(dev, card, _build):
+    """``repro_torch.launch.train`` in process on granite at full size:
+    20 steps (``run``: every loss finite, exactly 24 top-k launches a
+    step; on 20 fresh batches at lr 3e-4 the loss is noise, so whether it
+    falls is printed, and :func:`_train_timed` requires it to fall on a
+    repeated batch), its checkpoint of step 20
+    restored onto the card equal to the trained state bit for bit, and
+    ``main`` to 24 steps, which must resume from step 20; then the
+    checkpoint cycle with ``--ckpt-every 5 --smoke``: checkpoints 10, 15
+    and 20 left after 20 steps (keep 3 across the forced re-save of step
+    20: the port's repair of reference fault 3), 15, 20 and 24 after the
+    resume.  Returns the first call's launches."""
+    import shutil
+    import torch
+    from repro_torch.ckpt import checkpoint as C
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        _build.reset_launches()          # count the CLI's run alone
+        (losses, state), _, wall = _run_cli(
+            train.run, _train_argv(TRAIN_STEPS, ckpt))
+        launches = dict(_build.LAUNCHES)
+        _check_losses("train CLI", losses, TRAIN_STEPS)
+        cfg = get_config(TRAIN_ARCH)
+        want = {"topk": cfg.n_layers * TRAIN_STEPS, "topk_select": 0,
+                "merge": 0}
+        got = {k: launches[k] for k in want}
+        _require(got == want, f"train CLI: launches {got}, want {want}")
+        kept = C._finished(str(ckpt))
+        _require(kept == [TRAIN_STEPS], f"train CLI: checkpoints {kept}")
+        t1 = time.perf_counter()
+        lm = M.init_params(torch.Generator(dev).manual_seed(1), cfg,
+                           max_seq=TRAIN_SEQ, device=dev)
+        restored = C.restore(str(ckpt), TRAIN_STEPS,
+                             (lm, adamw_init(lm, AdamWConfig())), device=dev)
+        a, b = [], []
+        C._flatten(state, a)
+        C._flatten(restored, b)
+        _require(len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b)),
+                 "train CLI: the restored step 20 != the trained state")
+        restore_s = time.perf_counter() - t1
+        nbytes = sum(_nbytes(x) for x in a)
+        del state, restored, lm, a, b
+        _free_card()
+        losses2, out, wall2 = _run_cli(train.main,
+                                       _train_argv(TRAIN_RESUME, ckpt))
+        _check_resumed("train CLI resume", out, losses2,
+                       TRAIN_RESUME - TRAIN_STEPS)
+        kept2 = C._finished(str(ckpt))
+        _require(kept2 == [TRAIN_STEPS, TRAIN_RESUME],
+                 f"train CLI resume: checkpoints {kept2}")
+        shutil.rmtree(ckpt)
+        cycle = ("--ckpt-every", str(TRAIN_EVERY), "--smoke")
+        _run_cli(train.main, _train_argv(TRAIN_STEPS, ckpt, *cycle))
+        kept3 = C._finished(str(ckpt))
+        _require(kept3 == [10, 15, 20], f"train CLI --ckpt-every "
+                 f"{TRAIN_EVERY} --smoke: checkpoints {kept3}, want "
+                 "[10, 15, 20]")
+        losses4, out, _ = _run_cli(train.main, _train_argv(
+            TRAIN_RESUME, ckpt, *cycle))
+        _check_resumed("train CLI --smoke resume", out, losses4,
+                       TRAIN_RESUME - TRAIN_STEPS)
+        kept4 = C._finished(str(ckpt))
+        _require(kept4 == [15, 20, 24], f"train CLI --smoke resume: "
+                 f"checkpoints {kept4}, want [15, 20, 24]")
+        res = {"losses": losses, "last_below_first": losses[-1] < losses[0],
+               "resumed_losses": losses2, "main_s": wall,
+               "resume_main_s": wall2, "restore_check_s": restore_s,
+               "checkpoint_bytes": nbytes, "kept": kept,
+               "kept_after_resume": kept2, "smoke_cycle_kept": kept3,
+               "smoke_cycle_kept_after_resume": kept4,
+               "launches": launches}
+        print("[train] CLI " + json.dumps(res) + f"; {card}")
+        return launches
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _train_profile(step):
+    """One profiler window of one call of ``step``: its kernels (markers
+    left out), their device time, the union of their intervals and the
+    six kernels that take the most device time."""
+    kernels = [(ts, dur, name) for _, name, ts, dur in _trace_kernels(
+        _profiled(step))[0] if name != _MARKER]
+    by_name = {}
+    for _, dur, name in kernels:
+        by_name[name] = by_name.get(name, 0.0) + dur / 1e3
+    ivs = sorted((ts, ts + dur) for ts, dur, _ in kernels)
+    busy, end = 0.0, -math.inf
+    for a, b in ivs:                     # the union of kernel intervals
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return {"kernels": len(kernels),
+            "device_ms": sum(d for _, d, _ in kernels) / 1e3,
+            "busy_ms": busy / 1e3,
+            "span_ms": (ivs[-1][1] - ivs[0][0]) / 1e3 if ivs else None,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def _train_timed(dev, card, arch, microbatches, remat, steps, router=None):
+    """``launch.train.build`` at full size on the card and ``steps``
+    train steps on one repeated batch (step 0's), each synchronised:
+    losses finite and the last below the first (the model fits the
+    batch it sees again); a step's ms (the mean of the warm ones) and
+    tokens/s, ``max_memory_allocated``, then one profiler window of one
+    step (kernels, device ms, idle share of the synchronised step) and
+    one of ``adamw_update`` alone.  With ``router``, granite's router
+    checks (:func:`_train_router`).  Returns the numbers."""
+    import torch
+    from repro_torch.data.pipeline import device_put_batch
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update, decayed
+    _free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    what = f"train {arch}"
+    t0 = time.perf_counter()
+    cfg, _, params, opt, step_fn, data = train.build(
+        arch, smoke=False, batch=TRAIN_B, seq=TRAIN_SEQ, model_par=1,
+        microbatches=microbatches, remat=remat, lr=3e-4, steps=steps,
+        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, step_s = [], []
+    batch = device_put_batch(data.batch_at(0), dev)
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    _check_losses(what, losses, steps, falls=True)
+    warm = step_s[1:]
+    step_ms = statistics.fmean(warm) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = _train_profile(lambda: step_fn(params, opt, batch))
+    prof["idle_share_of_synced_step"] = 1 - prof["busy_ms"] / step_ms
+    # the optimizer's share: adamw_update alone on zero gradients
+    grads = {n: torch.zeros_like(p) for n, p in params.named_parameters()}
+    decay = decayed(params, cfg)
+    prof["adamw_update"] = _train_profile(lambda: adamw_update(
+        grads, opt, params, AdamWConfig(), decay))
+    del grads
+    res = {"microbatches": microbatches, "remat": remat,
+           "init_s": init_s, "losses": losses, "step_s": step_s,
+           "step_ms_mean_warm": step_ms,
+           "tokens_per_s": TRAIN_B * TRAIN_SEQ / (step_ms / 1e3),
+           "profile": prof,
+           "max_memory_allocated": peak}
+    print(f"[{what}] {cfg.n_layers} layers, batch {TRAIN_B}, seq "
+          f"{TRAIN_SEQ} " + json.dumps(res) + f"; {card}")
+    if router is not None:
+        res["router"] = router(cfg, params, opt, step_fn, data)
+    del params, opt
+    _free_card()
+    return res
+
+
+def _train_router(dev, errs, _build):
+    """granite's router in training: one step's 24 router calls
+    captured at (1,024, 32), k = 8, the kernel bit-equal to
+    ``topk_ref`` on each; the top-k autograd function's input gradient
+    bit-equal to the scatter of one upstream gradient; exactly 24
+    top-k launches a step without remat and 48 under ``remat="full"``
+    (and ``"dots"``), which recompute each router.  Returns layer 0's
+    probabilities and k."""
+    import torch
+    from repro_torch.data.pipeline import device_put_batch
+    from repro_torch.kernels.topk import topk_cuda, topk_ref, \
+        topk_with_grad
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.steps import make_train_step
+
+    def check(cfg, params, opt, step_fn, data):
+        batch = device_put_batch(data.batch_at(0), dev)
+        with _router_probs() as seen:
+            step_fn(params, opt, batch)
+        n = cfg.n_layers
+        _require(len(seen) == n and all(
+            tuple(p.shape) == (TRAIN_B * TRAIN_SEQ, cfg.moe.n_experts)
+            and k == cfg.moe.top_k for p, k in seen),
+            f"train router: {len(seen)} calls, want {n} of "
+            f"({TRAIN_B * TRAIN_SEQ}, {cfg.moe.n_experts})")
+        for probs, k in seen:
+            v1, i1 = topk_cuda(probs, k)
+            v2, i2 = topk_ref(probs.cpu(), k)
+            errs["topk"] = max(errs["topk"], _max_abs_err(v1.cpu(), v2))
+            _require(_same(v1.cpu(), v2) and _same(i1.cpu(), i2),
+                     f"train router top-k at {tuple(probs.shape)}: kernel "
+                     "!= topk_ref")
+        k = cfg.moe.top_k
+        x = seen[0][0].clone().requires_grad_(True)
+        v, i = topk_with_grad(x, k)
+        g = torch.randn(v.shape, generator=torch.Generator(dev).manual_seed(3),
+                        device=dev)
+        (gx,) = torch.autograd.grad(v, x, g)
+        _require(_same(gx, torch.zeros_like(x).scatter(-1, i.long(), g)),
+                 "train router: the top-k's gradient != the scatter")
+        counts = {}
+        for remat in ("none", "full", "dots"):
+            fn = make_train_step(cfg, AdamWConfig(), remat=remat)
+            _build.reset_launches()
+            fn(params, opt, batch)
+            torch.cuda.synchronize()
+            counts[remat] = _build.LAUNCHES["topk"]
+        want = {"none": n, "full": 2 * n, "dots": 2 * n}
+        _require(counts == want, f"train router: top-k launches a step "
+                 f"{counts}, want {want}")
+        print(f"[train router] {len(seen)} router top-k calls a step on the "
+              f"card == topk_ref bit for bit at {tuple(seen[0][0].shape)} "
+              f"k = {k} (smallest k-th / (k+1)-th gap "
+              f"{_router_margin(seen)}); the autograd function's input "
+              f"gradient == the scatter, bit for bit; top-k launches a step "
+              + json.dumps(counts))
+        return seen[0]
+    return check
+
+
+def _train_xcheck(dev, arch, errs):
+    """``arch`` at full width and 2 layers in f32 with TF32 off:
+    ``loss_fn`` and the gradient of every parameter on the card against
+    the port's CPU path on the same weights (drawn on the card, copied
+    to the host) and the same SyntheticLM batch (2 x 64): the loss
+    within rtol 1e-5, each gradient's relative L2 error at most 1e-4;
+    the smallest router gap printed for MoE."""
+    import copy
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, device_put_batch
+    from repro_torch.models import model as M
+    layers, batch, seq = TRAIN_XCHECK
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    t0 = time.perf_counter()
+    card = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                         max_seq=seq, device=dev)
+    host = copy.deepcopy(card).to("cpu")
+    raw = SyntheticLM(cfg.vocab_size, seq, batch, seed=4).batch_at(0)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs, routed = [], []
+        for params, d in ((card, dev), (host, "cpu")):
+            with _router_probs() as seen:
+                loss, aux = M.loss_fn(params, cfg, device_put_batch(raw, d))
+                names, leaves = zip(*params.named_parameters())
+                grads = torch.autograd.grad(loss, leaves)
+            outs.append((float(loss.detach()),
+                         {k: float(v.detach()) for k, v in aux.items()},
+                         {n: g.detach().cpu().double()
+                          for n, g in zip(names, grads)}))
+            routed.append(seen)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    margin = _router_margin(routed[1]) if routed[1] else None
+    (l_card, m_card, g_card), (l_cpu, m_cpu, g_cpu) = outs
+    rel = {n: float((g_card[n] - g).norm() / g.norm().clamp_min(1e-30))
+           for n, g in g_cpu.items()}
+    worst = dict(sorted(rel.items(), key=lambda kv: -kv[1])[:6])
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    _require(loss_err <= TRAIN_LOSS_RTOL and max(rel.values())
+             <= TRAIN_GRAD_RTOL,
+             f"train {arch} cross-check: loss {l_card} vs {l_cpu} (rel "
+             f"{loss_err}), worst gradients {worst}, router margin "
+             f"{margin}")
+    errs[f"train_{arch}"] = max(rel.values())
+    print(f"[train {arch}] full width, {layers} layers, batch {batch}, seq "
+          f"{seq}, f32, TF32 off: loss {l_card} (card) vs {l_cpu} (CPU "
+          f"path), rel {loss_err}; {m_card} vs {m_cpu}; {len(rel)} "
+          f"gradients within relative L2 {TRAIN_GRAD_RTOL}, largest "
+          + json.dumps(worst)
+          + ("" if margin is None else f"; router margin {margin}")
+          + f" ({time.perf_counter() - t0:.3f} s)")
+
+
+def _train(dev, card, errs, _build):
+    """Phase 14: the training CLI on granite-moe-1b-a400m at full size
+    with checkpoints, resume and the bit-equal restore
+    (:func:`_train_cli`); granite (the CLI's settings, with the router
+    checks of :func:`_train_router`) and qwen2-0.5b (2 microbatches,
+    remat "dots") timed and profiled (:func:`_train_timed`); both held
+    in f32 to the CPU path (:func:`_train_xcheck`).  Returns (launches
+    of the CLI's run, (layer 0's router probabilities of one step, k))."""
+    launches = _train_cli(dev, card, _build)
+    _free_card()
+    res = _train_timed(dev, card, TRAIN_ARCH, 1, "none", TRAIN_TIMED,
+                       router=_train_router(dev, errs, _build))
+    _train_timed(dev, card, DENSE_ARCH, DENSE_MB, DENSE_REMAT, DENSE_STEPS)
+    for arch in (TRAIN_ARCH, DENSE_ARCH):
+        _train_xcheck(dev, arch, errs)
+        _free_card()
+    return launches, res["router"]
 
 
 # ---------------------------------------------------------------------------
@@ -3217,7 +3600,8 @@ def _topk_shape(what, x, errs, k=DEV_K):
     return row
 
 
-def _topk_row(scores, dec_scores, errs, launches, var_scores, router):
+def _topk_row(scores, dec_scores, errs, launches, var_scores, router,
+              train_router):
     """The top-k at the device path's three shapes: local execution of
     the 32 queries on 64 peers, CN over the full rows, CN* over the
     gathered k-lists; each held to its plain version, then timed.  The
@@ -3225,8 +3609,9 @@ def _topk_row(scores, dec_scores, errs, launches, var_scores, router):
     peer), qwen2-0.5b's and each other arch's (``var_scores``), are
     timed the same way under ``decode_shapes``, and each MoE arch's
     router at its decode (4, E) and prefill (128, E) shapes
-    (``router``: layer 0's probabilities and k) under ``router_shapes``,
-    outside the row's sums."""
+    (``router``: layer 0's probabilities and k) and granite's in
+    training at (1,024, 32) (``train_router``, phase 14's) under
+    ``router_shapes``, outside the row's sums."""
     from repro_torch.kernels.topk import topk_cuda
     lists = topk_cuda(scores.view(DEV_B, DEV_PEERS, DEV_LOCAL), DEV_K)[0]
     shapes = (("local execution", scores.view(DEV_B * DEV_PEERS, DEV_LOCAL)),
@@ -3241,6 +3626,9 @@ def _topk_row(scores, dec_scores, errs, launches, var_scores, router):
     routers = [_topk_shape(f"{arch} router, {part}", r[part], errs, r["k"])
                for arch, r in router.items()
                for part in ("decode", "prefill")]
+    probs, k = train_router
+    routers.append(_topk_shape(f"{TRAIN_ARCH} router, train", probs, errs,
+                               k))
     by_path = {path: n["topk"] for path, n in launches.items()}
     t_bytes = sum(r["bytes"] for r in per) / MEM_BYTES_PER_S * 1e3
     t_ops = sum(math.prod(r["shape"]) for r in per) / OPS32_PER_S * 1e3
@@ -3559,12 +3947,17 @@ def main() -> int:
     t0 = time.perf_counter()
     arch_launches, arch_scores, router = _archs(dev, card, errs, _build)
     print(f"[phase 13] {time.perf_counter() - t0:.3f} s")
+    _free_card()
+    t0 = time.perf_counter()
+    train_launches, train_router = _train(dev, card, errs, _build)
+    print(f"[phase 14] {time.perf_counter() - t0:.3f} s")
 
     launches = {"serve": serve_launches, "serve_churn": churn_launches,
                 "device": dev_launches, "topologies": topo_launches,
                 **prec_launches, "overlay": overlay_launches,
                 "cli": cli_launches, "shard": shard_launches,
-                "decode": decode_launches, **var_launches, **arch_launches}
+                "decode": decode_launches, **var_launches, **arch_launches,
+                "train": train_launches}
     # phase 3b extended origin 0's slices with the reroute tables
     rr = _device_slices(engine.plan.depth_slices(sts[0]), dev)[2]
     _require(rr is not None, "phase 3b built no reroute tables")
@@ -3574,7 +3967,8 @@ def main() -> int:
         if row["name"] in by_dtype:
             row["by_dtype"] = by_dtype[row["name"]]
     rows.append(_topk_row(scores, dec_scores, errs, launches,
-                          {**var_scores, **arch_scores}, router))
+                          {**var_scores, **arch_scores}, router,
+                          train_router))
     rows.append(_topk_select_row(scores, errs, launches))
     print(card)
     print(json.dumps({"kernels": rows}))

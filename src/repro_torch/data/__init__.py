@@ -1,1 +1,2 @@
-"""Host-side data helpers of the port (numpy)."""
+"""Host-side data helpers of the port (numpy): the synthetic LM data,
+the modality stubs' inputs and the move of a batch to a device."""

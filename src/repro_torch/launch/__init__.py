@@ -1,4 +1,6 @@
 """Launchers of the port: ``python -m repro_torch.launch.serve overlay``
-serves overlay top-k queries from warm engines on a CUDA device, and
+serves overlay top-k queries from warm engines on a CUDA device,
 ``... serve decode`` runs the LM prefill + decode path with FD top-k
-sampling; ``launch.mesh`` builds the decode's mesh of virtual peers."""
+sampling, and ``python -m repro_torch.launch.train`` trains an LM with
+AdamW and checkpoints; ``launch.mesh`` builds the decode's mesh of
+virtual peers."""

@@ -17,13 +17,13 @@ from torch import nn
 
 
 def param_dict(tensors: dict) -> nn.ParameterDict:
-    """``tensors`` as frozen parameters: the port serves, and no slice
-    trains yet.  A nested dict (MLA's ``q_norm``) becomes a nested
-    ``ParameterDict``, so ``params["q_norm"]["scale"]`` reads as the
-    reference's pytree does."""
+    """``tensors`` as trainable parameters (the serving functions run
+    under ``torch.no_grad``, so they build no graph).  A nested dict
+    (MLA's ``q_norm``) becomes a nested ``ParameterDict``, so
+    ``params["q_norm"]["scale"]`` reads as the reference's pytree
+    does."""
     return nn.ParameterDict({
-        k: param_dict(v) if isinstance(v, dict)
-        else nn.Parameter(v, requires_grad=False)
+        k: param_dict(v) if isinstance(v, dict) else nn.Parameter(v)
         for k, v in tensors.items()})
 
 

@@ -4,8 +4,10 @@ One parameter module (:class:`LM`) and the reference's entry points:
 
   * ``init_params(gen, cfg, max_seq=..., device=...)`` — random weights
     from an explicit ``torch.Generator``, on the card by default
-  * ``forward(params, cfg, batch, mode=...)`` — logits (and the prompt's
-    caches in prefill)
+  * ``forward(params, cfg, batch, mode=...)`` — logits, the prompt's
+    caches in prefill, and MoE's auxiliary loss
+  * ``loss_fn(params, cfg, batch)`` — next-token cross-entropy plus the
+    auxiliary loss, the training objective
   * ``encode(params, cfg, frames)`` — the encoder of an encoder-decoder
   * ``prefill(params, cfg, batch)`` — last logits + a ``DecodeState``
   * ``decode_step(params, cfg, state, tokens)`` — one token; writes the
@@ -13,6 +15,9 @@ One parameter module (:class:`LM`) and the reference's entry points:
   * ``params_from_reference(tree, cfg)`` — the reference's parameter
     pytree (numpy leaves) carried into an :class:`LM`, so both packages
     compute the same function
+
+The parameters are trainable; ``prefill`` and ``decode_step`` serve
+under ``torch.no_grad``, so serving builds no autograd graph.
 
 Every registered arch runs, and its smoke config: dense GQA
 (qwen2-0.5b, qwen1.5-0.5b, phi3-medium-14b), MLA (minicpm3-4b), the
@@ -22,9 +27,7 @@ encoder-decoder with cross attention and learned positions
 Griffin's RG-LRU with sliding-window attention (recurrentgemma-2b).
 The modality frontends are stubs, as in the reference: whisper
 consumes precomputed frame embeddings (B, encoder_seq, D), qwen2-vl
-precomputed patch embeddings over the first n_vis slots.  The
-reference's third output of ``forward`` (MoE's auxiliary loss) and
-``loss_fn`` wait for the training slice.
+precomputed patch embeddings over the first n_vis slots.
 
 The logits cover every row of ``cfg.padded_vocab()``, and the padding
 rows of the embedding are random like the rest, as in the reference;
@@ -73,13 +76,12 @@ class LM(nn.Module):
                  layers: List[T.Block], w_lm=None, pos_embed=None,
                  enc: Optional[Encoder] = None):
         super().__init__()
-        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.embed = nn.Parameter(embed)
         self.norm_f = L.param_dict(norm_f)
         self.layers = nn.ModuleList(layers)
-        self.w_lm = (None if w_lm is None
-                     else nn.Parameter(w_lm, requires_grad=False))
+        self.w_lm = None if w_lm is None else nn.Parameter(w_lm)
         self.pos_embed = (None if pos_embed is None
-                          else nn.Parameter(pos_embed, requires_grad=False))
+                          else nn.Parameter(pos_embed))
         self.enc = enc
 
 
@@ -228,8 +230,9 @@ def encode(params: LM, cfg: ModelConfig, frames, *, q_block: int = 1024,
     x = x + sinusoidal_embedding(s, d, x.dtype, device=x.device)[None]
     pos = torch.arange(s, dtype=torch.int32,
                        device=x.device)[None].expand(b, s)
-    x, _ = T.stack_apply(params.enc.layers, cfg, x, mode="encode",
-                         positions=pos, q_block=q_block, kv_block=kv_block)
+    x, _, _ = T.stack_apply(params.enc.layers, cfg, x, mode="encode",
+                            positions=pos, q_block=q_block,
+                            kv_block=kv_block)
     return L.apply_norm(params.enc.norm_f, x, cfg.norm)
 
 
@@ -238,13 +241,15 @@ def encode(params: LM, cfg: ModelConfig, frames, *, q_block: int = 1024,
 # --------------------------------------------------------------------------
 
 def forward(params: LM, cfg: ModelConfig, batch: dict, *,
-            mode: str = "train", q_block: int = 1024,
+            mode: str = "train", remat: str = "none", q_block: int = 1024,
             kv_block: int = 1024):
     """batch keys: tokens (B, S) int32; frames (B, enc_seq, D) for an
     encoder-decoder; optional vision_embeds (B, n_vis, D) and positions
     ((B, S), or (3, B, S) under M-RoPE).  Returns (logits (B, S, V_pad),
-    caches): the per-layer caches of the prompt in prefill (with the
-    encoder's cross KV), None in train."""
+    caches, aux): the per-layer caches of the prompt in prefill (with
+    the encoder's cross KV), None in train; ``aux`` the decoder's MoE
+    auxiliary loss (f32, zero without MoE; the encoder's is dropped, as
+    in the reference).  ``remat`` is :func:`transformer.stack_apply`'s."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = batch.get("positions")
@@ -256,10 +261,37 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
                          kv_block=kv_block)
     x = embed_tokens(params, cfg, tokens,
                      vision_embeds=batch.get("vision_embeds"))
-    x, caches = T.stack_apply(params.layers, cfg, x, mode=mode,
-                              positions=positions, enc_out=enc_out,
-                              q_block=q_block, kv_block=kv_block)
-    return logits_fn(params, cfg, x), caches
+    x, caches, aux = T.stack_apply(params.layers, cfg, x, mode=mode,
+                                   positions=positions, enc_out=enc_out,
+                                   remat=remat, q_block=q_block,
+                                   kv_block=kv_block)
+    return logits_fn(params, cfg, x), caches, aux
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: dict, *,
+            remat: str = "none", q_block: int = 1024, kv_block: int = 1024):
+    """Next-token cross-entropy plus MoE's auxiliary loss.  labels:
+    (B, S) int32, -1 = ignore.  Returns (loss, {"ce", "aux", "n_tok"}),
+    f32 scalars.
+
+    The logits in f32 (an f64 model keeps f64), ``logsumexp``, and the
+    label's logit picked with ``take_along_dim`` on the labels clamped
+    to 0, then masked: the reference's (B, S, V) one-hot sums one logit
+    and zeros, so the pick is the same value, without a (B, S, V) mask
+    (157 MB a step at qwen2-0.5b's 153,600 columns).
+    """
+    logits, _, aux = forward(params, cfg, batch, mode="train", remat=remat,
+                             q_block=q_block, kv_block=kv_block)
+    labels = batch["labels"]
+    lf = L.wide(logits)
+    lse = torch.logsumexp(lf, dim=-1)                            # (B, S)
+    picked = torch.take_along_dim(
+        lf, labels.clamp_min(0).long()[..., None], dim=-1)[..., 0]
+    mask = (labels >= 0).to(lf.dtype)
+    n_tok = torch.clamp_min(mask.sum(), 1.0)
+    ce = ((lse - picked) * mask).sum() / n_tok
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, "n_tok": n_tok}
 
 
 # --------------------------------------------------------------------------
@@ -284,16 +316,18 @@ def init_decode_state(cfg: ModelConfig, *, batch: int, s_max: int,
                                       dtype=cache_dtype, device=device), 0)
 
 
+@torch.no_grad()
 def prefill(params: LM, cfg: ModelConfig, batch: dict, *,
             q_block: int = 1024, kv_block: int = 1024):
     """Run the prompt through the stack, building caches that cover
     exactly the prompt (``launch.serve.state_from_prefill`` pads them).
     Returns (logits_last (B, V_pad), DecodeState)."""
-    logits, caches = forward(params, cfg, batch, mode="prefill",
-                             q_block=q_block, kv_block=kv_block)
+    logits, caches, _ = forward(params, cfg, batch, mode="prefill",
+                                q_block=q_block, kv_block=kv_block)
     return logits[:, -1], DecodeState(caches, int(batch["tokens"].shape[1]))
 
 
+@torch.no_grad()
 def decode_step(params: LM, cfg: ModelConfig, state: DecodeState, tokens):
     """One decode step.  tokens: (B, 1) int32.  Writes each attention
     cache at ``state.pos`` (a window cache at ``pos % W``) in place (the
@@ -303,9 +337,9 @@ def decode_step(params: LM, cfg: ModelConfig, state: DecodeState, tokens):
     positions = make_positions(cfg, b, 1, offset=state.pos,
                                device=tokens.device)
     x = embed_tokens(params, cfg, tokens, pos_offset=state.pos)
-    x, caches = T.stack_apply(params.layers, cfg, x, mode="decode",
-                              positions=positions, caches=state.caches,
-                              cache_pos=state.pos)
+    x, caches, _ = T.stack_apply(params.layers, cfg, x, mode="decode",
+                                 positions=positions, caches=state.caches,
+                                 cache_pos=state.pos)
     return logits_fn(params, cfg, x), DecodeState(caches, state.pos + 1)
 
 

@@ -2,10 +2,17 @@
 
 The router's top-k is the paper's "local query execution": each token
 keeps the k best of its expert scores, with no communication.  It runs
-through ``kernels/topk/ops.py::local_topk``: the top-k kernel on the
-card, its plain version (``topk_ref``) on the CPU, with ``lax.top_k``'s
-order (descending, lowest index on ties; ``torch.topk``'s tie order is
-unspecified).
+through ``kernels/topk/ops.py::topk_with_grad``, which is ``local_topk``
+(the top-k kernel on the card, its plain version ``topk_ref`` on the
+CPU, with ``lax.top_k``'s order: descending, lowest index on ties;
+``torch.topk``'s tie order is unspecified) with ``lax.top_k``'s
+gradient, a scatter back to the winners.
+
+Training differentiates as the reference does: a dropped (token, slot)
+pair gets no gradient (the buffer's extra row, where dropped pairs land,
+is never read), and the auxiliary loss's gradient flows through the
+mean probability of each expert only (the fraction routed to it comes
+from a one-hot of the indices).
 
 Serving takes the reference's ``"capacity"`` route: a stable sort of the
 (token, slot) pairs by expert, a static (E * C, D) buffer and batched
@@ -23,7 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.topk import local_topk
+from repro_torch.kernels.topk import topk_with_grad
 from repro_torch.models.layers import dense_init, wide
 
 
@@ -85,7 +92,7 @@ def _moe_local(params, x, cfg, *, impl: str = "capacity"):
     xf = x.reshape(t, d)
 
     probs = torch.softmax(_router_logits(xf, params["router"]), dim=-1)
-    gate_vals, expert_ids = local_topk(probs, k)              # (T, k)
+    gate_vals, expert_ids = topk_with_grad(probs, k)          # (T, k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
     expert_ids = expert_ids.long()
 

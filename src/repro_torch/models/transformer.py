@@ -16,6 +16,7 @@ mix.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
@@ -132,12 +133,13 @@ def _attn_mixer(block: Block, cfg: ModelConfig, h, *, positions, mode,
 def block_apply(block: Block, cfg: ModelConfig, x, *, positions, mode: str,
                 cache: Optional[dict] = None, cache_pos=None, enc_out=None,
                 q_block: int = 1024, kv_block: int = 1024):
-    """Apply one block.  Returns (x', cache'): the prompt's caches in
-    prefill (the recurrent ones run from zero states), the caches in
-    decode (attention's written in place, the recurrent states new
-    tensors), None in train and encode.  MoE's auxiliary loss is not
-    returned (the training slice's)."""
+    """Apply one block.  Returns (x', cache', aux_loss): the prompt's
+    caches in prefill (the recurrent ones run from zero states), the
+    caches in decode (attention's written in place, the recurrent states
+    new tensors), None in train and encode; ``aux_loss`` is MoE's
+    load-balance loss (f32), None for any other FFN."""
     keep = mode in ("prefill", "decode")
+    aux = None
     new_cache = {} if keep else None
     b, dev = x.shape[0], x.device
     h = L.apply_norm(block.norm1, x, cfg.norm)
@@ -180,7 +182,7 @@ def block_apply(block: Block, cfg: ModelConfig, x, *, positions, mode: str,
 
     h = L.apply_norm(block.norm2, x, cfg.norm)
     if cfg.moe is not None:
-        y, _ = moe_mod.apply_moe(block.ffn, h, cfg)
+        y, aux = moe_mod.apply_moe(block.ffn, h, cfg)
     elif cfg.act == "rwkv_channel_mix":
         xp = (cache["xp_c"] if cache is not None
               else torch.zeros((b, 1, cfg.d_model), dtype=torch.float32,
@@ -190,7 +192,7 @@ def block_apply(block: Block, cfg: ModelConfig, x, *, positions, mode: str,
             new_cache["xp_c"] = xp
     else:
         y = L.apply_ffn(block.ffn, h, cfg.act)
-    return x + y, new_cache
+    return x + y, new_cache, aux
 
 
 def stack_caches(cfg: ModelConfig, *, batch: int, s_max: int, dtype,
@@ -200,16 +202,89 @@ def stack_caches(cfg: ModelConfig, *, batch: int, s_max: int, dtype,
             for kind in cfg.layer_kinds()]
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``:
+    save the outputs of products without batch dims (``x @ w``, which
+    dispatches to ``mm`` / ``addmm``) and recompute the rest, the
+    batched ``bmm`` of attention and of the experts included."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the reference's ``remat`` policy: ``"none"``,
+    ``"full"`` (every activation recomputed in the backward) or
+    ``"dots"`` (:func:`_dots_policy`).  No value changes."""
+    if remat == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if remat == "dots":
+        return lambda *a: checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"unknown remat {remat!r}")
+
+
 def stack_apply(layers: nn.ModuleList, cfg: ModelConfig, x, *, mode: str,
                 positions, caches=None, cache_pos=None, enc_out=None,
-                q_block: int = 1024, kv_block: int = 1024):
-    """Run the stack.  Returns (x, caches'): a list of per-layer caches
-    in prefill and decode, None in train and encode."""
-    new_caches = []
-    for i, block in enumerate(layers):
-        x, c = block_apply(block, cfg, x, positions=positions, mode=mode,
+                remat: str = "none", q_block: int = 1024,
+                kv_block: int = 1024):
+    """Run the stack.  Returns (x, caches', aux_sum): a list of
+    per-layer caches in prefill and decode, None in train and encode;
+    the auxiliary losses summed as the reference sums them (within a
+    group, then over the groups, then the remainder layers), an f32 zero
+    without MoE, and None in decode, whose callers drop it as the
+    reference's do (so a decode step launches nothing for it).
+
+    The reference scans over groups of ``len(cfg.mixer_pattern)`` layers
+    and applies the rest one by one; ``remat`` (:func:`_remat`) wraps
+    each group as the reference's ``group_body``, never a remainder
+    layer.  (The reference groups an encoder by ``("attn",)``; the
+    encoder runs without remat and drops its aux, so its grouping
+    changes no value.)
+    """
+    glen = len(cfg.mixer_pattern)
+    n_grouped = len(layers) // glen * glen
+    want_aux = mode != "decode"
+
+    def add(total, a):
+        if a is None or not want_aux:
+            return total
+        return a if total is None else total + a
+
+    def run(i, x):
+        return block_apply(layers[i], cfg, x, positions=positions,
+                           mode=mode,
                            cache=None if caches is None else caches[i],
                            cache_pos=cache_pos, enc_out=enc_out,
                            q_block=q_block, kv_block=kv_block)
+
+    def group_body(g, x):
+        aux, new = None, []
+        for i in range(g, g + glen):
+            x, c, a = run(i, x)
+            aux = add(aux, a)
+            new.append(c)
+        return x, new, aux
+
+    new_caches, group_aux = [], []
+    for g in range(0, n_grouped, glen):
+        x, new, aux = _remat(functools.partial(group_body, g), remat)(x)
+        new_caches += new
+        if aux is not None:
+            group_aux.append(aux)
+    aux_total = torch.stack(group_aux).sum() if group_aux else None
+    for i in range(n_grouped, len(layers)):
+        x, c, a = run(i, x)
+        aux_total = add(aux_total, a)
         new_caches.append(c)
-    return x, (new_caches if mode in ("prefill", "decode") else None)
+    if want_aux and aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return (x, new_caches if mode in ("prefill", "decode") else None,
+            aux_total)

@@ -1,1 +1,2 @@
-"""Step builders of the port's LM serving path."""
+"""Step builders of the port's LM paths (``steps``) and the training
+driver's fault tolerance (``ft``)."""

@@ -1,5 +1,6 @@
-"""Step builders of the port's LM serving path.
+"""Step builders of the port's LM paths.
 
+  * ``make_train_step``   — grads (with microbatch accumulation) + AdamW
   * ``make_prefill_step`` — prompt -> (last logits, DecodeState)
   * ``make_serve_step``   — one decode token + FD top-k sampling over the
                             vocab-sharded logits (the paper's technique
@@ -9,8 +10,7 @@ The sampling is two plain functions, so that a test can hand the choice
 the reference's own noise: :func:`gumbel` draws the noise from an
 explicit ``torch.Generator``, and :func:`sample_topk` chooses among the
 k winners by ``argmax(log(softmax(vals / T) + 1e-9) + noise)``, which is
-``jax.random.categorical``'s rule.  ``make_train_step`` waits for the
-training slice.
+``jax.random.categorical``'s rule.
 """
 from __future__ import annotations
 
@@ -20,7 +20,72 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fd
 from repro_torch.kernels.topk import local_topk
 from repro_torch.models import model as M
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, decayed
 
+
+# --------------------------------------------------------------------------
+# train
+# --------------------------------------------------------------------------
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+                    microbatches: int = 1, remat: str = "full",
+                    q_block: int = 1024, kv_block: int = 1024):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm", "lr"}): the gradients of ``M.loss_fn`` then
+    :func:`adamw_update`, which updates ``params`` and the moments in
+    place (the reference's step donates them).
+
+    With ``microbatches`` > 1 the batch is split along its first dim and
+    each part's gradients (``torch.autograd.grad``, in the parameters'
+    dtype) are summed into f32 buffers, ``g_acc += g.float()``, as the
+    reference's scan sums them; the sum and the loss are divided by
+    ``microbatches``.  (Letting ``.grad`` accumulate in a bf16 parameter's
+    dtype would round each partial sum there.)  A parameter the loss does
+    not reach gets a zero gradient, as ``jax.grad`` gives it.
+    """
+    def loss_of(params, mb):
+        return M.loss_fn(params, cfg, mb, remat=remat, q_block=q_block,
+                         kv_block=kv_block)
+
+    def grads_of(leaves, loss):
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(leaves, gs)]
+
+    def train_step(params, opt_state, batch):
+        names, leaves = zip(*params.named_parameters())
+        if microbatches == 1:
+            loss, _ = loss_of(params, batch)
+            grads = grads_of(leaves, loss)
+            loss = loss.detach()
+        else:
+            mbs = {k: x.reshape((microbatches, x.shape[0] // microbatches)
+                                + tuple(x.shape[1:]))
+                   for k, x in batch.items()}
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            for i in range(microbatches):
+                mb_loss, _ = loss_of(params, {k: x[i]
+                                              for k, x in mbs.items()})
+                for acc, g in zip(grads, grads_of(leaves, mb_loss)):
+                    acc += g.to(torch.float32)
+                loss = loss + mb_loss.detach()
+            for g in grads:
+                g /= microbatches
+            loss = loss / microbatches
+        params, opt_state, om = adamw_update(dict(zip(names, grads)),
+                                             opt_state, params, opt_cfg,
+                                             decayed(params, cfg))
+        return params, opt_state, {"loss": loss, **om}
+
+    return train_step
+
+
+# --------------------------------------------------------------------------
+# prefill / serve
+# --------------------------------------------------------------------------
 
 def make_prefill_step(cfg: ModelConfig, *, q_block: int = 1024,
                       kv_block: int = 1024):

@@ -301,8 +301,10 @@ def test_count_params_matches_reference(ref, models, arch):
 def test_forward_logits_match_reference(ref, models, arch):
     inp, out = ref
     cfg, params = models[arch]
-    logits, caches = M.forward(params, cfg, {"tokens": _t(inp["tokens"])})
+    logits, caches, aux = M.forward(params, cfg, {"tokens": _t(inp["tokens"])})
     assert caches is None
+    # no MoE: the auxiliary loss is an f32 zero, as the reference's
+    assert aux.dtype == torch.float32 and aux.shape == () and float(aux) == 0
     assert logits.shape == (B, S, cfg.padded_vocab())
     _close(logits, out[f"{arch}/forward"])
 

@@ -226,9 +226,11 @@ def test_forward_and_prefill_match_reference(ref, models, arch):
     inp, out = ref
     cfg, params = models[arch]
     batch = {"tokens": t(inp[f"{arch}/p/tokens"])}
-    logits, caches = M.forward(params, cfg, batch)
+    logits, caches, aux = M.forward(params, cfg, batch)
     assert caches is None and logits.shape == (B, S, cfg.padded_vocab())
     close(logits, out[f"{arch}/p/forward"])
+    assert float(aux.detach()) > 0               # the routers' aux loss
+    close(aux, out[f"{arch}/p/forward_aux"])
     last, st = M.prefill(params, cfg, batch)
     close(last, out[f"{arch}/p/prefill"])
     assert st.pos == S

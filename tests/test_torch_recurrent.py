@@ -347,9 +347,10 @@ def test_forward_and_prefill_match_reference(ref, models, arch, prompt):
     cfg, params = models[arch]
     key = f"{arch}/{prompt}"
     batch = {"tokens": t(inp[f"{key}/tokens"])}
-    logits, caches = M.forward(params, cfg, batch)
+    logits, caches, aux = M.forward(params, cfg, batch)
     assert caches is None
     close(logits, out[f"{key}/forward"])
+    close(aux, out[f"{key}/forward_aux"])        # an f32 zero: no MoE
     last, st = M.prefill(params, cfg, batch)
     close(last, out[f"{key}/prefill"])
     close_caches(st.caches, tree(out, f"{key}/prefill_caches"), cfg)

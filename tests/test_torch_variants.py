@@ -447,8 +447,10 @@ def test_count_params_matches_reference(ref, models, arch):
 def test_forward_logits_match_reference(ref, models, arch):
     inp, out = ref
     cfg, params = models[arch]
-    logits, caches = M.forward(params, cfg, _batch(inp, cfg))
+    logits, caches, aux = M.forward(params, cfg, _batch(inp, cfg))
     assert caches is None
+    # no MoE: the auxiliary loss is an f32 zero, as the reference's
+    assert aux.dtype == torch.float32 and aux.shape == () and float(aux) == 0
     assert logits.shape == (B, S, cfg.padded_vocab())
     _close(logits, out[f"{arch}/forward"])
 

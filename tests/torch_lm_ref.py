@@ -45,7 +45,9 @@ def model_run(tag, cfg, prompts, gen):
     for name in prompts:
         key = f"{{tag}}/{{name}}"
         batch = {{"tokens": jnp.asarray(inp[f"{{key}}/tokens"])}}
-        out[f"{{key}}/forward"] = fwd(params, batch)[0]
+        logits, _, aux = fwd(params, batch)
+        out[f"{{key}}/forward"] = logits
+        out[f"{{key}}/forward_aux"] = aux
         last, pst = pre(params, batch)
         out[f"{{key}}/prefill"] = last
         flat(f"{{key}}/prefill_caches", pst.caches)
@@ -134,3 +136,31 @@ def close_caches(caches, want, cfg):
                 assert len(c) == len(w[key])
                 for j, a in enumerate(c):
                     close(a, pick(w[key][j]))
+
+
+def ref_leaf(name, cfg):
+    """Where the port's parameter ``name`` (``LM.named_parameters()``)
+    lies in the reference's flattened tree: (key, index), the index of a
+    layer stacked over its scan group, or None.  Decoder layer ``i`` of
+    ``n_groups * P`` grouped layers (``P = len(cfg.mixer_pattern)``) is
+    group ``i // P`` of slot ``i % P``, the rest ``rem``; every encoder
+    layer is stacked (pattern ``("attn",)``)."""
+    parts = name.split(".")
+    p = len(cfg.mixer_pattern)
+    grouped = cfg.n_layers // p * p
+    if parts[0] == "layers":
+        i, rest = int(parts[1]), "/".join(parts[2:])
+        if i < grouped:
+            return f"dec/groups/{i % p}/{rest}", i // p
+        return f"dec/rem/{i - grouped}/{rest}", None
+    if parts[:2] == ["enc", "layers"]:
+        return f"enc/stack/groups/0/{'/'.join(parts[3:])}", int(parts[2])
+    return "/".join(parts), None
+
+
+def ref_value(out, prefix, name, cfg):
+    """The reference's array for the port's parameter ``name`` under
+    ``prefix`` of a flattened tree (a parameter or its gradient)."""
+    key, i = ref_leaf(name, cfg)
+    a = out[f"{prefix}/{key}"]
+    return a if i is None else a[i]
