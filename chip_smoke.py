@@ -8,7 +8,8 @@ Drives the port's paths — the FD overlay top-k query served by a
 the ``DeviceEngine``'s FD collectives over 64 virtual peers, a
 live overlay whose peers join and leave between queries, the serving
 CLI and entry sharding, the LM decode with FD top-k sampling for
-every registered arch, and LM training with checkpoints —
+every registered arch, LM training with checkpoints, and FD and the
+compressed gradient mean across gloo ranks —
 through the hand-written CUDA kernels, and fails (exit code 1, no
 result line) when any phase fails:
 
@@ -200,6 +201,26 @@ result line) when any phase fails:
      launches are the ``train`` key of ``launches_by_path``, and the
      router's training shape is timed under the top-k row's
      ``router_shapes``;
+  15. FD across processes: 4 gloo ranks on the card (NCCL refuses two
+     ranks on one card), spawned by ``launch.ranks.spawn_ranks`` with a
+     time limit (a dead or hung rank fails the phase), each running
+     ``tools/chip_ranks.py``: the ``DeviceEngine`` at phase 5's full
+     width over 4 ranks x 16 local peers (every schedule, the row
+     gather, CN, CN*, k = 512, and a (2, 64) data x model mesh laid out
+     (2, 2) with ``batch_axes=("data",)``), each rank's answers equal
+     to the one-process engine's on the card bit for bit (rank r's to
+     ``_peer_lists``' row r * 16), every rank's top-k, select and merge
+     counters moved, the bytes each call delivered across ranks printed
+     beside the paper's model; then ``optim/compress.py``'s mean over
+     the 4 ranks as pods at qwen2-0.5b's full parameter tree (f32,
+     ``k_frac`` 1e-3, ``p_drop`` 0.05, two rounds, the second of zero
+     gradients), each rank's ``g_hat`` and error feedback equal to the
+     same computation with ``topk_ref`` on the card bit for bit, every
+     rank's ``g_hat`` the same, the embedding leaf's sum in pod order
+     equal to the CPU's, the k-list bytes beside the dense
+     all-reduce's; its launches are the ``ranks`` key of
+     ``launches_by_path``, and the largest leaf's top-k is timed under
+     the select row's shapes;
   6. time each kernel (the churn variant at the churn sweep's level
      shapes) at the shapes its path gives it (CUDA events,
      median of several runs) beside its plain version, one PyTorch
@@ -216,7 +237,9 @@ result line) when any phase fails:
      at the same shapes (``by_dtype``), and the waits' rows their f64
      device time by level; the select routes' row times them at (2048,
      20000) k = 512 and 4096 (resident) and (32, 1,280,000) k = 1,280
-     (long) beside ``torch.topk``, with each shape's route, its launches
+     (long), and phase 15's largest gradient leaf (1, 137,625,600) at
+     k = 144,869 (long) beside ``torch.topk``, with each shape's route,
+     its launches
      a call (the profiler must see the route's kernels, one launch each),
      their device ms, and the sort alone (``repro_topk_select_sort``,
      held to ``topk_ref``); the top-k row also times each decode's two
@@ -3250,6 +3273,117 @@ def _train(dev, card, errs, _build):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: FD across processes on the card
+# ---------------------------------------------------------------------------
+
+# gloo ranks sharing the card (NCCL refuses two ranks on one card): the
+# device path at phase 5's full width as 4 ranks x 16 local peers, and
+# optim/compress.py's mean over the ranks as 4 pods at qwen2-0.5b's full
+# parameter tree (the reference's k_frac default, the p_drop of
+# examples/grad_compression.py, each rank's noise 0.3 beside a shared
+# unit normal part, so that most winners are chosen by 3 or 4 pods)
+RANKS = 4
+RANK_ARCH = "qwen2-0.5b"
+RANK_SEED = 15
+RANK_K_FRAC = 1e-3
+RANK_P_DROP = 0.05
+RANK_NOISE = 0.3
+RANK_TIMEOUT = 600
+
+
+def _rank_leaf(dev, shape):
+    """The largest leaf's magnitudes as rank 0 selects them in round 1
+    (the first leaf drawn: the tied embedding), for phase 6."""
+    import torch
+    shared = torch.Generator(device=dev)
+    shared.manual_seed(RANK_SEED + 100)
+    own = torch.Generator(device=dev)
+    own.manual_seed(RANK_SEED + 101)
+    g = torch.randn(shape, generator=shared, device=dev)
+    g.add_(torch.randn(shape, generator=own, device=dev), alpha=RANK_NOISE)
+    return g.abs().reshape(1, -1)
+
+
+def _ranks(dev, card, _build):
+    """Phase 15: spawn the ranks (``tools/chip_ranks.py``), which fail
+    the phase by raising; check that every rank's g_hat digests agree,
+    print the bytes each call delivered across ranks beside the paper's
+    model, and return (the launches summed over ranks, the compressed
+    tree's largest leaf (name, shape, k))."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import fd
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.models import model as LM
+    sys.path.insert(0, str(ROOT / "tools"))
+    import chip_ranks
+    cfg = get_config(RANK_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = LM.init_params(gen, cfg)
+    leaves = [(name, tuple(p.shape)) for name, p in params.named_parameters()]
+    del params
+    _free_card()
+    conf = dict(peers=DEV_PEERS, local=DEV_LOCAL, k=DEV_K,
+                k_large=DEV_K_LARGE, batch=DEV_B, d=DEV_D, seed=RANK_SEED,
+                leaves=leaves, noise=RANK_NOISE, k_frac=RANK_K_FRAC,
+                p_drop=RANK_P_DROP)
+    t0 = time.perf_counter()
+    outs = spawn_ranks(chip_ranks.run, RANKS, args=(conf,),
+                       timeout=RANK_TIMEOUT)
+    secs = time.perf_counter() - t0
+    launches = {name: 0 for name in _build.LAUNCHES}
+    for r, o in enumerate(outs):
+        d, c = o["device"], o["compress"]
+        for counts in [d["launches"]] + c["launches"]:
+            for name, n in counts.items():
+                launches[name] += n
+        print(f"[ranks] rank {r}: {o['seconds']:.3f} s in all, "
+              f"max_memory_allocated {o['max_memory_allocated']} B; device path "
+              f"{d['path_s']:.3f} s, launches {json.dumps(d['launches'])}, "
+              f"run_s {json.dumps(d['run_s'])}; compressed mean rounds "
+              f"{json.dumps(c['seconds'])} s, launches "
+              f"{json.dumps(c['launches'])}")
+    _require(all(o["compress"]["digests"] == outs[0]["compress"]["digests"]
+                 for o in outs), "the ranks' g_hat differ")
+    L = outs[0]["device"]["L"]
+    sent = {key: sum(o["device"]["sent_bytes"][key] for o in outs)
+            for key in outs[0]["device"]["sent_bytes"]}
+    model = {f"{pol}/{sch}/run_many": DEV_B * fd.comm_bytes(
+        alg, DEV_PEERS, DEV_LOCAL, DEV_K,
+        schedule="halving" if sch == "-" else sch)
+        for pol, alg, sch in (("fd-dynamic", "fd", "halving"),
+                              ("fd-dynamic", "fd", "doubling"),
+                              ("fd-dynamic", "fd", "ring"),
+                              ("cn", "cn", "-"), ("cn-star", "cn_star", "-"))}
+    print(f"[ranks] bytes delivered across the {RANKS} ranks ({L} peers a "
+          f"rank, {DEV_B} queries a call) " + json.dumps(sent)
+          + f"; the paper's model over all {DEV_PEERS} peers "
+          + json.dumps(model))
+    from repro_torch.optim.compress import compression_ratio
+    c = outs[0]["compress"]
+    sent_c = [sum(o["compress"]["sent_bytes"][i] for o in outs)
+              for i in range(2)]
+    emb = c["embedding"]
+    emb_ratio = compression_ratio(math.prod(emb["shape"]), emb["k"], RANKS)
+    print(f"[ranks] compressed mean of {RANK_ARCH}'s tree over {RANKS} "
+          f"pods: {c['leaves']} leaves, {c['n']} entries, k {c['k']} in "
+          f"all (largest leaf {json.dumps(c['embedding'])}, "
+          f"{c['three_or_more']} of its indices chosen by 3 or more pods); "
+          f"k-list bytes sent by each rank a round "
+          f"{[o['compress']['sent_bytes'] for o in outs]} (model "
+          f"{c['list_bytes']}), all ranks {sent_c}; a dense ring "
+          f"all-reduce {c['dense_bytes']:.0f} a rank; ratio "
+          f"{c['dense_bytes'] / c['list_bytes']:.1f} (compression_ratio of "
+          f"{emb['name']} {emb_ratio:.1f}); error feedback L1 "
+          f"{c['ef_l1']}; g_hat and ef == topk_ref's on every rank, "
+          f"g_hat the same on every rank")
+    print(f"[phase 15] {RANKS} gloo ranks on {card}: {secs:.3f} s "
+          "(the ranks time-share one card)")
+    return launches, (emb["name"], tuple(emb["shape"]), emb["k"])
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at main-path shapes
 # ---------------------------------------------------------------------------
 
@@ -3797,18 +3931,22 @@ def _sort_ms(x, k, reps=10):
     return sum(us for _, us in ks) / reps / 1e3
 
 
-def _topk_select_row(scores, errs, launches):
-    """The top-k's select routes (k > 256) at ``_SELECT_SHAPES``: each
-    held to its plain version, then timed beside ``torch.topk``; each
-    shape's route, its launches a call (required to be the route's
-    kernels, one launch each), their device ms, and the sort's."""
+def _topk_select_row(scores, errs, launches, leaf):
+    """The top-k's select routes (k > 256) at ``_SELECT_SHAPES`` and at
+    phase 15's largest gradient leaf (``leaf``: its name, shape and k;
+    the magnitudes rank 0 selects in round 1): each held to its plain
+    version, then timed beside ``torch.topk``; each shape's route, its
+    launches a call (required to be the route's kernels, one launch
+    each), their device ms, and the sort's."""
     import torch
     from repro_torch.kernels.topk import topk_cuda, topk_ref
     from repro_torch.kernels.topk.topk import plan
+    leaf_name, leaf_shape, leaf_k = leaf
+    leaf_what = f"gradient leaf {leaf_name}"
     xs = {"local execution": scores.view(DEV_B * DEV_PEERS, DEV_LOCAL),
-          "CN": scores}
+          "CN": scores, leaf_what: _rank_leaf(scores.device, leaf_shape)}
     per = []
-    for what, k in _SELECT_SHAPES:
+    for what, k in _SELECT_SHAPES + ((leaf_what, leaf_k),):
         x = xs[what]
         route = plan(x.shape[-1], k).route
         v1, i1 = topk_cuda(x, k)
@@ -3875,8 +4013,10 @@ def _topk_select_row(scores, errs, launches):
         "shape_note": "one call at each shape: local execution of the "
                       f"device path's {DEV_B} queries on {DEV_PEERS} peers "
                       "at k = 512 and 4096 (resident route), CN at k = "
-                      "1,280 (long route); a topk_select launch of the "
-                      "path counts one call of topk_cuda"}
+                      "1,280 (long route), phase 15's largest gradient "
+                      f"leaf {leaf_name} {tuple(leaf_shape)} flattened at "
+                      f"k = {leaf_k} (long route); a topk_select launch "
+                      "of the path counts one call of topk_cuda"}
 
 
 def main() -> int:
@@ -3951,13 +4091,16 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launches, train_router = _train(dev, card, errs, _build)
     print(f"[phase 14] {time.perf_counter() - t0:.3f} s")
+    _free_card()
+    rank_launches, rank_leaf = _ranks(dev, card, _build)
+    _free_card()
 
     launches = {"serve": serve_launches, "serve_churn": churn_launches,
                 "device": dev_launches, "topologies": topo_launches,
                 **prec_launches, "overlay": overlay_launches,
                 "cli": cli_launches, "shard": shard_launches,
                 "decode": decode_launches, **var_launches, **arch_launches,
-                "train": train_launches}
+                "train": train_launches, "ranks": rank_launches}
     # phase 3b extended origin 0's slices with the reroute tables
     rr = _device_slices(engine.plan.depth_slices(sts[0]), dev)[2]
     _require(rr is not None, "phase 3b built no reroute tables")
@@ -3969,7 +4112,7 @@ def main() -> int:
     rows.append(_topk_row(scores, dec_scores, errs, launches,
                           {**var_scores, **arch_scores}, router,
                           train_router))
-    rows.append(_topk_select_row(scores, errs, launches))
+    rows.append(_topk_select_row(scores, errs, launches, rank_leaf))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,16 @@ Wraps ``fd_topk`` / ``fd_topk_gather`` (``core/fd.py``: virtual peers
 on one device, the ``ppermute`` schedules as the merge-and-backward
 phase, the top-k and merge kernels on the card) behind the same engine
 API as ``SimEngine``.  The compiled plan of a call is its schedule's
-permutation and mask index tensors on the device: cached per (path, k,
-algorithm, schedule), so a repeated ``run`` on the same mesh reuses
-them.
+permutation and mask index tensors on the device, and on a mesh over
+ranks this rank's send and receive lists of each round: cached per
+(path, k, algorithm, schedule), so a repeated ``run`` on the same mesh
+reuses them.
+
+Over ranks (a mesh built with a process group), every rank runs the
+same calls on its own block of the scores (..., N / R) and of the rows
+(N / R, d); each gets its first local peer's answer, and
+``TopKResult.extras["sent_bytes"]`` holds the bytes this rank delivered
+to other ranks during the call.
 
 Policy mapping: every ``fd-*`` policy lowers to the FD collective (the
 program *is* the query — flooding at build time makes the §3.3 forward
@@ -71,8 +78,8 @@ class DeviceEngine(Engine):
             self.prepare(mesh)
 
     def _tensor(self, x):
-        """``x`` (numpy or a tensor anywhere) as a tensor on the mesh's
-        device."""
+        """``x`` (numpy or a tensor anywhere; over ranks, this rank's
+        block) as a tensor on the mesh's device."""
         return torch.as_tensor(x).to(self.mesh.device)
 
     def _cast(self, scores):
@@ -105,7 +112,8 @@ class DeviceEngine(Engine):
         if self.mesh.device.type == "cuda":
             _build.ensure_built()
         rounds = (fd.schedule_rounds(self.schedule, self.axis_size,
-                                     self.mesh.device)
+                                     self.mesh.device,
+                                     self.mesh.axis(self.axis))
                   if algorithm == "fd" else None)
         if path == "gather":
             fn = functools.partial(
@@ -121,7 +129,9 @@ class DeviceEngine(Engine):
         return fn, time.perf_counter() - t0
 
     def _sync(self) -> None:
-        """Wait for the device (a CUDA call returns before it ends)."""
+        """Wait for the device (a CUDA call returns before it ends).
+        Exchanges between ranks have ended by then: each collective
+        waits for its messages before it returns."""
         if self.mesh.device.type == "cuda":
             torch.cuda.synchronize(self.mesh.device)
 
@@ -186,13 +196,13 @@ class DeviceEngine(Engine):
                 continue
             stacked = torch.stack([scores[i] for i in idxs])
             fn, compile_s = self._fn("topk", k, algorithm)
-            t0 = time.perf_counter()
+            t0, sent0 = time.perf_counter(), self.mesh.sent_bytes
             vals, idx = fn(stacked)
             self._sync()
             run_s = time.perf_counter() - t0
             for b, i in enumerate(idxs):
                 res = self._result(pols[i], k, scores[i], vals[b], idx[b],
-                                   None)
+                                   None, sent0)
                 res.compile_s, res.run_s = compile_s, run_s
                 res.batch_size = len(idxs)
                 results[i] = res
@@ -207,28 +217,31 @@ class DeviceEngine(Engine):
                     "(CN ships whole shards, not k rows)")
             fn, compile_s = self._fn("gather", k, pol.algorithm)
             rows = self._tensor(rows)
-            t0 = time.perf_counter()
+            t0, sent0 = time.perf_counter(), self.mesh.sent_bytes
             vals, idx, got = fn(scores, rows)
         else:
             fn, compile_s = self._fn("topk", k, pol.algorithm)
-            t0 = time.perf_counter()
+            t0, sent0 = time.perf_counter(), self.mesh.sent_bytes
             (vals, idx), got = fn(scores), None
         self._sync()
-        res = self._result(pol, k, scores, vals, idx, got)
+        res = self._result(pol, k, scores, vals, idx, got, sent0)
         res.compile_s, res.run_s = compile_s, time.perf_counter() - t0
         return res
 
     def _result(self, pol: Policy, k: int, scores, vals, idx,
-                got) -> TopKResult:
-        """Assemble a TopKResult (+ the comm-model bytes extra)."""
+                got, sent0: int) -> TopKResult:
+        """Assemble a TopKResult (+ the comm-model bytes extra, and over
+        ranks the bytes this rank sent)."""
         # precision=None runs in the caller's dtype; report what ran
         prec = self.precision or _REPORTED.get(vals.dtype, "f64")
         extras = {}
-        n = scores.shape[-1]
-        if n % self.axis_size == 0:
+        n, local = scores.shape[-1], self.mesh.axis(self.axis).local
+        if n % local == 0:
             extras["model_bytes"] = fd.comm_bytes(
-                pol.algorithm, self.axis_size, n // self.axis_size, k,
+                pol.algorithm, self.axis_size, n // local, k,
                 schedule=self.schedule)
+        if self.mesh.multi_rank:
+            extras["sent_bytes"] = self.mesh.sent_bytes - sent0
         return TopKResult(policy=pol.name, backend=self.backend, k=k,
                           values=vals, indices=idx, rows=got,
                           precision=prec, extras=extras)
