@@ -8,8 +8,9 @@ Drives the port's paths — the FD overlay top-k query served by a
 the ``DeviceEngine``'s FD collectives over 64 virtual peers, a
 live overlay whose peers join and leave between queries, the serving
 CLI and entry sharding, the LM decode with FD top-k sampling for
-every registered arch, LM training with checkpoints, and FD and the
-compressed gradient mean across gloo ranks —
+every registered arch, LM training with checkpoints, FD and the
+compressed gradient mean across gloo ranks, and LM training and
+serving across gloo ranks —
 through the hand-written CUDA kernels, and fails (exit code 1, no
 result line) when any phase fails:
 
@@ -250,6 +251,29 @@ result line) when any phase fails:
      routers' (4, 32) / (128, 32) at k = 8 and (4, 64) / (128, 64) at
      k = 6 on captured probabilities (``router_shapes``).  A profiler window that misses
      one of the launches it should hold is taken again, up to 3 windows.
+  16. (run last, after the timing windows, then one profiler window
+     as a probe) training and serving
+     across ranks: 4 gloo ranks on the card as a
+     (data 2, model 2) mesh (``tools/chip_train_ranks.py`` on each,
+     under ``spawn_ranks`` with a time limit): ``launch.train.build``
+     over the group keeps each rank's blocks of granite-moe-1b-a400m
+     at full size (``optim/sharding.py::param_specs``) for 3 steps of
+     batch 8, seq 128, every rank with the same loss and norm bits, each
+     leaf's replicas equal bit for bit, exactly 24 top-k launches a step
+     on each rank, the bytes each rank delivers a step equal to the
+     specs' count, its seconds and ``max_memory_allocated`` printed;
+     the same arch at full width and 2 layers in f32 (TF32 off), one
+     step over the ranks against one process over a (2, 2) mesh of
+     virtual peers (the same MoE shards; loss rtol 1e-5, each
+     parameter's relative L2 error after the update 1e-4), its
+     checkpoint restored onto 2 ranks and onto one process bit for bit;
+     ``serve decode`` of qwen2-0.5b and granite at full size over the
+     ranks (phase 11's command, the 16 vocabulary peers over the 2 model
+     ranks) with the tokens of one process decoding each data block's
+     rows (the one-process decode of the whole batch's agreement is
+     printed: the card's bf16 products round a row by the batch it is
+     in), the FD bytes across ranks and tok/s printed; its launches are
+     the ``train_serve_ranks`` key of ``launches_by_path``.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -3384,6 +3408,291 @@ def _ranks(dev, card, _build):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: training and serving across ranks on the card
+# ---------------------------------------------------------------------------
+
+# 4 gloo ranks sharing the card as a (data 2, model 2) mesh, one peer a
+# rank: granite-moe-1b-a400m trained at full size (phase 14's batch and
+# seq, 3 steps; under (4, 1) each rank would hold nearly all of its 13.9
+# GB of state, since only the model axis shards its 32 experts), the
+# same arch at full width and 2 layers in f32 against one process over
+# a (2, 2) mesh of virtual peers (phase 14's tolerance: loss rtol 1e-5,
+# each parameter's relative L2 error after the update 1e-4) and its
+# checkpoint restored onto 2 ranks and onto one process bit for bit;
+# then serve decode of qwen2-0.5b and granite at full size over the
+# ranks, phase 11's command with the 16 vocabulary peers spread over
+# the 2 model ranks, against the one-process decode on the same (2, 16)
+# mesh
+TR_ARCH, TR_STEPS, TR_XCHECK_LAYERS = "granite-moe-1b-a400m", 3, 2
+TR_DECODE_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m")
+TR_TIMEOUT = 600
+
+
+def _ranks_decode_argv(arch):
+    return _decode_argv(arch) + ["--model-ranks", "2"]
+
+
+def _same_digests(what, a, b):
+    for part in ("params", "m", "v"):
+        bad = [n for n in a[part] if a[part][n] != b[part][n]]
+        _require(not bad and set(a[part]) == set(b[part]),
+                 f"{what}: {part} differ bit-wise at {bad[:4]}")
+
+
+def _first_diff(a, b):
+    """The first decode step (column) where two token arrays differ, or
+    None."""
+    cols = [j for j in range(a.shape[1]) if (a[:, j] != b[:, j]).any()]
+    return cols[0] if cols else None
+
+
+def _decode_blocks(dev, argv, data_par):
+    """The decode of ``argv`` (``serve decode``'s flags) on one process,
+    one of ``data_par`` data blocks of the batch at a time: each
+    block's rows of the prompt through ``prefill`` and
+    ``make_serve_step`` over the ``--model-par`` virtual peers, with its
+    rows of the whole batch's noise; the tokens of the blocks stacked.  What each data rank of
+    the (2, 2) mesh computes, at the same batch size: the card's
+    products round a row by the batch it is computed in."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.launch.serve import _decode_args, state_from_prefill
+    from repro_torch.models import model as M
+    from repro_torch.runtime.steps import gumbel, make_serve_step
+    args = _decode_args(argv)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    s_max = args.prompt_len + args.gen
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                           max_seq=s_max, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32))
+    mesh = Mesh((1, args.model_par), ("data", "model"), dev)
+    part = args.batch // data_par
+    out = []
+    for d in range(data_par):
+        rows = slice(d * part, (d + 1) * part)
+        last, pst = M.prefill(params, cfg, {"tokens": tokens[rows].to(dev)})
+        state = state_from_prefill(cfg, pst, s_max)
+        tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+        step = make_serve_step(cfg, mesh, k=args.k)
+        gen = torch.Generator(dev).manual_seed(1)
+        toks = [tok]
+        for _ in range(args.gen - 1):
+            noise = gumbel((args.batch, args.k), gen)[rows]
+            tok, state = step(params, state, tok, None, noise=noise)
+            toks.append(tok)
+        out.append(torch.cat(toks, dim=1).cpu().numpy())
+    return np.concatenate(out, axis=0)
+
+
+def _train_serve_ranks(dev, card, _build):
+    """Phase 16: spawn the ranks (``tools/chip_train_ranks.py``, which
+    fail the phase by raising); check that every rank holds the same
+    loss and norm bits, that a leaf's replicas agree bit for bit, the
+    one-process cross-check, the checkpoint restored onto 2 ranks and
+    onto one process, and that the decode's tokens equal the
+    one-process decode's on the same mesh.  Returns the launches of the
+    training steps and the decodes, summed over ranks."""
+    import shutil
+    import torch
+    from repro_torch.ckpt.checkpoint import restore
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.launch.serve import decode_run
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    sys.path.insert(0, str(ROOT / "tools"))
+    import chip_train_ranks as CT
+    ckpt = ROOT / "build" / "ranks_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # on the CPU (a check of this code, not of the card): smoke configs
+    smoke = dev.type == "cpu"
+    conf = dict(arch=TR_ARCH, batch=TRAIN_B, seq=TRAIN_SEQ, steps=TR_STEPS,
+                xcheck_layers=TR_XCHECK_LAYERS, ckpt=str(ckpt),
+                decode={a: _ranks_decode_argv(a)[1:]
+                        for a in TR_DECODE_ARCHS},
+                smoke=smoke, device=dev.type)
+    _free_card()
+    try:
+        t0 = time.perf_counter()
+        outs = spawn_ranks(CT.run, RANKS, args=(conf,), timeout=TR_TIMEOUT)
+        secs = time.perf_counter() - t0
+        launches = {name: 0 for name in _build.LAUNCHES}
+        for o in outs:
+            for counts in o["train"]["launches"] + [
+                    d["launches"] for d in o["decode"].values()]:
+                for name, n in counts.items():
+                    launches[name] += n
+        # (a) training
+        tr = [o["train"] for o in outs]
+        _require(all(t["losses"] == tr[0]["losses"]
+                     and t["grad_norms"] == tr[0]["grad_norms"] for t in tr),
+                 "train over ranks: the ranks' loss or norm bits differ")
+        specs = tr[0]["specs"]
+        for name, spec in specs.items():
+            named = {a for e in spec if e is not None
+                     for a in ((e,) if isinstance(e, str) else e)}
+            for t in tr:
+                for u in tr:
+                    # ranks that differ only on axes the spec leaves whole
+                    # hold the same block
+                    same = all(t["coord"][i] == u["coord"][i]
+                               for i, a in enumerate(("data", "model"))
+                               if a in named)
+                    _require(not same or t["digests"][name]
+                             == u["digests"][name],
+                             f"train over ranks: {name}'s replicas differ")
+        cfg = get_config(TR_ARCH)
+        if smoke:
+            from repro_torch.configs.base import smoke_config
+            cfg = smoke_config(cfg)
+        for r, t in enumerate(tr):
+            warm = t["step_s"][1:]
+            print(f"[train ranks] rank {r} at (data, model) {t['coord']}: "
+                  f"build {t['build_s']:.3f} s, steps {t['step_s']} s "
+                  f"(warm mean {statistics.fmean(warm):.6f} s), bytes "
+                  f"delivered a step {t['sent_bytes']} (the specs predict "
+                  f"{t['predicted_bytes']}), max_memory_allocated "
+                  f"{t.get('max_memory_allocated')} B, top-k launches a step "
+                  f"{[c['topk'] for c in t['launches']]}")
+            _require(all(b == t["predicted_bytes"] for b in t["sent_bytes"]),
+                     f"train over ranks: rank {r} delivered "
+                     f"{t['sent_bytes']} B a step, the specs predict "
+                     f"{t['predicted_bytes']}")
+        print(f"[train ranks] {TR_ARCH} at full size ({cfg.n_layers} "
+              f"layers), batch {TRAIN_B}, seq {TRAIN_SEQ}, (2, 2) over "
+              f"{RANKS} ranks: losses {tr[0]['losses']}, grad norms "
+              f"{tr[0]['grad_norms']}, the same bits on every rank; each "
+              f"leaf's replicas equal bit for bit; {card}")
+        # (b) the f32 cross-check and the checkpoint
+        x = outs[0]["xcheck"]
+        worst = dict(sorted(x["param_rel"].items(),
+                            key=lambda kv: -kv[1])[:6])
+        _require(all(o["xcheck"]["loss"] == x["loss"]
+                     and o["xcheck"]["grad_norm"] == x["grad_norm"]
+                     for o in outs)
+                 and x["loss_rel"] <= TRAIN_LOSS_RTOL
+                 and x["grad_norm_rel"] <= TRAIN_GRAD_RTOL
+                 and max(x["param_rel"].values()) <= TRAIN_GRAD_RTOL,
+                 f"train ranks cross-check: loss {x['loss']} vs "
+                 f"{x['one_loss']}, grad norm {x['grad_norm']} vs "
+                 f"{x['one_grad_norm']}, worst parameters {worst}")
+        print(f"[train ranks] full width, {TR_XCHECK_LAYERS} layers, f32, "
+              f"TF32 off, one step: loss {x['loss']} (4 ranks) vs "
+              f"{x['one_loss']} (one process, (2, 2) virtual), rel "
+              f"{x['loss_rel']}; grad norm {x['grad_norm']} vs "
+              f"{x['one_grad_norm']}, rel {x['grad_norm_rel']} (within "
+              f"{TRAIN_GRAD_RTOL}); {len(x['param_rel'])} parameters within "
+              f"relative L2 {TRAIN_GRAD_RTOL} after the update, largest "
+              + json.dumps(worst))
+        back2 = spawn_ranks(CT.restore_onto, 2, args=(conf,),
+                            timeout=TR_TIMEOUT)
+        for b in back2:
+            _same_digests("checkpoint onto 2 ranks", b, x["saved"])
+        _free_card()
+        xcfg = dataclasses.replace(cfg, n_layers=TR_XCHECK_LAYERS,
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+        lm = M.init_params(torch.Generator(dev).manual_seed(1), xcfg,
+                           max_seq=TRAIN_SEQ, device=dev)
+        lm, opt = restore(str(ckpt), 1, (lm, adamw_init(lm, AdamWConfig())),
+                          device=dev)
+        one = {"params": {n: CT.digest(p) for n, p in
+                          lm.named_parameters()},
+               "m": {n: CT.digest(t) for n, t in opt.m.items()},
+               "v": {n: CT.digest(t) for n, t in opt.v.items()}}
+        _same_digests("checkpoint onto one process", one, x["saved"])
+        del lm, opt
+        _free_card()
+        print(f"[train ranks] the 4 ranks' checkpoint restored onto 2 ranks "
+              f"and onto one process bit for bit ({len(one['params'])} "
+              f"parameters, both moments)")
+        # (c) the decodes
+        for arch in TR_DECODE_ARCHS:
+            got = [o["decode"][arch] for o in outs]
+            argv = _ranks_decode_argv(arch)[1:]
+            blocks = _decode_blocks(dev, argv, 2)
+            whole = decode_run(argv, data=2)["tokens"]
+            _free_card()
+            _require(all((g["tokens"] == blocks).all() for g in got),
+                     f"decode {arch} over ranks: tokens {got[0]['tokens']}"
+                     f" != the one-process decode's of each data block "
+                     f"{blocks}")
+            print(f"[decode ranks] {arch}: the ranks' tokens == one "
+                  f"process's, data block by data block; the one-process "
+                  f"decode of the whole batch on the (2, 16) mesh agrees "
+                  f"on {int((whole == blocks).sum())} of {whole.size} "
+                  f"tokens (first difference at step "
+                  f"{_first_diff(whole, blocks)})")
+            dcfg = get_config(arch)
+            if smoke:
+                from repro_torch.configs.base import smoke_config
+                dcfg = smoke_config(dcfg)
+            if not smoke:                # the CPU path launches nothing
+                _check_decode_run(f"decode {arch} over ranks", dcfg,
+                                  torch.from_numpy(got[0]["tokens"]),
+                                  {k: sum(g["launches"][k] for g in got)
+                                   for k in ("topk", "merge")})
+            t_dec = got[0]["t_decode"]
+            print(f"[decode ranks] {arch} (2, 2) over {RANKS} ranks, "
+                  f"{DEC_P} vocabulary peers: prefill "
+                  f"{got[0]['t_prefill']:.3f} s, "
+                  f"{DEC_GEN - 1} steps in {t_dec:.3f} s "
+                  f"({(DEC_GEN - 1) * DEC_B / t_dec:.3f} tok/s); bytes "
+                  f"delivered across ranks {[g['sent_bytes'] for g in got]}"
+                  f" (all {sum(g['sent_bytes'] for g in got)}); launches "
+                  f"by rank {[g['launches'] for g in got]}; {card}")
+        for r, o in enumerate(outs):
+            print(f"[phase 16] rank {r}: {o['seconds']:.3f} s, "
+                  f"max_memory_allocated {o.get('max_memory_allocated')} B")
+        print(f"[phase 16] {RANKS} gloo ranks on {card}: {secs:.3f} s")
+        _left_behind(dev)
+        return launches
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _left_behind(dev):
+    """What phase 16 leaves on the card: no rank process may outlive
+    ``spawn_ranks``; on the card, prints this process's allocator
+    state and the card's compute processes as ``nvidia-smi`` lists
+    them."""
+    import multiprocessing
+    import torch
+    left = multiprocessing.active_children()
+    _require(not left, f"phase 16 left rank processes alive: {left}")
+    if dev.type != "cuda":
+        return
+    _free_card()
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print(f"[phase 16] after: no rank process alive; this process "
+          f"allocated {torch.cuda.memory_allocated(dev)} B, reserved "
+          f"{torch.cuda.memory_reserved(dev)} B; compute processes on "
+          f"the card {apps}")
+
+
+def _profiler_probe(scores, reps=10):
+    """One profiler window of ``reps`` select-route calls (local
+    execution at k = 512, one ``sel_resident`` launch a call), as phase
+    6 takes them, run after phase 16: how many of the ``reps`` kernel
+    records the window holds.  Printed, not required: it shows whether
+    a window after phase 16 loses records (phase 16 runs after the
+    timing windows for that reason; PERF.md section 7)."""
+    from repro_torch.kernels.topk import topk_cuda
+    x = scores.view(DEV_B * DEV_PEERS, DEV_LOCAL)
+    ks = _kernels_of(lambda: topk_cuda(x, 512), reps, reps, tries=1)
+    print(f"[phase 16] after: a profiler window of {reps} select-route "
+          f"calls held {len(ks)} of {reps} kernel records")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at main-path shapes
 # ---------------------------------------------------------------------------
 
@@ -4113,6 +4422,19 @@ def main() -> int:
                           {**var_scores, **arch_scores}, router,
                           train_router))
     rows.append(_topk_select_row(scores, errs, launches, rank_leaf))
+    _free_card()
+    # phase 16 runs after the timing windows: one call with it before
+    # them lost kernel records in phase 6's windows, cause not found
+    # (PERF.md section 7); the probe after it shows whether a window
+    # loses records then
+    t0 = time.perf_counter()
+    tsr_launches = _train_serve_ranks(dev, card, _build)
+    print(f"[phase 16] {time.perf_counter() - t0:.3f} s in all")
+    _profiler_probe(scores)
+    for row in rows:
+        n = tsr_launches[row["name"]]
+        row["launches_by_path"]["train_serve_ranks"] = n
+        row["launches"] += n
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

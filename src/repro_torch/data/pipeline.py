@@ -6,9 +6,9 @@ batches are the reference's bits), ``extra_model_inputs`` (copied) and
 Real deployments swap ``SyntheticLM`` for a file-backed source.
 Sequences are Zipf-ish token draws with a repeated-ngram structure so
 the ~100M-param example can visibly learn (loss drops well below uniform
-entropy within a few hundred steps).  The reference's sharded loader
-(``make_batch_specs``) waits for the multi-rank slice; on one device
-:func:`device_put_batch` moves a batch to an explicit device.
+entropy within a few hundred steps).  :func:`device_put_batch` moves a
+batch to an explicit device, or gives a rank its rows of it over a mesh
+(:func:`make_batch_specs`).
 """
 from __future__ import annotations
 
@@ -69,8 +69,46 @@ def extra_model_inputs(cfg: ModelConfig, batch_np: dict, *, seed: int = 0,
     return out
 
 
-def device_put_batch(batch_np: dict, device) -> dict:
-    """The batch's numpy arrays as tensors on ``device`` (dtypes kept),
-    in place of the reference's put against the mesh's shardings."""
-    return {k: torch.from_numpy(np.asarray(a)).to(device)
-            for k, a in batch_np.items()}
+def make_batch_specs(batch: dict, mesh) -> dict:
+    """Specs of the batch's leaves: the batch dim over the data axes,
+    the rest replicated (``optim/sharding.py::input_specs_pytree``)."""
+    from repro_torch.optim.sharding import input_specs_pytree
+    return input_specs_pytree(batch, mesh)
+
+
+def device_put_batch(batch_np: dict, where, *, microbatches: int = 1
+                     ) -> dict:
+    """The batch's numpy arrays as tensors (dtypes kept) on ``where``: a
+    device, or a :class:`~repro_torch.core.mesh.Mesh`, whose device gets
+    this rank's rows of every leaf whose batch dim
+    :func:`make_batch_specs` shards (on one process, every row).
+
+    With ``microbatches`` > 1 the rows follow the reference's step,
+    which splits the global batch B into (microbatches, B /
+    microbatches) first and then shards each microbatch's rows over the
+    data axes (``src/repro/runtime/steps.py:56-61``): data block j of
+    microbatch i is global rows ``i * B / mb + j * B / (mb * R)``
+    onward, R the data blocks.  This rank gets its block of each
+    microbatch, microbatch-major, so that the train step's own split
+    into ``microbatches`` gives microbatch i its rows."""
+    from repro_torch.core.mesh import Mesh
+    if not isinstance(where, Mesh):
+        return {k: torch.from_numpy(np.asarray(a)).to(where)
+                for k, a in batch_np.items()}
+    from repro_torch.optim.sharding import shard_leaf
+    mesh = where
+    specs = make_batch_specs(batch_np, mesh)
+    out = {}
+    for k, a in batch_np.items():
+        t = torch.from_numpy(np.asarray(a))
+        entry = specs[k][0] if specs[k] else None
+        if entry is not None:
+            mb = microbatches
+            if t.shape[0] % mb:
+                raise ValueError(f"batch of {t.shape[0]} rows does not "
+                                 f"split into {mb} microbatches")
+            split = t.reshape((mb, t.shape[0] // mb) + tuple(t.shape[1:]))
+            split = shard_leaf(split, (None, entry), mesh)
+            t = split.reshape((-1,) + tuple(t.shape[1:]))
+        out[k] = t.to(mesh.device)
+    return out

@@ -13,7 +13,9 @@ shape ``(1, P)`` over axes ``("data", "model")``: P virtual peers held
 on ONE device as a tensor axis, as the ``DeviceEngine``'s are.  So
 unlike the reference's (``launch/mesh.py``), it does not clamp P to a
 device count: ``--model-par 16`` on one card runs 16 peers, every FD
-merge round included.
+merge round included.  Given a process group it lays the mesh over the
+group's ranks: the model axis over the reference's clamp of P to the
+rank count (or ``model_ranks``), the data axis over the rest.
 """
 from __future__ import annotations
 
@@ -41,9 +43,18 @@ def make_production_mesh(*, multi_pod: bool = False, group=None,
                 group=group, ranks=ranks)
 
 
-def make_host_mesh(model: int = 1, *, cfg, device=None) -> Mesh:
-    """A ``(1, model)`` mesh of virtual peers on ``device`` (the card
-    unless the caller names another) for ``cfg``'s decode.  Refuses a
+def make_host_mesh(model: int = 1, *, cfg, device=None, group=None,
+                   data=None, model_ranks=None) -> Mesh:
+    """A ``(data, model)`` mesh over axes ``("data", "model")`` on
+    ``device`` (the card unless the caller names another) for ``cfg``.
+
+    On one process (``group=None``) its peers are virtual, ``data``
+    (default 1) by ``model``.  Over ``group``'s R ranks, the model axis
+    spans ``model_ranks`` of them, by default the reference's clamp of
+    ``model`` to the device count (``src/repro/launch/mesh.py:36-44``),
+    ``min(model, R)``, and the data axis the other R / model_ranks, one
+    peer a data rank; ``model`` peers are spread over the model ranks.  A model axis that does not divide R
+    raises (the reference would leave devices out).  Refuses a
     ``model`` that does not divide ``cfg.padded_vocab()``: each peer
     holds one equal shard of the vocabulary, and the FD top-k raises on
     a ragged one as the reference's does."""
@@ -53,5 +64,19 @@ def make_host_mesh(model: int = 1, *, cfg, device=None) -> Mesh:
         raise ValueError(
             f"make_host_mesh: model={model} does not divide {cfg.name}'s "
             f"padded vocabulary of {cfg.padded_vocab()}")
-    return Mesh((1, model), ("data", "model"),
-                resolve_device(device, "make_host_mesh"))
+    device = resolve_device(device, "make_host_mesh")
+    if group is None:
+        return Mesh((1 if data is None else data, model), ("data", "model"),
+                    device)
+    if data is not None:
+        raise ValueError("make_host_mesh: over a group the data axis is "
+                         "one peer a data rank; data= is for one process")
+    import torch.distributed as dist
+    world = dist.get_world_size(group)
+    mr = max(1, min(model, world)) if model_ranks is None else model_ranks
+    if world % mr:
+        raise ValueError(f"make_host_mesh: a model axis over {mr} ranks "
+                         f"does not divide {world} ranks")
+    dr = world // mr
+    return Mesh((dr, model), ("data", "model"), device, group=group,
+                ranks=(dr, mr))

@@ -33,6 +33,9 @@ import traceback
 #: gloo's collective timeout in the ranks (its default is 30 minutes)
 COLLECTIVE_TIMEOUT_S = 60
 
+#: seconds before the launchers' ``--ranks`` groups are ended
+RANK_TIMEOUT_S = 3600.0
+
 
 def _rank_main(rank: int, fn, world: int, store: str, out_dir: str,
                args: tuple) -> None:

@@ -204,9 +204,7 @@ def main_overlay(argv=None):
     return metrics
 
 
-def main_decode(argv=None):
-    """LM prefill + decode driver (FD top-k sampling each step); prints
-    the reference's two lines and returns the tokens (batch, gen)."""
+def _decode_args(argv):
     ap = argparse.ArgumentParser(prog="serve decode")
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--smoke", action="store_true")
@@ -227,17 +225,35 @@ def main_decode(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the model and the sampling run; cuda "
                          "raises without a CUDA device")
-    args = ap.parse_args(argv)
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="gloo ranks to decode over (one process: 1)")
+    ap.add_argument("--model-ranks", type=int, default=None,
+                    help="ranks the model axis spans (default: the "
+                         "reference's clamp of --model-par to --ranks)")
+    return ap.parse_args(argv)
+
+
+def decode_run(argv=None, *, group=None, data=None) -> dict:
+    """The decode of ``main_decode`` without its lines: {"tokens" (batch,
+    gen) numpy, "cfg", "policy", "t_prefill", "t_decode", "mesh"}.  A
+    rank of a group passes its ``group``: it decodes its rows of the
+    batch and gets the whole batch's tokens back.  On one process,
+    ``data`` virtual data peers split the batch as the data ranks do
+    (MoE then dispatches per data shard), to compare with the ranks."""
+    args = _decode_args(argv)
 
     import numpy as np
     import torch
 
     from repro_torch.configs.base import get_config, smoke_config
-    from repro_torch.data.pipeline import extra_model_inputs
+    from repro_torch.data.pipeline import device_put_batch, \
+        extra_model_inputs
     from repro_torch.engine import get_policy, policy_from_legacy
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
+    from repro_torch.optim.sharding import batch_axes, gather_leaf, _entry
     from repro_torch.runtime.steps import make_serve_step
 
     _require_device(args.device, "decode")
@@ -253,7 +269,17 @@ def main_decode(argv=None):
     if args.smoke:
         cfg = smoke_config(cfg)
     device = torch.device(args.device)
-    mesh = make_host_mesh(model=args.model_par, device=device, cfg=cfg)
+    if group is not None and device.type == "cuda":
+        import torch.distributed as dist
+        device = torch.device("cuda", dist.get_rank(group)
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    mesh = make_host_mesh(model=args.model_par, device=device, cfg=cfg,
+                          group=group, data=data,
+                          model_ranks=args.model_ranks)
+    if mesh.multi_rank and args.batch % mesh.shape["data"]:
+        raise ValueError(f"a batch of {args.batch} does not split over "
+                         f"{mesh.shape['data']} data peers")
     s_max = args.prompt_len + args.gen
 
     params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
@@ -263,7 +289,7 @@ def main_decode(argv=None):
     batch_np = {"tokens": rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)}
     batch = extra_model_inputs(cfg, batch_np)
-    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    batch = device_put_batch(batch, mesh)     # this rank's rows
     serve_step = make_serve_step(cfg, mesh, k=args.k,
                                  algorithm=pol.algorithm,
                                  schedule=args.schedule)
@@ -271,7 +297,8 @@ def main_decode(argv=None):
         _build.ensure_built()           # the kernels' one-time build
 
     t0 = time.perf_counter()
-    last_logits, pstate = M.prefill(params, cfg, batch)
+    with L.use_mesh(mesh):
+        last_logits, pstate = M.prefill(params, cfg, batch)
     state = state_from_prefill(cfg, pstate, s_max)
     tok = torch.argmax(last_logits, dim=-1)[:, None].to(torch.int32)
     if device.type == "cuda":
@@ -284,10 +311,61 @@ def main_decode(argv=None):
     for _ in range(args.gen - 1):
         tok, state = serve_step(params, state, tok, gen)
         out_tokens.append(tok)
-    toks = torch.cat(out_tokens, dim=1).cpu().numpy()
+    toks = torch.cat(out_tokens, dim=1)
+    if mesh.multi_rank:                 # every data rank's rows
+        toks = gather_leaf(toks, (_entry(batch_axes(mesh.shape)), None),
+                           mesh)
+    toks = toks.cpu().numpy()
     t_decode = time.perf_counter() - t0
-    print(f"arch={cfg.name} policy={pol.name} "
-          f"prefill {args.prompt_len} tok in {t_prefill:.2f}s; "
+    return {"tokens": toks, "cfg": cfg, "policy": pol.name,
+            "t_prefill": t_prefill, "t_decode": t_decode, "mesh": mesh}
+
+
+def _decode_rank(rank: int, world: int, argv) -> dict:
+    """What each rank of ``serve decode --ranks`` runs."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.train import _share_cores
+    _share_cores(world)
+    out = decode_run(argv, group=dist.group.WORLD)
+    out["sent_bytes"] = out.pop("mesh").sent_bytes
+    out["name"] = out.pop("cfg").name
+    return out
+
+
+def main_decode(argv=None):
+    """LM prefill + decode driver (FD top-k sampling each step); prints
+    the reference's two lines and returns the tokens (batch, gen).
+
+    ``--ranks R`` decodes over R gloo ranks (``launch/ranks.py``): the
+    mesh ``(data, model)`` of ``launch/mesh.py::make_host_mesh`` over
+    the ranks, each rank holding the whole parameters and its data
+    rows of the batch and of the decode state (the batch entry of
+    ``optim/sharding.py::decode_state_specs``: each data rank prefills
+    its own rows), the ``--model-par`` peers of the vocabulary spread
+    over the model ranks, the FD top-k across them (``core/fd.py``),
+    MoE dispatched per data shard as the reference does.  The cache's
+    sequence dim, which ``decode_state_specs`` puts over ``model``,
+    stays whole on each model rank in this slice.  Rank 0 prints."""
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _decode_args(argv)
+    if args.ranks > 1:
+        from repro_torch.launch.ranks import RANK_TIMEOUT_S, spawn_ranks
+        _require_device(args.device, "decode")
+        if args.device == "cuda":
+            from repro_torch.kernels import _build
+            _build.ensure_built()       # the ranks load the built kernels
+        out = spawn_ranks(_decode_rank, args.ranks, args=(argv,),
+                          timeout=RANK_TIMEOUT_S)[0]
+    else:
+        out = decode_run(argv)
+        out["name"] = out["cfg"].name
+    name = out["name"]
+    toks = out["tokens"]
+    t_decode = out["t_decode"]
+    print(f"arch={name} policy={out['policy']} "
+          f"prefill {args.prompt_len} tok in {out['t_prefill']:.2f}s; "
           f"decoded {args.gen - 1} steps in {t_decode:.2f}s "
           f"({(args.gen - 1) * args.batch / max(t_decode, 1e-9):.1f} tok/s)")
     print("sample tokens:", toks[0, :12].tolist())

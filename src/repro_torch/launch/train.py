@@ -2,34 +2,49 @@
 checkpoints, with fault tolerance (resume-from-latest, straggler
 watchdog, recovery).
 
-Runs on one device, the card unless ``--device cpu`` (``--device cuda``,
-the default, raises without one); the CPU smoke is ``--smoke --device
-cpu``.  ``--model-par`` is accepted: the reference clamps it to its
-device count, so on one device the mesh is ``{'data': 1, 'model': 1}``
-and the flag changes no arithmetic.
+Runs on the card unless ``--device cpu`` (``--device cuda``, the
+default, raises without one).  With ``--ranks 1`` (the default) it is
+one process on one device, and ``--model-par`` is clamped to that one
+device as the reference clamps it: the mesh is ``{'data': 1, 'model':
+1}``.  ``--ranks R`` starts R gloo ranks (``launch/ranks.py``); the mesh
+is ``(R // M, M)`` over ``("data", "model")``, M the reference's clamp
+of ``--model-par`` to R, one peer a rank (``launch/mesh.py``).  Every
+rank initialises the model from seed 0 and keeps its blocks of it
+(``optim/sharding.py::param_specs``), with AdamW's moments placed as
+the parameters; each step gathers the parameters, computes on the
+rank's rows of the batch and reduces the gradients over the data ranks
+(``runtime/steps.py::make_train_step``); checkpoints keep the global
+layout.  Rank 0 prints the reference's lines.  On one card the ranks
+share it.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --smoke --device cpu --steps 50 --batch 8 --seq 128 \\
       --ckpt-dir /tmp/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --ranks 4 --model-par 2 --steps 3 --microbatches 2
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 
 def build(arch: str, *, smoke: bool, batch: int, seq: int, model_par: int,
           microbatches: int, remat: str, lr: float, steps: int,
-          device=None):
+          device=None, group=None):
     """(cfg, mesh, params, opt_state, step_fn, data): the model from
     seed 0 on ``device`` (the card unless the caller names another),
     AdamW's state, the train step and the synthetic data, as the
-    reference's ``build`` makes them."""
+    reference's ``build`` makes them.  Over ``group``'s ranks, ``params``
+    and the moments hold this rank's blocks, and ``step_fn.specs`` the
+    parameters' specs."""
     import torch
 
     from repro_torch.configs.base import get_config, smoke_config
     from repro_torch.core.mesh import Mesh, resolve_device
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.runtime.steps import make_train_step
@@ -38,18 +53,40 @@ def build(arch: str, *, smoke: bool, batch: int, seq: int, model_par: int,
     if smoke:
         cfg = smoke_config(cfg)
     device = resolve_device(device, "train")
-    del model_par                        # clamped to the one device
-    mesh = Mesh((1, 1), ("data", "model"), device)
+    if group is None:                    # clamped to the one device
+        mesh = Mesh((1, 1), ("data", "model"), device)
+    else:
+        import torch.distributed as dist
+        mesh = make_host_mesh(max(1, min(model_par,
+                                         dist.get_world_size(group))),
+                              cfg=cfg, device=device, group=group)
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps,
                           warmup_steps=max(steps // 20, 1))
     params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
                            max_seq=max(seq, 128), device=device)
+    specs = None
+    if mesh.multi_rank:
+        specs = place_blocks(params, cfg, mesh)
     opt_state = adamw_init(params, opt_cfg)
     step_fn = make_train_step(cfg, opt_cfg, microbatches=microbatches,
-                              remat=remat)
+                              remat=remat, mesh=mesh, specs=specs)
+    step_fn.specs = specs
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
                        global_batch=batch)
     return cfg, mesh, params, opt_state, step_fn, data
+
+
+def place_blocks(params, cfg, mesh) -> dict:
+    """Keep this rank's blocks of ``params`` (in place, each a copy, so
+    the whole leaf is freed); returns the parameters' specs."""
+    from repro_torch.ckpt.elastic import reshard_tree
+    from repro_torch.optim.sharding import param_specs
+    specs = param_specs(params, cfg, mesh)
+    blocks = reshard_tree({n: p.data for n, p in params.named_parameters()},
+                          cfg, mesh, specs)
+    for name, p in params.named_parameters():
+        p.data = blocks[name]
+    return specs
 
 
 def parse_args(argv=None):
@@ -71,17 +108,38 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the model trains; cuda raises without a "
                          "CUDA device")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="gloo ranks to train over (one process: 1)")
     return ap.parse_args(argv)
 
 
-def run(argv=None):
-    """Train as ``main`` does; returns (losses, (params, opt_state))."""
+def _rank_run(rank: int, world: int, argv) -> list:
+    """What each rank of ``--ranks`` runs: :func:`run` over the group."""
+    import torch.distributed as dist
+    _share_cores(world)
+    return run(argv, group=dist.group.WORLD)[0]
+
+
+def _share_cores(world: int) -> None:
+    """A rank's share of the host's cores for its CPU work, so that the
+    ranks of one machine do not oversubscribe it."""
+    import os
+
+    import torch
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+
+
+def run(argv=None, *, group=None):
+    """Train as ``main`` does; returns (losses, (params, opt_state)).
+    With ``--ranks R`` > 1 (and no ``group``) it starts the R ranks and
+    returns (rank 0's losses, None); a rank runs it with its ``group``
+    and gets its own blocks."""
     import torch
 
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.data.pipeline import device_put_batch, \
         extra_model_inputs
-    from repro_torch.models import model as M
+    from repro_torch.optim.sharding import global_shape
     from repro_torch.runtime.ft import StragglerWatchdog, run_with_recovery
 
     args = parse_args(argv)
@@ -90,23 +148,52 @@ def run(argv=None):
             "train --device cuda (the default) needs a CUDA device and "
             "none is available; pass --device cpu to run the plain "
             "PyTorch path")
+    if args.ranks < 1:
+        raise ValueError(f"--ranks must be >= 1, got {args.ranks}")
+    if group is None and args.ranks > 1:
+        from repro_torch.launch.ranks import RANK_TIMEOUT_S, spawn_ranks
+        if args.device == "cuda":
+            from repro_torch.kernels import _build
+            _build.ensure_built()        # the ranks load the built kernels
+        import sys
+        argv = list(sys.argv[1:] if argv is None else argv)
+        outs = spawn_ranks(_rank_run, args.ranks, args=(argv,),
+                           timeout=RANK_TIMEOUT_S)
+        return outs[0], None
     device = torch.device(args.device)
+    if group is not None and device.type == "cuda":
+        import torch.distributed as dist
+        device = torch.device("cuda", dist.get_rank(group)
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
     cfg, mesh, params, opt_state, step_fn, data = build(
         args.arch, smoke=args.smoke, batch=args.batch, seq=args.seq,
         model_par=args.model_par, microbatches=args.microbatches,
-        remat=args.remat, lr=args.lr, steps=args.steps, device=device)
-    print(f"arch={cfg.name} params={M.count_params(params):,} "
-          f"mesh={dict(mesh.shape)} devices=1")
+        remat=args.remat, lr=args.lr, steps=args.steps, device=device,
+        group=group)
+    specs = step_fn.specs
+    lead = not mesh.multi_rank or mesh.rank == 0
+
+    def say(line):
+        if lead:
+            print(line, flush=True)
+
+    n_params = sum(math.prod(global_shape(p.shape, specs[n], mesh)
+                             if specs else p.shape)
+                   for n, p in params.named_parameters())
+    say(f"arch={cfg.name} params={n_params:,} mesh={dict(mesh.shape)} "
+        f"devices={args.ranks}")
 
     mgr = None
     start = 0
     state = (params, opt_state)
     if args.ckpt_dir:
-        mgr = CheckpointManager(args.ckpt_dir, save_every=args.ckpt_every)
+        mgr = CheckpointManager(args.ckpt_dir, save_every=args.ckpt_every,
+                                mesh=mesh, specs=specs)
         got_step, got = mgr.restore_latest(state, device=device)
         if got is not None:
             start, state = got_step, got
-            print(f"resumed from step {start}")
+            say(f"resumed from step {start}")
 
     t0 = time.time()
     losses = []
@@ -115,15 +202,16 @@ def run(argv=None):
         params, opt_state = st
         raw = data.batch_at(step)
         raw = extra_model_inputs(cfg, raw)
-        batch = device_put_batch(raw, device)
+        batch = (device_put_batch(raw, mesh, microbatches=args.microbatches)
+                 if mesh.multi_rank else device_put_batch(raw, device))
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])    # waits for the step's kernels
         losses.append(loss)
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t0
-            print(f"step {step:5d}  loss {loss:.4f}  "
-                  f"gnorm {float(metrics['grad_norm']):.3f}  "
-                  f"lr {float(metrics['lr']):.2e}  {dt:.1f}s")
+            say(f"step {step:5d}  loss {loss:.4f}  "
+                f"gnorm {float(metrics['grad_norm']):.3f}  "
+                f"lr {float(metrics['lr']):.2e}  {dt:.1f}s")
         return params, opt_state
 
     wd = StragglerWatchdog(factor=20.0) if args.watchdog else None
@@ -132,8 +220,9 @@ def run(argv=None):
         one_step, state, n_steps=args.steps, ckpt_manager=mgr,
         restore_fn=((lambda: mgr.restore_latest(init, device=device))
                     if mgr else None),
-        watchdog=wd, start_step=start)
-    print(f"done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+        watchdog=wd, start_step=start, mesh=mesh)
+    if losses:
+        say(f"done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
     return losses, state
 
 

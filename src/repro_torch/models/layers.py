@@ -5,15 +5,77 @@ leaves (``{"scale", "bias"}``, ``{"w_gate", "w_up", "w_down"}``, ...),
 and the apply functions compute what the reference's do, in the same
 order and the same dtypes.
 
-The reference's sharding helpers (``constrain``, ``batch_spec``,
-``model_size``, ``head_axis``) annotate activations for GSPMD; on one
-card they have no counterpart and are left out.
+The mesh helpers read the mesh that :func:`use_mesh` makes current, as
+the reference's read the ambient JAX mesh: ``batch_spec``,
+``model_size``, ``head_axis``, ``_mesh_axis_names`` and
+``local_batch_shards`` (the data peers this process holds, which MoE
+dispatches over).  The reference's ``constrain`` only annotates
+activations' layout for GSPMD and changes no value; it has no
+counterpart.
 """
 from __future__ import annotations
+
+import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+# mesh axis-name conventions used everywhere
+BATCH_AXES = ("pod", "data")   # "pod" present only in the multi-pod mesh
+MODEL_AXIS = "model"
+
+# the current mesh: a module global, not a context variable, so that a
+# step run on the watchdog's thread sees the mesh its caller set
+_CURRENT = [None]
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` (a ``core/mesh.py::Mesh``, or None) current inside
+    the block (``jaxcompat.use_mesh``)."""
+    prev = _CURRENT[0]
+    _CURRENT[0] = mesh
+    try:
+        yield mesh
+    finally:
+        _CURRENT[0] = prev
+
+
+def _mesh_axis_names() -> tuple:
+    mesh = _CURRENT[0]
+    return tuple(mesh.axis_names) if mesh is not None else ()
+
+
+def batch_spec():
+    """The (possibly multi-pod) batch sharding axes present in the mesh."""
+    kept = tuple(a for a in BATCH_AXES if a in _mesh_axis_names())
+    return kept if kept else None
+
+
+def model_size() -> int:
+    """Size of the model axis in the current mesh, else 1."""
+    mesh = _CURRENT[0]
+    return mesh.shape.get(MODEL_AXIS, 1) if mesh is not None else 1
+
+
+def head_axis(n_heads: int):
+    """``model`` iff the head count divides the model axis evenly."""
+    ms = model_size()
+    return MODEL_AXIS if ms > 1 and n_heads % ms == 0 else None
+
+
+def local_batch_shards() -> int:
+    """How many data shards of the batch this process holds: the
+    product of its local peers on each batch axis of the current mesh
+    (all of an axis's peers on one process, one a rank where each rank
+    holds one), 1 without a mesh."""
+    mesh = _CURRENT[0]
+    if mesh is None:
+        return 1
+    return math.prod(mesh.axis(a).local for a in BATCH_AXES
+                     if a in mesh.shape)
 
 
 def param_dict(tensors: dict) -> nn.ParameterDict:

@@ -269,10 +269,13 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
 
 
 def loss_fn(params: LM, cfg: ModelConfig, batch: dict, *,
-            remat: str = "none", q_block: int = 1024, kv_block: int = 1024):
+            remat: str = "none", q_block: int = 1024, kv_block: int = 1024,
+            n_tok=None):
     """Next-token cross-entropy plus MoE's auxiliary loss.  labels:
     (B, S) int32, -1 = ignore.  Returns (loss, {"ce", "aux", "n_tok"}),
-    f32 scalars.
+    f32 scalars.  ``n_tok`` replaces the count of labelled tokens the
+    sum is divided by (over ranks: the whole batch's, so that the ranks'
+    cross-entropies add up to the whole batch's).
 
     The logits in f32 (an f64 model keeps f64), ``logsumexp``, and the
     label's logit picked with ``take_along_dim`` on the labels clamped
@@ -288,7 +291,8 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: dict, *,
     picked = torch.take_along_dim(
         lf, labels.clamp_min(0).long()[..., None], dim=-1)[..., 0]
     mask = (labels >= 0).to(lf.dtype)
-    n_tok = torch.clamp_min(mask.sum(), 1.0)
+    if n_tok is None:
+        n_tok = torch.clamp_min(mask.sum(), 1.0)
     ce = ((lse - picked) * mask).sum() / n_tok
     loss = ce + aux
     return loss, {"ce": ce, "aux": aux, "n_tok": n_tok}

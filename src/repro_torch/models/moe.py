@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.topk import topk_with_grad
+from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init, wide
 
 
@@ -74,81 +75,134 @@ def apply_moe(params, x, cfg):
     """x: (B, S, D) -> (y (B, S, D) in x's dtype, aux_loss f32 scalar).
 
     aux_loss is the Switch / GShard load-balance loss (mean fraction *
-    mean gate mass per expert * n_experts * router_aux_coef).  The
-    reference dispatches per data shard under a mesh
-    (``_moe_dispatch_outside``); with one data shard that is this
-    function's arithmetic (the same T = B * S and the same capacity), so
-    the port has one function for both.
+    mean gate mass per expert * n_experts * router_aux_coef).
+
+    Under a mesh with data axes (``layers.use_mesh``), the reference
+    dispatches each data shard alone (``_moe_dispatch_outside``) when
+    the batch divides into them: each shard's capacity comes from its
+    own tokens, and the auxiliary loss is the mean over shards.  This
+    process holds ``layers.local_batch_shards()`` of them: every data
+    peer on one process, one a rank where each rank holds one (its
+    rows are then the shard).  Without a mesh, or where the batch does
+    not divide, the batch is one shard.
     """
-    return _moe_local(params, x, cfg)
+    shards = L.local_batch_shards()
+    if x.shape[0] % shards:
+        shards = 1
+    return _moe_dispatch_outside(params, x, cfg, shards)
 
 
-def _moe_local(params, x, cfg, *, impl: str = "capacity"):
-    """One-shard MoE; ``impl`` is ``"capacity"`` (the serving route) or
-    ``"ragged"`` (dropless, one product a non-empty expert)."""
+def _route(params, xf, cfg, shards: int):
+    """The router over the (T, D) tokens ``xf``: (gate values (T, k),
+    normalised, expert ids (T, k) int64, aux loss): the aux loss of each
+    of ``shards`` contiguous blocks of T / shards tokens, then their
+    mean (the reference's ``pmean``)."""
     e = cfg.moe
-    b, s, d = x.shape
-    t, k, n_e = b * s, e.top_k, e.n_experts
-    xf = x.reshape(t, d)
-
+    k, n_e = e.top_k, e.n_experts
     probs = torch.softmax(_router_logits(xf, params["router"]), dim=-1)
     gate_vals, expert_ids = topk_with_grad(probs, k)          # (T, k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
     expert_ids = expert_ids.long()
+    t_l = xf.shape[0] // shards
+    frac = F.one_hot(expert_ids.view(shards, t_l, k), n_e).float().mean(
+        dim=(1, 2))                                           # (l, E)
+    mass = probs.view(shards, t_l, n_e).mean(dim=1)
+    aux = (n_e * (frac * mass).sum(dim=-1) * e.router_aux_coef).mean()
+    return gate_vals, expert_ids, aux
 
-    frac = F.one_hot(expert_ids, n_e).float().mean(dim=(0, 1))
-    mass = probs.mean(dim=0)
-    aux = n_e * (frac * mass).sum() * e.router_aux_coef
 
-    # dispatch: the (token, slot) pairs sorted by expert, stably, as
-    # jnp.argsort sorts (drops beyond capacity follow this order)
+def _combine(params, xf, yo, gate_vals, cfg, x):
+    """The experts' outputs ``yo`` (T, k, D) weighted by their gates,
+    plus the shared expert where the config has one, in x's shape and
+    dtype."""
+    y = (yo * gate_vals[..., None].to(yo.dtype)).sum(dim=1)
+    if cfg.moe.n_shared_experts:
+        sp = params["shared"]
+        hs = F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"])
+        y = y + hs @ sp["w_down"]
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def _moe_dispatch_outside(params, x, cfg, shards: int = 1):
+    """The capacity route, per data shard as the reference's
+    ``_moe_dispatch_outside``: ``shards`` contiguous blocks of B /
+    shards rows, each dispatched alone with capacity C = ceil(T_local *
+    k / E * capacity_factor), T_local its tokens.  In each shard the
+    (token, slot) pairs are sorted by expert, stably, as ``jnp.argsort``
+    sorts (drops beyond capacity follow this order).  The router and
+    its top-k run once over every token (both are row by row), and the
+    experts' products once over the (E, shards * C, D) buffer, shard
+    j's C rows of expert e at ``e * shards * C + j * C``, the
+    reference's layout; one row more holds the dropped pairs, unread."""
+    e = cfg.moe
+    b, s, d = x.shape
+    t, k, n_e = b * s, e.top_k, e.n_experts
+    t_l = (b // shards) * s
+    cap = int(math.ceil(t_l * k / n_e * e.capacity_factor))
+    xf = x.reshape(t, d)
+    dev = x.device
+    gate_vals, expert_ids, aux = _route(params, xf, cfg, shards)
+
+    flat_exp = expert_ids.view(shards, t_l * k)
+    order = torch.argsort(flat_exp, dim=1, stable=True)
+    pos = torch.arange(t_l * k, device=dev).expand(shards, -1)
+    inv_order = torch.empty_like(order).scatter_(1, order, pos)
+    first = torch.arange(shards, device=dev)[:, None]
+    tok_idx = order // k + first * t_l
+    # jnp.bincount(length=E); torch.bincount on the card reads the
+    # largest id back to the host first, a sync in every layer
+    counts = torch.zeros((shards, n_e), dtype=torch.long,
+                         device=dev).scatter_add_(
+        1, flat_exp, torch.ones_like(flat_exp))
+    sorted_exp = torch.gather(flat_exp, 1, order)
+    starts = torch.cumsum(counts, 1) - counts
+    rank = pos - torch.gather(starts, 1, sorted_exp)
+    rows = n_e * shards * cap
+    slot = torch.where(rank < cap,
+                       sorted_exp * (shards * cap) + first * cap + rank,
+                       rows)
+    buf = torch.zeros((rows + 1, d), dtype=xf.dtype, device=dev)
+    buf[slot.reshape(-1)] = xf[tok_idx.reshape(-1)]
+    bufe = buf[:rows].view(n_e, shards * cap, d)
+    h = F.silu(torch.bmm(bufe, params["w_gate"])) * torch.bmm(
+        bufe, params["w_up"])
+    y_buf = torch.bmm(h, params["w_down"]).reshape(rows, d)
+    slot_of_flat = torch.gather(slot, 1, inv_order).reshape(-1)
+    kept = (slot_of_flat < rows)[:, None]
+    y_flat = y_buf[torch.clamp_max(slot_of_flat, rows - 1)]
+    yo = torch.where(kept, y_flat, 0).reshape(t, k, d)
+    return _combine(params, xf, yo, gate_vals, cfg, x), aux
+
+
+def _moe_local(params, x, cfg, *, impl: str = "capacity"):
+    """One-shard MoE; ``impl`` is ``"capacity"`` (the serving route,
+    :func:`_moe_dispatch_outside` over one shard) or ``"ragged"``
+    (dropless, one product a non-empty expert)."""
+    if impl == "capacity":
+        return _moe_dispatch_outside(params, x, cfg)
+    if impl != "ragged":
+        raise ValueError(f"unknown MoE impl {impl!r}")
+    e = cfg.moe
+    b, s, d = x.shape
+    t, k, n_e = b * s, e.top_k, e.n_experts
+    xf = x.reshape(t, d)
+    gate_vals, expert_ids, aux = _route(params, xf, cfg, 1)
     flat_exp = expert_ids.reshape(-1)                          # (T*k,)
     order = torch.argsort(flat_exp, stable=True)
     inv_order = torch.empty_like(order).scatter_(
         0, order, torch.arange(t * k, device=x.device))
-    tok_idx = order // k
-    # jnp.bincount(length=E); torch.bincount on the card reads the
-    # largest id back to the host first, a sync in every layer
     counts = torch.zeros(n_e, dtype=torch.long,
                          device=x.device).scatter_add_(
         0, flat_exp, torch.ones_like(flat_exp))
-
-    if impl == "ragged":
-        xin = xf[tok_idx]                                      # (T*k, D)
-        yo = torch.empty_like(xin)
-        start = 0
-        for ex, n in enumerate(counts.tolist()):
-            if n:
-                rows = xin[start:start + n]
-                h = F.silu(rows @ params["w_gate"][ex]) * (
-                    rows @ params["w_up"][ex])
-                yo[start:start + n] = h @ params["w_down"][ex]
-            start += n
-        yo = yo[inv_order].reshape(t, k, d)
-    elif impl == "capacity":
-        cap = int(math.ceil(t * k / n_e * e.capacity_factor))
-        sorted_exp = flat_exp[order]
-        starts = torch.cumsum(counts, 0) - counts
-        rank = torch.arange(t * k, device=x.device) - starts[sorted_exp]
-        slot = torch.where(rank < cap, sorted_exp * cap + rank, n_e * cap)
-        # one row more than E * C: the dropped pairs land there, unread
-        buf = torch.zeros((n_e * cap + 1, d), dtype=xf.dtype,
-                          device=x.device)
-        buf[slot] = xf[tok_idx]
-        bufe = buf[:n_e * cap].view(n_e, cap, d)
-        h = F.silu(torch.bmm(bufe, params["w_gate"])) * torch.bmm(
-            bufe, params["w_up"])
-        y_buf = torch.bmm(h, params["w_down"]).reshape(n_e * cap, d)
-        slot_of_flat = slot[inv_order]
-        kept = (slot_of_flat < n_e * cap)[:, None]
-        y_flat = y_buf[torch.clamp_max(slot_of_flat, n_e * cap - 1)]
-        yo = torch.where(kept, y_flat, 0).reshape(t, k, d)
-    else:
-        raise ValueError(f"unknown MoE impl {impl!r}")
-    y = (yo * gate_vals[..., None].to(yo.dtype)).sum(dim=1)
-
-    if e.n_shared_experts:
-        sp = params["shared"]
-        hs = F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"])
-        y = y + hs @ sp["w_down"]
-    return y.reshape(b, s, d).to(x.dtype), aux
+    xin = xf[order // k]                                       # (T*k, D)
+    yo = torch.empty_like(xin)
+    start = 0
+    for ex, n in enumerate(counts.tolist()):
+        if n:
+            rows = xin[start:start + n]
+            h = F.silu(rows @ params["w_gate"][ex]) * (
+                rows @ params["w_up"][ex])
+            yo[start:start + n] = h @ params["w_down"][ex]
+        start += n
+    yo = yo[inv_order].reshape(t, k, d)
+    return _combine(params, xf, yo, gate_vals, cfg, x), aux

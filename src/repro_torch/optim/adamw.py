@@ -88,23 +88,45 @@ def adamw_init(params: nn.Module, cfg: AdamWConfig) -> AdamWState:
                       {n: z.clone() for n, z in zeros.items()})
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tensors))
+def global_norm(tensors, *, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32.
+
+    Over a mesh whose axes span ranks, ``tensors`` is ``{name: this
+    rank's block}`` and ``specs`` their specs: each rank sums the
+    squares of the blocks it counts (a leaf replicated over a rank axis
+    is counted at coordinate 0 of that axis only, so every element
+    once), and the partial sums are summed over each rank axis in turn
+    (``optim/sharding.py::psum_axes``), so every rank holds the same
+    bits."""
+    if mesh is None or not mesh.multi_rank:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in tensors))
+    from repro_torch.optim.sharding import counted_here, psum_axes
+    part = None
+    for name, x in tensors.items():
+        if counted_here(specs[name], mesh):
+            sq = torch.sum(torch.square(x.to(torch.float32)))
+            part = sq if part is None else part + sq
+    if part is None:
+        part = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    return torch.sqrt(psum_axes(part, mesh, mesh.axis_names))
 
 
 @torch.no_grad()
 def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
                  params: nn.Module, cfg: AdamWConfig,
-                 decay: Dict[str, bool]):
+                 decay: Dict[str, bool], *, mesh=None, specs=None):
     """One AdamW step of ``params`` (updated in place) from ``grads``
     (name -> gradient, any float dtype), clipped by their global norm;
     ``decay`` is :func:`decayed`'s map.  Returns (params, the new state,
     whose moments are ``state``'s updated in place, {"grad_norm",
-    "lr"}): each parameter updated in f32 and cast back to its dtype."""
+    "lr"}): each parameter updated in f32 and cast back to its dtype.
+    Over ranks (``mesh``, ``specs``), the parameters, gradients and
+    moments are this rank's blocks, and the norm is
+    :func:`global_norm`'s over the group."""
     step = state.step + 1
-    gnorm = global_norm(grads.values())
+    gnorm = global_norm(grads if mesh is not None and mesh.multi_rank
+                        else grads.values(), mesh=mesh, specs=specs)
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
                            1.0)
     lr = cosine_lr(cfg, step)

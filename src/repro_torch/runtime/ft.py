@@ -124,11 +124,20 @@ def run_with_recovery(step_fn: Callable[[int, Any], Any], state: Any,
                       max_failures: int = 8,
                       on_failure: Optional[Callable[[int, Exception], None]]
                       = None,
-                      start_step: int = 0) -> Any:
+                      start_step: int = 0, mesh=None) -> Any:
     """Run ``state = step_fn(step, state)`` for n_steps with checkpoint/
     restart.  On failure: restore the latest checkpoint (or ``restore_fn``)
     and requeue from there.  Returns the final state.
+
+    Over a mesh whose axes span ranks (``mesh``), every rank runs this
+    loop and the checkpoint manager saves and restores collectively, so
+    all ranks resume from the same step (rank 0's, broadcast).  A
+    failure on any rank stops the group: it is raised at once, not
+    retried, since its peers may be waiting in a collective of the
+    failed step (``launch/ranks.py::spawn_ranks`` then ends the other
+    ranks); a rerun resumes every rank from the last checkpoint.
     """
+    over_ranks = mesh is not None and mesh.multi_rank
     failures = 0
     step = start_step
     while step < n_steps:
@@ -141,6 +150,8 @@ def run_with_recovery(step_fn: Callable[[int, Any], Any], state: Any,
                 ckpt_manager.maybe_save(step + 1, state)
             step += 1
         except Exception as e:              # noqa: BLE001
+            if over_ranks:
+                raise
             failures += 1
             if on_failure is not None:
                 on_failure(step, e)
