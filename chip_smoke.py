@@ -251,6 +251,22 @@ result line) when any phase fails:
      routers' (4, 32) / (128, 32) at k = 8 and (4, 64) / (128, 64) at
      k = 6 on captured probabilities (``router_shapes``).  A profiler window that misses
      one of the launches it should hold is taken again, up to 3 windows.
+  17. (before phase 16) the dry run's counter held to the card:
+     ``roofline/trace.py::analyze`` of phase 14's granite-moe-1b-a400m
+     train step (batch 8, seq 128) and of phase 11's qwen2-0.5b decode
+     step (batch 4, 16 vocabulary peers), each once on fake card tensors
+     and once on the real step: equal FLOPs and bytes, the kernel calls
+     equal to the launches the step made (24 top-k a granite step; a
+     top-k and 4 merges a decode step), the fake trace's peak within
+     1% of ``max_memory_allocated``; each step timed (synchronised)
+     beside its data-sheet bound from ``roofline_terms`` and the share;
+     then ``python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b
+     --shape decode_32k`` as a process (exit 0, a top-k and 4 merges on
+     fake card tensors, its record under ``artifacts/dryrun_torch``)
+     and a smoke-size granite train cell on the 256-rank fake world on
+     fake card tensors, whose bytes sent equal
+     ``tools/chip_train_ranks.py::predicted_bytes``.  Its launches are
+     not in the kernels line.
   16. (run last, after the timing windows, then one profiler window
      as a probe) training and serving
      across ranks: 4 gloo ranks on the card as a
@@ -3408,6 +3424,271 @@ def _ranks(dev, card, _build):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the dry run's counter held to the card
+# ---------------------------------------------------------------------------
+
+# phase 14's training cell and phase 11's decode; the fake trace's peak
+# against max_memory_allocated (relative; readings on an H100 80GB HBM3
+# at 700 W: 5.4e-7 for the granite step, 6.3e-4 for the decode);
+# synchronised steps timed
+P17_TRAIN = ("granite-moe-1b-a400m", 8, 128)
+P17_PEAK_TOL = 0.01
+P17_TRAIN_STEPS, P17_DECODE_STEPS = 3, 15
+# the dry run's subprocesses (each process reaches the card in ~8 s)
+P17_LIMIT_S = 600
+# a smoke-size granite train cell on the 256-rank fake world, on fake
+# card tensors: a backward a torch without CUDA cannot trace
+P17_SMOKE_TRAIN = """
+import json, sys
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+sys.path.insert(0, "tools")
+import chip_train_ranks
+from repro_torch.configs.base import ShapeConfig, get_config, smoke_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.train import place_blocks
+cfg = smoke_config(get_config("granite-moe-1b-a400m"))
+rec = D.trace_cell(cfg, ShapeConfig("train_small", 64, 32, "train"),
+                   overrides={"microbatches": 2})
+card = torch.device("cuda", 0)
+with D._fake_world(256) as group, FakeTensorMode():
+    mesh = make_production_mesh(group=group, device=card)
+    params = D._init_params(cfg, 4096, card)
+    specs = place_blocks(params, cfg, mesh)
+    rec["predicted_bytes"] = chip_train_ranks.predicted_bytes(
+        params, specs, mesh, microbatches=2)
+print(json.dumps(rec))
+"""
+
+
+def _p17_totals(what, fake, real, launches):
+    """The fake and the real trace of one step: equal FLOPs, bytes and
+    kernel calls, the calls equal to the launches."""
+    calls = {"topk": launches["topk"] + launches["topk_select"],
+             "merge": launches["merge"]}
+    calls = {k: n for k, n in calls.items() if n}
+    diff = {op: (fake.op_counts.get(op, 0), real.op_counts.get(op, 0))
+            for op in set(fake.op_counts) | set(real.op_counts)
+            if fake.op_counts.get(op, 0) != real.op_counts.get(op, 0)
+            and not op.startswith("prim.")}      # metadata: fake only
+    _require((fake.flops, fake.bytes_accessed) == (real.flops,
+                                                   real.bytes_accessed),
+             f"{what}: fake flops / bytes {fake.flops} / "
+             f"{fake.bytes_accessed}, real {real.flops} / "
+             f"{real.bytes_accessed}; ops (fake, real) that differ {diff}")
+    _require(fake.kernels == real.kernels == calls,
+             f"{what}: kernel calls fake {fake.kernels} real "
+             f"{real.kernels}, launches {launches}")
+
+
+def _p17_peak(what, fake, base, max_alloc):
+    """The fake trace's peak against the card's: the fake's temporaries
+    on top of what the card held before the step."""
+    predicted = base + fake.peak_device_bytes - fake.argument_bytes
+    err = abs(predicted - max_alloc) / max_alloc
+    _require(err <= P17_PEAK_TOL,
+             f"{what}: predicted peak {predicted} B, max_memory_allocated "
+             f"{max_alloc} B ({err:.1%})")
+    return {"fake_argument_bytes": fake.argument_bytes,
+            "fake_peak_bytes": fake.peak_device_bytes,
+            "allocated_before": base, "predicted_peak": predicted,
+            "max_memory_allocated": max_alloc, "peak_err": err}
+
+
+def _p17_measured(dev, fn, reps):
+    """Synchronised calls of ``fn``, each timed (s)."""
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _p17_bound(cfg, shape, totals, step_s):
+    from repro_torch.roofline.analysis import (HW, model_flops_estimate,
+                                               roofline_terms)
+    terms = roofline_terms(
+        hlo_flops=totals.flops, hlo_bytes=totals.bytes_accessed,
+        collective_bytes=totals.collective_bytes, hw=HW(),
+        model_flops=model_flops_estimate(cfg, shape, mode=shape.kind))
+    return {"flops": totals.flops, "bytes": totals.bytes_accessed,
+            "ops": totals.ops, "bound_ms": terms["bound_s"] * 1e3,
+            "dominant": terms["dominant"], "step_ms": step_s * 1e3,
+            "share_of_bound": terms["bound_s"] / step_s}
+
+
+def _p17_train(dev, card, _build):
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.data.pipeline import device_put_batch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.train import build
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.roofline.trace import analyze
+    from repro_torch.runtime.steps import make_train_step
+    arch, batch, seq = P17_TRAIN
+    cfg, mesh, params, opt, step_fn, data = build(
+        arch, smoke=False, batch=batch, seq=seq, model_par=1,
+        microbatches=1, remat="none", lr=3e-4, steps=20, device=dev)
+    real_batch = device_put_batch(data.batch_at(0), mesh)
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=20, warmup_steps=1)
+    with FakeTensorMode():
+        fparams = D._init_params(cfg, max(seq, 128), dev)
+        fopt = adamw_init(fparams, opt_cfg)
+        fstep = make_train_step(cfg, opt_cfg, microbatches=1, remat="none",
+                                mesh=Mesh((1, 1), ("data", "model"), dev))
+        fbatch = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                  for k, v in real_batch.items()}
+        fake = analyze(fstep, fparams, fopt, fbatch)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    _build.reset_launches()
+    real = analyze(step_fn, params, opt, real_batch)
+    torch.cuda.synchronize(dev)
+    launches = dict(_build.LAUNCHES)
+    max_alloc = torch.cuda.max_memory_allocated(dev)
+    _p17_totals("phase 17 train", fake, real, launches)
+    _require(launches["topk"] == cfg.n_layers,
+             f"phase 17 train: {launches} launches, want {cfg.n_layers} "
+             f"top-k")
+    res = _p17_peak("phase 17 train", fake, base, max_alloc)
+    steps = _p17_measured(dev, lambda: step_fn(params, opt, real_batch),
+                          P17_TRAIN_STEPS)
+    res.update(_p17_bound(cfg, ShapeConfig("p17", seq, batch, "train"),
+                          fake, statistics.median(steps)))
+    res.update(launches=launches, step_s=steps)
+    print(f"[phase 17] train {arch} batch {batch} seq {seq}: "
+          + json.dumps(res) + f"; {card}")
+    return launches
+
+
+def _p17_decode(dev, card, _build):
+    import numpy as np
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import state_from_prefill
+    from repro_torch.models import model as M
+    from repro_torch.roofline.trace import analyze
+    from repro_torch.runtime.steps import gumbel, make_serve_step
+    cfg = get_config(DEC_ARCH)
+    s_max = DEC_PROMPT + DEC_GEN
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                           max_seq=s_max, device=dev)
+    batch = _decode_batch(cfg, np.random.default_rng(0), DEC_B, dev)
+    step = make_serve_step(cfg, make_host_mesh(DEC_P, device=dev, cfg=cfg),
+                           k=DEC_K)
+    last, pst = M.prefill(params, cfg, batch)
+    state = state_from_prefill(cfg, pst, s_max)
+    tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+    gen = torch.Generator(dev).manual_seed(1)
+    noise = gumbel((DEC_B, DEC_K), gen)
+    with FakeTensorMode():
+        fparams = D._init_params(cfg, s_max, dev)
+        fstep = make_serve_step(
+            cfg, make_host_mesh(DEC_P, device=dev, cfg=cfg), k=DEC_K)
+        fstate = M.init_decode_state(
+            cfg, batch=DEC_B, s_max=s_max, cache_dtype=torch.float32,
+            device=dev)._replace(pos=state.pos)
+        fake = analyze(fstep, fparams, fstate,
+                       torch.zeros(tok.shape, dtype=tok.dtype, device=dev),
+                       None, torch.zeros(noise.shape, device=dev))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    _build.reset_launches()
+    real = analyze(step, params, state, tok, None, noise)
+    torch.cuda.synchronize(dev)
+    launches = dict(_build.LAUNCHES)
+    max_alloc = torch.cuda.max_memory_allocated(dev)
+    _p17_totals("phase 17 decode", fake, real, launches)
+    _require(launches["topk"] == 1 and launches["merge"] == int(
+        math.log2(DEC_P)), f"phase 17 decode: {launches}")
+    res = _p17_peak("phase 17 decode", fake, base, max_alloc)
+    box = {"state": state_from_prefill(cfg, pst, s_max), "tok": tok}
+
+    def one():
+        box["tok"], box["state"] = step(params, box["state"], box["tok"],
+                                        gen)
+    steps = _p17_measured(dev, one, P17_DECODE_STEPS)
+    res.update(_p17_bound(cfg, ShapeConfig("p17", s_max, DEC_B, "decode"),
+                          fake, statistics.fmean(steps[1:])))
+    res.update(launches=launches, step_s=steps,
+               step_ms_pr24=28.58938078571782)
+    print(f"[phase 17] decode {cfg.name} batch {DEC_B}, {DEC_P} peers: "
+          + json.dumps(res) + f"; {card}")
+    return launches
+
+
+def _p17_dryrun():
+    """The dry run's CLI on a full-size decode cell and a smoke train
+    cell on fake card tensors, each a process, side by side."""
+    import os
+    from repro_torch.launch.dryrun import DEFAULT_OUT
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen1.5-0.5b", "--shape", "decode_32k"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    smoke = subprocess.Popen(
+        [sys.executable, "-c", P17_SMOKE_TRAIN], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        cli_log, _ = cli.communicate(timeout=P17_LIMIT_S)
+        smoke_log, _ = smoke.communicate(timeout=P17_LIMIT_S)
+    finally:
+        for proc in (cli, smoke):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    _require(cli.returncode == 0,
+             f"phase 17: the dry run's CLI exited {cli.returncode}:\n"
+             f"{cli_log[-3000:]}")
+    _require(smoke.returncode == 0,
+             f"phase 17: the smoke train cell exited {smoke.returncode}:"
+             f"\n{smoke_log[-3000:]}")
+    rec = json.loads((ROOT / DEFAULT_OUT
+                      / "qwen1.5-0.5b__decode_32k__sp.json").read_text())
+    _require(rec["device"] == "cuda" and rec["kernels"] == {
+        "topk": 1, "merge": 4}, f"phase 17 dry run: {rec['device']} "
+        f"{rec['kernels']}")
+    train = json.loads(smoke_log.strip().splitlines()[-1])
+    _require(train["device"] == "cuda" and train["kernels"].get("topk", 0)
+             > 0 and train["sent_bytes"] == train["predicted_bytes"],
+             f"phase 17 smoke train cell: {train['device']} "
+             f"{train['kernels']} sent {train['sent_bytes']} predicted "
+             f"{train['predicted_bytes']}")
+    keep = ("t_trace_s", "device", "kernels", "flops", "hlo_bytes",
+            "sent_bytes", "memory", "roofline")
+    print("[phase 17] dry run " + cli_log.strip().splitlines()[0])
+    print("[phase 17] dry run record "
+          + json.dumps({k: rec[k] for k in keep}))
+    print("[phase 17] smoke train cell "
+          + json.dumps({k: train[k] for k in keep + ("predicted_bytes",)}))
+
+
+def _dryrun_phase(dev, card, _build):
+    t0 = time.perf_counter()
+    _p17_train(dev, card, _build)
+    _free_card()
+    _p17_decode(dev, card, _build)
+    _free_card()
+    _p17_dryrun()
+    print(f"[phase 17] {time.perf_counter() - t0:.3f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 16: training and serving across ranks on the card
 # ---------------------------------------------------------------------------
 
@@ -4422,6 +4703,8 @@ def main() -> int:
                           {**var_scores, **arch_scores}, router,
                           train_router))
     rows.append(_topk_select_row(scores, errs, launches, rank_leaf))
+    _free_card()
+    _dryrun_phase(dev, card, _build)
     _free_card()
     # phase 16 runs after the timing windows: one call with it before
     # them lost kernel records in phase 6's windows, cause not found

@@ -23,17 +23,19 @@ in peer order, as one process does; ``all_gather`` concatenates the
 ranks in peer order.
 Each axis over more than one rank and fewer than all gets one subgroup
 per combination of the other axes' rank coordinates, made by
-``dist.new_group`` when the mesh is built, by every rank in the same
-order.  One rank per axis (the default) is the one-process mesh, whose
-code path and bits are unchanged.
+``dist.new_group`` with the group's own backend when the mesh is built,
+by every rank in the same order.  One rank per axis (the default) is
+the one-process mesh, whose code path and bits are unchanged.
 
 Which backend: gloo.  NCCL refuses two ranks on one card, and a machine
 with one card then runs its ranks as processes that share it.  gloo's
 send and receive take host tensors, so every exchange of CUDA tensors
 is staged through pinned host buffers, after the producing stream is
-synchronised.  The mesh counts the payload bytes this rank delivers to
-other ranks (``Mesh.sent_bytes``): the traffic the paper counts,
-measured at a process boundary.
+synchronised (a fake tensor, which ``launch/dryrun.py`` runs over the
+``fake`` backend's world, has nothing to wait for).  The mesh counts
+the payload bytes this rank delivers to other ranks
+(``Mesh.sent_bytes``): the traffic the paper counts, measured at a
+process boundary.
 
 A ``"data"`` mesh axis shards only the batch of queries; every
 collective is elementwise per batch row, so within one process it
@@ -173,7 +175,8 @@ class Mesh:
                 if ranks[a] == world:
                     sub = group
                 else:        # every rank makes every group, in this order
-                    sub = dist.new_group(ranks=list(line), backend="gloo")
+                    sub = dist.new_group(ranks=list(line),
+                                         backend=dist.get_backend(group))
                 if base[:a] + base[a + 1:] == coord[:a] + coord[a + 1:]:
                     mine = (sub, line)
             axes[name] = Axis(name, self.shape[name], ranks[a], coord[a],
@@ -327,10 +330,12 @@ def _host_buffer(shape, dtype, device) -> torch.Tensor:
                        pin_memory=torch.device(device).type == "cuda")
 
 
-def _synchronize(device) -> None:
-    """Wait for the copies to the staging buffers."""
-    if torch.device(device).type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
+def _synchronize(t: torch.Tensor) -> None:
+    """Wait for the copies from ``t``'s device to the staging buffers (a
+    fake tensor has no stream to wait for)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if t.device.type == "cuda" and not isinstance(t, FakeTensor):
+        torch.cuda.current_stream(t.device).synchronize()
 
 
 def _pack(parts) -> torch.Tensor:
@@ -362,7 +367,7 @@ def _exchange(axis: Axis, perm: Permutation, xs, outs) -> None:
         host = _to_host(_pack([x.index_select(-2, idx) for x in xs]))
         ops.append(dist.P2POp(dist.isend, host, axis.peers[j], axis.group))
         axis.mesh.sent_bytes += host.numel()
-    _synchronize(dev)
+    _synchronize(xs[0])
     for j, idx in perm.recvs:
         buf = _host_buffer(lead + (len(idx), row_bytes), torch.uint8, dev)
         ops.append(dist.P2POp(dist.irecv, buf, axis.peers[j], axis.group))
@@ -402,7 +407,7 @@ def broadcast_all(xs: Sequence[torch.Tensor], axis: Axis) -> list:
     import torch.distributed as dist
     dev = xs[0].device
     host = _to_host(_pack(xs))
-    _synchronize(dev)
+    _synchronize(xs[0])
     dist.broadcast(host, src=axis.peers[0], group=axis.group)
     if axis.index == 0:
         axis.mesh.sent_bytes += host.numel() * (axis.ranks - 1)
@@ -416,7 +421,7 @@ def gather_dim(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
         return x
     import torch.distributed as dist
     host = _to_host(x)
-    _synchronize(x.device)
+    _synchronize(x)
     parts = [torch.empty_like(host) for _ in range(axis.ranks)]
     dist.all_gather(parts, host, group=axis.group)
     axis.mesh.sent_bytes += host.numel() * host.element_size() * (

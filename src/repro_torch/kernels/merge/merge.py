@@ -17,6 +17,12 @@ source) on one of three routes that :func:`merge_plan` chooses:
 
 The launcher recomputes the plan and refuses any other.  Launch counter:
 ``repro_torch.kernels._build.LAUNCHES["merge"]``.
+
+A merge into new outputs launches through the op ``repro_torch::merge``
+(``torch.ops``), whose fake implementation gives the outputs' shapes
+and dtypes and computes nothing, so that a fake-tensor trace or a
+counter of ops (``roofline/trace.py``) sees each launch as one call; a
+merge into given outputs (``out=``) launches directly.
 """
 from __future__ import annotations
 
@@ -233,16 +239,16 @@ def merge_cuda(vals_a, idx_a, vals_b, idx_b, valid_a=None, valid_b=None,
     Returns ``(values, owners)``; ties go to list ``a``, then to the
     lower position — the plain version's rule.
     """
+    if out is None:
+        _check(vals_a, idx_a, vals_b, idx_b)
+        return merge_op(vals_a, idx_a, vals_b, idx_b, valid_a, valid_b)
     return _merge(vals_a, idx_a, vals_b, idx_b, valid_a, valid_b, None, out)
 
 
-def _merge(vals_a, idx_a, vals_b, idx_b, valid_a=None, valid_b=None,
-           route=None, out=None):
-    """:func:`merge_cuda` launched on the route ``merge_plan(...,
-    route=route)`` plans.  The on-card checks force each route here, into
-    outputs filled with NaN so that a skipped element shows."""
+def _check(vals_a, idx_a, vals_b, idx_b):
+    """Refuse lists the kernel does not take (ValueError); returns
+    their shape and compute dtype."""
     shape = tuple(vals_a.shape)
-    lead, k = shape[:-1], shape[-1]
     dev = vals_a.device
     if dev.type != "cuda":
         raise ValueError(f"merge_cuda needs CUDA tensors, got {dev}")
@@ -256,12 +262,24 @@ def _merge(vals_a, idx_a, vals_b, idx_b, valid_a=None, valid_b=None,
     for t in (vals_a, vals_b, idx_a, idx_b):
         if not t.is_contiguous():
             raise ValueError("merge: lists must be contiguous")
-    if k < 1:
-        raise ValueError(f"merge: list length must be >= 1, got {k}")
+    if shape[-1] < 1:
+        raise ValueError(f"merge: list length must be >= 1, got "
+                         f"{shape[-1]}")
     dt = compute_dtype(vals_a, vals_b)
     if dt not in _SUFFIX:
         raise ValueError(f"merge: cannot merge {vals_a.dtype} and "
                          f"{vals_b.dtype} lists")
+    return shape, dt
+
+
+def _merge(vals_a, idx_a, vals_b, idx_b, valid_a=None, valid_b=None,
+           route=None, out=None):
+    """:func:`merge_cuda` launched on the route ``merge_plan(...,
+    route=route)`` plans.  The on-card checks force each route here, into
+    outputs filled with NaN so that a skipped element shows."""
+    shape, dt = _check(vals_a, idx_a, vals_b, idx_b)
+    lead, k = shape[:-1], shape[-1]
+    dev = vals_a.device
     vals_a, idx_a, valid_a = _promote(vals_a, idx_a, valid_a, dt)
     vals_b, idx_b, valid_b = _promote(vals_b, idx_b, valid_b, dt)
     ma = _mask(valid_a, lead, dev)
@@ -291,3 +309,18 @@ def _merge(vals_a, idx_a, vals_b, idx_b, valid_a=None, valid_b=None,
     _build.check(code, "merge")
     _build.LAUNCHES["merge"] += 1
     return vo, io
+
+
+merge_op = torch.library.custom_op(
+    "repro_torch::merge", _merge, mutates_args=(), device_types="cuda",
+    schema="(Tensor vals_a, Tensor idx_a, Tensor vals_b, Tensor idx_b, "
+           "Tensor? valid_a, Tensor? valid_b) -> (Tensor, Tensor)")
+
+
+@merge_op.register_fake
+def _(vals_a, idx_a, vals_b, idx_b, valid_a, valid_b):
+    dt = compute_dtype(vals_a, vals_b)
+    for valid in (valid_a, valid_b):
+        _mask(valid, tuple(vals_a.shape[:-1]), vals_a.device)
+    return (vals_a.new_empty(vals_a.shape, dtype=dt),
+            vals_a.new_empty(vals_a.shape, dtype=torch.int32))

@@ -16,6 +16,11 @@ sorts them).  This module plans the route, the tiles and the scratch;
 each launcher refuses any other plan.  Launch counters:
 ``repro_torch.kernels._build.LAUNCHES["topk"]`` (tile route) and
 ``["topk_select"]`` (both select routes).
+
+:func:`topk_cuda` launches through the op ``repro_torch::topk``
+(``torch.ops``), whose fake implementation gives the outputs' shapes
+and dtypes and computes nothing, so that a fake-tensor trace or a
+counter of ops (``roofline/trace.py``) sees each launch as one call.
 """
 from __future__ import annotations
 
@@ -123,6 +128,12 @@ def topk_cuda(scores, k: int, *, index_offset: int = 0):
     if index_offset < 0 or n + index_offset > 2 ** 31:
         raise ValueError(f"topk: global indices of n={n} from offset "
                          f"{index_offset} do not fit int32")
+    return topk_op(scores, k, index_offset)
+
+
+def _launch(scores, k: int, index_offset: int):
+    dev = scores.device
+    n = scores.shape[-1]
     if scores.dtype not in _SUFFIX:
         scores = scores.to(torch.float32)
     lead = scores.shape[:-1]
@@ -148,3 +159,15 @@ def topk_cuda(scores, k: int, *, index_offset: int = 0):
     _build.check(code, counter)
     _build.LAUNCHES[counter] += 1
     return vo, io
+
+
+topk_op = torch.library.custom_op(
+    "repro_torch::topk", _launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor scores, int k, int index_offset) -> (Tensor, Tensor)")
+
+
+@topk_op.register_fake
+def _(scores, k, index_offset):
+    shape = tuple(scores.shape[:-1]) + (k,)
+    return (scores.new_empty(shape, dtype=torch.float32),
+            scores.new_empty(shape, dtype=torch.int32))

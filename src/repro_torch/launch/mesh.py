@@ -4,9 +4,11 @@ host mesh.
 ``make_production_mesh`` is the reference's (``launch/mesh.py:22``):
 (16, 16) over ``("data", "model")``, or (2, 16, 16) with a ``"pod"``
 axis first.  Its peers are virtual on one device, or, given a process
-group, split over the group's ranks along the outermost axis; it raises
-where the ranks do not divide that axis, as the reference raises on too
-few devices.
+group, one peer a rank where the group has a rank for each of the 256
+(or 512) peers, as the reference's devices each hold one, else split
+over the group's ranks along the outermost axis; it raises where the
+ranks do not divide that axis, as the reference raises on too few
+devices.
 
 ``make_host_mesh(model=P)`` is a :class:`repro_torch.core.mesh.Mesh` of
 shape ``(1, P)`` over axes ``("data", "model")``: P virtual peers held
@@ -19,6 +21,8 @@ rank count (or ``model_ranks``), the data axis over the rest.
 """
 from __future__ import annotations
 
+import math
+
 from repro_torch.core.mesh import Mesh, resolve_device
 
 
@@ -26,19 +30,24 @@ def make_production_mesh(*, multi_pod: bool = False, group=None,
                          device=None) -> Mesh:
     """The reference's production mesh on ``device`` (the card unless
     the caller names another): its 256 (or 512) peers virtual on one
-    device, or over ``group``'s ranks along the outermost axis (``"data"``
-    or ``"pod"``), each rank holding an equal block of it."""
+    device, or over ``group``'s ranks: one peer a rank when the group
+    has as many ranks as the mesh has peers, else along the outermost
+    axis (``"data"`` or ``"pod"``), each rank holding an equal block of
+    it."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     ranks = None
     if group is not None:
         import torch.distributed as dist
         world = dist.get_world_size(group)
-        if shape[0] % world:
+        if world == math.prod(shape):
+            ranks = shape
+        elif shape[0] % world:
             raise RuntimeError(
                 f"{world} ranks do not divide the production mesh's "
                 f"{axes[0]!r} axis of {shape[0]}")
-        ranks = (world,) + (1,) * (len(shape) - 1)
+        else:
+            ranks = (world,) + (1,) * (len(shape) - 1)
     return Mesh(shape, axes, resolve_device(device, "make_production_mesh"),
                 group=group, ranks=ranks)
 

@@ -104,7 +104,10 @@ def _route(params, xf, cfg, shards: int):
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
     expert_ids = expert_ids.long()
     t_l = xf.shape[0] // shards
-    frac = F.one_hot(expert_ids.view(shards, t_l, k), n_e).float().mean(
+    # one_hot as a comparison: F.one_hot takes another route on the card
+    # than on fake tensors, and the dry run's trace must be the card's
+    experts = torch.arange(n_e, device=expert_ids.device)
+    frac = (expert_ids.view(shards, t_l, k, 1) == experts).float().mean(
         dim=(1, 2))                                           # (l, E)
     mass = probs.view(shards, t_l, n_e).mean(dim=1)
     aux = (n_e * (frac * mass).sum(dim=-1) * e.router_aux_coef).mean()

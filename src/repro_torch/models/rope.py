@@ -45,9 +45,9 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
         raise ValueError(f"apply_mrope: sections {sections} do not sum "
                          f"to {half}")
     freqs = rope_freqs(x.shape[-1], theta, x.device)             # (half,)
-    sec_id = torch.repeat_interleave(
+    sec_id = torch.repeat_interleave(                            # (half,)
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))                 # (half,)
+        torch.tensor(sections, device=x.device), output_size=half)
     ang = positions3.float()[sec_id]                             # (half,B,S)
     return _rotate(x, ang.permute(1, 2, 0) * freqs)
 
