@@ -100,9 +100,11 @@ result line) when any phase fails:
      lifetime 60 s, one fd-st1+2, and after each session one request
      from a departed peer); every served answer equal, bit for bit, to
      a card engine on a plan rebuilt from scratch (timed, with its
-     upload) and to the port's CPU path on the synced plan, and after
-     the first and the last event origin 0's answer to
-     ``run_query_reference``; the merge, arrivals and both waits must
+     upload) and to the port's CPU path on the synced plan (a process
+     of its own that replays the same events on the same overlay while
+     the card works, its plan's graph equal to the card's event by
+     event), and after the first and the last event origin 0's answer
+     to ``run_query_reference``; the merge, arrivals and both waits must
      launch on the served batches, and are held to their plain versions
      at the synced plan's shapes;
   10. the serving CLI as a user starts it,
@@ -260,36 +262,51 @@ result line) when any phase fails:
      top-k and 4 merges a decode step), the fake trace's peak within
      1% of ``max_memory_allocated``; each step timed (synchronised)
      beside its data-sheet bound from ``roofline_terms`` and the share;
-     then ``python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b
+     and ``python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b
      --shape decode_32k`` as a process (exit 0, a top-k and 4 merges on
      fake card tensors, its record under ``artifacts/dryrun_torch``)
-     and a smoke-size granite train cell on the 256-rank fake world on
-     fake card tensors, whose bytes sent equal
-     ``tools/chip_train_ranks.py::predicted_bytes``.  Its launches are
-     not in the kernels line.
+     and a smoke-size granite train cell (full remat) on the 256-rank
+     fake world on fake card tensors, whose bytes sent equal
+     ``tools/chip_train_ranks.py::predicted_bytes`` with the
+     recompute's replays (these two processes run beside phase 10, and
+     are waited for at its end).  Its launches are not in the kernels
+     line.
   16. (run last, after the timing windows, then one profiler window
-     as a probe) training and serving
-     across ranks: 4 gloo ranks on the card as a
-     (data 2, model 2) mesh (``tools/chip_train_ranks.py`` on each,
-     under ``spawn_ranks`` with a time limit): ``launch.train.build``
-     over the group keeps each rank's blocks of granite-moe-1b-a400m
-     at full size (``optim/sharding.py::param_specs``) for 3 steps of
-     batch 8, seq 128, every rank with the same loss and norm bits, each
-     leaf's replicas equal bit for bit, exactly 24 top-k launches a step
-     on each rank, the bytes each rank delivers a step equal to the
-     specs' count, its seconds and ``max_memory_allocated`` printed;
-     the same arch at full width and 2 layers in f32 (TF32 off), one
-     step over the ranks against one process over a (2, 2) mesh of
-     virtual peers (the same MoE shards; loss rtol 1e-5, each
-     parameter's relative L2 error after the update 1e-4), its
-     checkpoint restored onto 2 ranks and onto one process bit for bit;
-     ``serve decode`` of qwen2-0.5b and granite at full size over the
-     ranks (phase 11's command, the 16 vocabulary peers over the 2 model
-     ranks) with the tokens of one process decoding each data block's
-     rows (the one-process decode of the whole batch's agreement is
-     printed: the card's bf16 products round a row by the batch it is
-     in), the FD bytes across ranks and tok/s printed; its launches are
-     the ``train_serve_ranks`` key of ``launches_by_path``.
+     as a probe) training and serving across ranks, the products split
+     over the model ranks: 4 gloo ranks on the card
+     (``tools/chip_train_ranks.py`` on each, under ``spawn_ranks`` with
+     a time limit), as (data 2, model 2) and as (data 1, model 4):
+     ``launch.train.build`` over the group keeps each rank's blocks of
+     granite-moe-1b-a400m at full size (``optim/sharding.py::
+     param_specs``; a leaf the specs put over ``model`` stays a block
+     through the step) for 3 steps at (2, 2) and 2 at (1, 4) of batch
+     8, seq 128, every rank with the same loss and norm bits, each
+     leaf's replicas (the replicated leaves across the model ranks too)
+     equal bit for bit, exactly 24 top-k launches a step on each rank,
+     the bytes each rank delivers a step over each axis equal to the
+     reckoned count (the specs' gathers and reduce-scatters over
+     ``data``; the model axis's activations, ``model_axis_events``), the
+     parameter bytes a step gathers equal to the data-only reckoning,
+     its step time and ``max_memory_allocated`` printed; at each layout
+     the same arch at
+     full width and 2 layers in f32 (TF32 off), one step over the ranks
+     against one process over a mesh of virtual peers of that shape
+     (loss rtol 1e-5, the norm and each parameter's relative L2 error
+     after the update 1e-4), the (2, 2) checkpoint restored onto 2
+     ranks and onto one process bit for bit; rank 0's (2, 2) step traced
+     by ``roofline/trace.py`` against phase 17's fake trace of the same
+     step on a fake 4-rank world (equal FLOPs, bytes and kernel calls);
+     ``serve decode`` of qwen2-0.5b and granite at full size over (2, 2)
+     (phase 11's command, the 16 vocabulary peers over the 2 model
+     ranks): in f32 (TF32 off) with the tokens of one process decoding
+     each data block's rows, and in bf16 with the same tokens on every
+     rank and each rank's block of the prompt's last logits and of a
+     first step's logits within 3 times the one-process bf16 logits' own
+     rounding (their L2 distance from f32 on the same weights) of their
+     columns (the tokens' agreement with one process's printed: the
+     split products round otherwise), the bytes across ranks by axis
+     and tok/s printed; its launches are the ``train_serve_ranks`` key
+     of ``launches_by_path``.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -372,13 +389,15 @@ def _profiled(body, tries=4):
     kernels (``torch.cuda._sleep``: ``spin_kernel``) go ahead
     of ``body`` on its stream: a trace that holds one of them holds
     every kernel after it.  A window that lost every marker is taken
-    again with twice as many, up to ``tries`` windows.  Returns the
-    profiler; its markers lie outside every :func:`tagged` range and
-    are left out of every sum."""
+    again with twice as many, up to ``tries`` windows; the first holds
+    64 (windows of 8 and 16 lost every one most of the time in a full
+    run, each retake costing a window).  Returns the profiler; its
+    markers lie outside every :func:`tagged` range and are left out of
+    every sum."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    markers = 8
+    markers = 64
     for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1930,12 +1949,12 @@ SPREAD_PEERS = 2_000
 # phase 9: a live overlay, peers joining and leaving between queries
 # ---------------------------------------------------------------------------
 
-# the reference's full-size live-overlay workload, nothing cut
-# (benchmarks/overlay_dynamics.py, incremental_sync_rows and
-# churn_sweep_rows): a hierarchical overlay of 100,000 peers, seed 7,
-# SimParams(seed=0), 16 cached origins drawn by default_rng(11); one
-# leave (a deep leaf, "reconnect" repair), one join, then random
-# sessions of 2, 8 and 32 events between syncs, here on one overlay
+# the reference's full-size live-overlay workload (benchmarks/
+# overlay_dynamics.py, incremental_sync_rows and churn_sweep_rows): a
+# hierarchical overlay of 100,000 peers, seed 7, SimParams(seed=0),
+# cached origins drawn by default_rng(11); one leave (a deep leaf,
+# "reconnect" repair), one join, then random sessions of 2, 8 and 32
+# events between syncs, here on one overlay
 OV_PEERS = 100_000
 OV_ORIGINS = 16
 OV_SESSIONS = (2, 8, 32)
@@ -1973,7 +1992,8 @@ def _warm_hot_set(engine, origins):
     t0 = time.perf_counter()
     for sl in sls:
         _device_slices(sl, engine.device)
-    torch.cuda.synchronize()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
     return host_s, time.perf_counter() - t0
 
 
@@ -2000,20 +2020,107 @@ def _overlay_requests(origins, i, tomb):
     return reqs
 
 
-def _check_reference(engine, origin):
-    """A shared batch-of-1 at ``origin`` equals the scalar reference run
-    on the overlay as it stands (overlay_dynamics._parity)."""
+def _check_reference(engine, origin, ref):
+    """A shared batch-of-1 at ``origin`` equals ``ref``, the scalar
+    reference run on the overlay as it stands (overlay_dynamics._parity;
+    :func:`_overlay_cpu` runs it)."""
     from repro_torch.engine import QuerySpec, get_policy
-    from repro_torch.p2psim import run_query_reference
-    life = OV_PARITY_LIFETIME_S
     t0 = time.perf_counter()
-    ref, _ = run_query_reference(engine.plan.top, origin, engine.params,
-                                 dynamic=True, lifetime_mean_s=life)
     one = engine.run(QuerySpec(origins=(origin,)), get_policy(
-        "fd-dynamic").variant(lifetime_mean_s=life))
+        "fd-dynamic").variant(lifetime_mean_s=OV_PARITY_LIFETIME_S))
     _require(one.query_metrics(0, 0) == ref, f"origin {origin}: the "
              "synced plan's answer != run_query_reference")
     return time.perf_counter() - t0
+
+
+def _overlay_events():
+    """Phase 9's events: (name, session size or None)."""
+    return [("leave", None), ("join", None)] + [
+        (f"session {m}", m) for m in OV_SESSIONS]
+
+
+def _overlay_event(ov, plan, origins, i, event, m, tomb):
+    """Event ``i`` applied to ``ov``: a deep leaf below origin 0 leaves
+    ("reconnect" repair), a peer joins beside origin 0, or a random
+    session of ``m`` events; returns the last departed peer."""
+    from repro_torch.engine import apply_events, random_session
+    if event == "leave":
+        tomb = _deep_leaf(plan, origins[0])
+        ov.remove_peer(tomb, repair="reconnect")
+    elif event == "join":
+        ov.add_peer(neighbors=(origins[0],
+                               int(ov.top.neighbors[origins[0]][0])))
+    else:
+        evs = random_session(ov, m, seed=100 + i - 2, join_prob=0.5)
+        apply_events(ov, evs, repair="reconnect")
+        tomb = next((e.peer for e in reversed(evs)
+                     if e.kind == "leave"), tomb)
+    return tomb
+
+
+def _plan_digest(plan):
+    """A digest of a plan's graph (its CSR and degrees)."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for a in (plan.indptr, plan.indices, plan.degrees):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _slim(res):
+    """What :func:`_require_same_result` compares of a result."""
+    from types import SimpleNamespace
+    return SimpleNamespace(
+        values=res.values, indices=res.indices,
+        metrics=SimpleNamespace(**{f: getattr(res.metrics, f)
+                                   for f in _METRICS}))
+
+
+def _overlay_cpu(out, n_peers, origins):
+    """Phase 9's CPU path, in a process of its own beside the card's
+    work: the same overlay of ``n_peers`` and hot set ``origins``, the
+    same events each followed
+    by an incremental ``plan.sync()``, each event's requests on the
+    port's CPU path over the synced plan and, at the first and the last
+    event, origin 0's ``run_query_reference``; one record an event on
+    the queue ``out`` (an exception's text in place of the records)."""
+    try:
+        import os
+        import torch
+        from repro_torch.engine import Overlay, SimEngine
+        from repro_torch.p2psim import (SimParams, build_topology,
+                                        run_query_reference)
+        # two cores left to the process that drives the card
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) - 2))
+        ov = Overlay(build_topology("hierarchical", n_peers, seed=7))
+        p = SimParams(seed=0)
+        cpu = SimEngine(ov, p, device="cpu")
+        plan = cpu.plan
+        _warm_hot_set(cpu, origins)
+        events = _overlay_events()
+        tomb = None
+        for i, (event, m) in enumerate(events):
+            tomb = _overlay_event(ov, plan, origins, i, event, m, tomb)
+            plan.sync()
+            reqs = _overlay_requests(origins, i, tomb if m else None)
+            t0 = time.perf_counter()
+            got = cpu.run_many([spec for _, spec, _ in reqs],
+                               [pol for _, _, pol in reqs])
+            rec = {"i": i, "version": plan.version,
+                   "digest": _plan_digest(plan),
+                   "names": [name for name, _, _ in reqs],
+                   "results": [_slim(r) for r in got],
+                   "cpu_s": time.perf_counter() - t0, "ref": None}
+            if i in (0, len(events) - 1):
+                t0 = time.perf_counter()
+                rec["ref"], _ = run_query_reference(
+                    plan.top, origins[0], p, dynamic=True,
+                    lifetime_mean_s=OV_PARITY_LIFETIME_S)
+                rec["ref_s"] = time.perf_counter() - t0
+            out.put(rec)
+    except Exception:                    # noqa: BLE001 — sent to the parent
+        out.put(traceback.format_exc())
 
 
 def _overlay(dev, gen, errs, _build):
@@ -2021,13 +2128,51 @@ def _overlay(dev, gen, errs, _build):
     event is followed by an incremental ``plan.sync()`` (timed) and a
     drained ``QueryServer`` batch over the overlay-bound engine, held
     bit for bit to a card engine on a plan rebuilt from scratch (timed,
-    with its upload) and to the port's CPU path on the synced plan.
-    Returns the launches of the served batches."""
+    with its upload) and to the port's CPU path on the synced plan
+    (:func:`_overlay_cpu`, a process that replays the same events on the
+    same overlay while the card works; its plan's graph must be this
+    one's, event by event).  Returns the launches of the served
+    batches."""
+    import multiprocessing
     import numpy as np
+    origins = sorted(int(o) for o in np.random.default_rng(11).choice(
+        OV_PEERS, OV_ORIGINS, replace=False))
+    ctx = multiprocessing.get_context("spawn")
+    cpu_out = ctx.Queue()
+    cpu_proc = ctx.Process(target=_overlay_cpu,
+                           args=(cpu_out, OV_PEERS, origins), daemon=True)
+    cpu_proc.start()
+    try:
+        return _overlay_on_card(dev, gen, errs, _build, origins, cpu_out,
+                                cpu_proc)
+    finally:
+        cpu_proc.join(timeout=60)
+        if cpu_proc.is_alive():
+            cpu_proc.kill()
+            cpu_proc.join()
+
+
+def _cpu_record(cpu_out, cpu_proc, i):
+    """Event ``i``'s record from :func:`_overlay_cpu`."""
+    import queue
+    while True:
+        try:
+            rec = cpu_out.get(timeout=10)
+            break
+        except queue.Empty:
+            _require(cpu_proc.is_alive(), "phase 9's CPU path process "
+                     f"exited {cpu_proc.exitcode} before event {i}")
+    _require(not isinstance(rec, str), f"phase 9's CPU path failed:\n{rec}")
+    _require(rec["i"] == i, f"phase 9's CPU path sent event {rec['i']}, "
+             f"want {i}")
+    return rec
+
+
+def _overlay_on_card(dev, gen, errs, _build, origins, cpu_out, cpu_proc):
+    """:func:`_overlay`'s work on the card."""
     import torch
     from repro_torch.engine import (NetworkPlan, Overlay, QueryServer,
-                                    ServerConfig, SimEngine, apply_events,
-                                    random_session)
+                                    ServerConfig, SimEngine)
     from repro_torch.engine.sim_torch import _device_slices
     from repro_torch.p2psim import SimParams, build_topology
     t0 = time.perf_counter()
@@ -2035,30 +2180,16 @@ def _overlay(dev, gen, errs, _build):
     p = SimParams(seed=0)
     engine = SimEngine(ov, p, device=dev)
     plan = engine.plan
-    origins = sorted(int(o) for o in np.random.default_rng(11).choice(
-        OV_PEERS, OV_ORIGINS, replace=False))
     host_s, up_s = _warm_hot_set(engine, origins)
     print(f"[overlay] hierarchical n={ov.n} edges={ov.top.n_edges}, "
           f"{OV_ORIGINS} origins {origins}: built in "
           f"{time.perf_counter() - t0:.3f} s (hot set {host_s:.3f} s "
           f"host, {up_s:.3f} s upload)")
-    events = [("leave", None), ("join", None)] + [
-        (f"session {m}", m) for m in OV_SESSIONS]
+    events = _overlay_events()
     counts = dict.fromkeys(_build.LAUNCHES, 0)
-    cpu = SimEngine(plan, p, device="cpu")
     tomb = None
     for i, (event, m) in enumerate(events):
-        if event == "leave":
-            tomb = _deep_leaf(plan, origins[0])
-            ov.remove_peer(tomb, repair="reconnect")
-        elif event == "join":
-            ov.add_peer(neighbors=(origins[0],
-                                   int(ov.top.neighbors[origins[0]][0])))
-        else:
-            evs = random_session(ov, m, seed=100 + i - 2, join_prob=0.5)
-            apply_events(ov, evs, repair="reconnect")
-            tomb = next((e.peer for e in reversed(evs)
-                         if e.kind == "leave"), tomb)
+        tomb = _overlay_event(ov, plan, origins, i, event, m, tomb)
         t0 = time.perf_counter()
         moved = plan.sync()
         sync_s = time.perf_counter() - t0
@@ -2092,10 +2223,16 @@ def _overlay(dev, gen, errs, _build):
         t0 = time.perf_counter()
         rebuilt = fresh.run_many(specs, pols)
         fresh_s = time.perf_counter() - t0
+        # the CPU path's run of the same requests on its replayed plan
         t0 = time.perf_counter()
-        on_cpu = cpu.run_many(specs, pols)
-        cpu_s = time.perf_counter() - t0
-        for (name, res), rf, rc in zip(served, rebuilt, on_cpu):
+        rec = _cpu_record(cpu_out, cpu_proc, i)
+        cpu_wait_s = time.perf_counter() - t0
+        _require(rec["version"] == plan.version
+                 and rec["digest"] == _plan_digest(plan)
+                 and rec["names"] == [name for name, _ in served],
+                 f"{event}: the CPU path's plan or requests differ from "
+                 f"the card's (version {rec['version']} vs {plan.version})")
+        for (name, res), rf, rc in zip(served, rebuilt, rec["results"]):
             _require(res.backend_used == "sim-torch" and res.precision
                      == "f64", f"{event} {name}: {res.backend_used} "
                      f"{res.precision}")
@@ -2107,7 +2244,7 @@ def _overlay(dev, gen, errs, _build):
             _require(int(res.metrics.n_reached[0, 0]) == 1,
                      f"{event}: the departed peer {tomb} reached "
                      f"{res.metrics.n_reached[0, 0]} peers")
-        ref_s = (_check_reference(engine, origins[0])
+        ref_s = (_check_reference(engine, origins[0], rec["ref"])
                  if i in (0, len(events) - 1) else None)
         lat = sm.latency
         line = {
@@ -2120,8 +2257,10 @@ def _overlay(dev, gen, errs, _build):
             "rebuild_hot_set_host_s": reb_host,
             "served_p50_s": lat.p50_s, "served_p95_s": lat.p95_s,
             "served_p99_s": lat.p99_s, "run_s_max": sm.run_s.max,
-            "rebuilt_run_many_s": fresh_s, "cpu_run_many_s": cpu_s,
-            "reference_check_s": ref_s, "parity": True}
+            "rebuilt_run_many_s": fresh_s,
+            "cpu_run_many_s": rec["cpu_s"], "cpu_wait_s": cpu_wait_s,
+            "reference_s": rec.get("ref_s"), "reference_check_s": ref_s,
+            "parity": True}
         print("[overlay] " + json.dumps(line))
     print("[overlay] launches " + json.dumps(counts))
     for name in ("merge", "arrivals", "wait", "wait_churn"):
@@ -3457,7 +3596,8 @@ with D._fake_world(256) as group, FakeTensorMode():
     params = D._init_params(cfg, 4096, card)
     specs = place_blocks(params, cfg, mesh)
     rec["predicted_bytes"] = chip_train_ranks.predicted_bytes(
-        params, specs, mesh, microbatches=2)
+        params, specs, mesh, microbatches=2, cfg=cfg, rows=32 // 16,
+        seq=64, remat="full")
 print(json.dumps(rec))
 """
 
@@ -3630,11 +3770,12 @@ def _p17_decode(dev, card, _build):
     return launches
 
 
-def _p17_dryrun():
+def _p17_dryrun_start():
     """The dry run's CLI on a full-size decode cell and a smoke train
-    cell on fake card tensors, each a process, side by side."""
+    cell on fake card tensors, each a process, side by side: started
+    (beside phase 10's work on the card; they trace on fake tensors) and
+    returned; :func:`_p17_dryrun` waits for them and checks them."""
     import os
-    from repro_torch.launch.dryrun import DEFAULT_OUT
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cli = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -3644,6 +3785,13 @@ def _p17_dryrun():
     smoke = subprocess.Popen(
         [sys.executable, "-c", P17_SMOKE_TRAIN], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return cli, smoke
+
+
+def _p17_dryrun(procs):
+    """Wait for :func:`_p17_dryrun_start`'s processes and check them."""
+    from repro_torch.launch.dryrun import DEFAULT_OUT
+    cli, smoke = procs
     try:
         cli_log, _ = cli.communicate(timeout=P17_LIMIT_S)
         smoke_log, _ = smoke.communicate(timeout=P17_LIMIT_S)
@@ -3678,13 +3826,47 @@ def _p17_dryrun():
           + json.dumps({k: train[k] for k in keep + ("predicted_bytes",)}))
 
 
+def _p17_tp_fake(dev):
+    """The fake trace of rank 0's (2, 2) train step over a fake world of
+    4 ranks, phase 16's first layout (kept in ``TR_FAKE`` for phase 16's
+    real trace)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.train import place_blocks
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.roofline.trace import analyze
+    from repro_torch.runtime.steps import make_train_step
+    cfg = get_config(TR_ARCH)
+    t0 = time.perf_counter()
+    with D._fake_world(RANKS) as group, FakeTensorMode():
+        mesh = Mesh((2, 2), ("data", "model"), dev, group=group,
+                    ranks=(2, 2))
+        params = D._init_params(cfg, max(TRAIN_SEQ, 128), dev)
+        specs = place_blocks(params, cfg, mesh)
+        opt_cfg = AdamWConfig(lr=3e-4, total_steps=TR_STEPS[(2, 2)],
+                              warmup_steps=1)
+        step = make_train_step(cfg, opt_cfg, remat="none", mesh=mesh,
+                               specs=specs)
+        rows = TRAIN_B // 2
+        batch = {k: torch.zeros((rows, TRAIN_SEQ), dtype=torch.int32,
+                                device=dev) for k in ("tokens", "labels")}
+        TR_FAKE["totals"] = analyze(step, params, adamw_init(params,
+                                                             opt_cfg),
+                                    batch, device=dev.type)
+    print(f"[phase 17] fake trace of a (2, 2) {TR_ARCH} train step as rank "
+          f"0 of a fake 4-rank world: {time.perf_counter() - t0:.3f} s")
+
+
 def _dryrun_phase(dev, card, _build):
     t0 = time.perf_counter()
     _p17_train(dev, card, _build)
     _free_card()
     _p17_decode(dev, card, _build)
     _free_card()
-    _p17_dryrun()
+    _p17_tp_fake(dev)
     print(f"[phase 17] {time.perf_counter() - t0:.3f} s")
 
 
@@ -3692,21 +3874,32 @@ def _dryrun_phase(dev, card, _build):
 # phase 16: training and serving across ranks on the card
 # ---------------------------------------------------------------------------
 
-# 4 gloo ranks sharing the card as a (data 2, model 2) mesh, one peer a
-# rank: granite-moe-1b-a400m trained at full size (phase 14's batch and
-# seq, 3 steps; under (4, 1) each rank would hold nearly all of its 13.9
-# GB of state, since only the model axis shards its 32 experts), the
-# same arch at full width and 2 layers in f32 against one process over
-# a (2, 2) mesh of virtual peers (phase 14's tolerance: loss rtol 1e-5,
-# each parameter's relative L2 error after the update 1e-4) and its
-# checkpoint restored onto 2 ranks and onto one process bit for bit;
-# then serve decode of qwen2-0.5b and granite at full size over the
-# ranks, phase 11's command with the 16 vocabulary peers spread over
-# the 2 model ranks, against the one-process decode on the same (2, 16)
-# mesh
-TR_ARCH, TR_STEPS, TR_XCHECK_LAYERS = "granite-moe-1b-a400m", 3, 2
+# 4 gloo ranks sharing the card, one peer a rank, as (data 2, model 2)
+# and (data 1, model 4), the products split over the model ranks:
+# granite-moe-1b-a400m trained at full size (phase 14's batch and seq),
+# the same arch at full width and 2 layers in f32 against one process
+# over a mesh of virtual peers of each shape (phase 14's tolerance: loss
+# rtol 1e-5, the norm's and each parameter's relative L2 error after the
+# update 1e-4) and the (2, 2) checkpoint restored onto 2 ranks and onto
+# one process bit for bit; then serve decode of qwen2-0.5b and granite
+# at full size over (2, 2), phase 11's command with the 16 vocabulary
+# peers spread over the 2 model ranks, in f32 against the one-process
+# decode on the same (2, 16) mesh and in bf16
+TR_ARCH, TR_XCHECK_LAYERS = "granite-moe-1b-a400m", 2
+TR_LAYOUTS = ((2, 2), (1, 4))
+#: steps at each layout
+TR_STEPS = {(2, 2): 3, (1, 4): 2}
 TR_DECODE_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m")
+#: the config-dtype decode over ranks: each rank's logits block may lie
+#: at most this many times as far (L2) from one process's as the
+#: one-process logits lie from the next wider dtype (f32 for bf16) on
+#: the same weights (their own rounding); a split that dropped or
+#: misplaced a rank's part would lie about as far as the logits are
+#: large
+DEC_SPLIT_FACTOR = 3.0
 TR_TIMEOUT = 600
+#: phase 17's fake trace of rank 0's (2, 2) step, held to the real one
+TR_FAKE = {}
 
 
 def _ranks_decode_argv(arch):
@@ -3727,14 +3920,15 @@ def _first_diff(a, b):
     return cols[0] if cols else None
 
 
-def _decode_blocks(dev, argv, data_par):
+def _decode_blocks(dev, argv, data_par, dtype=None):
     """The decode of ``argv`` (``serve decode``'s flags) on one process,
     one of ``data_par`` data blocks of the batch at a time: each
     block's rows of the prompt through ``prefill`` and
     ``make_serve_step`` over the ``--model-par`` virtual peers, with its
-    rows of the whole batch's noise; the tokens of the blocks stacked.  What each data rank of
-    the (2, 2) mesh computes, at the same batch size: the card's
-    products round a row by the batch it is computed in."""
+    rows of the whole batch's noise; the tokens of the blocks stacked.
+    What each data rank of the (2, 2) mesh computes, at the same batch
+    size: the card's products round a row by the batch it is computed
+    in.  ``dtype`` replaces the config's (TF32 off under f32)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config, smoke_config
@@ -3746,44 +3940,190 @@ def _decode_blocks(dev, argv, data_par):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype,
+                                  compute_dtype=dtype)
     s_max = args.prompt_len + args.gen
-    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
-                           max_seq=s_max, device=dev)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32))
-    mesh = Mesh((1, args.model_par), ("data", "model"), dev)
-    part = args.batch // data_par
-    out = []
-    for d in range(data_par):
-        rows = slice(d * part, (d + 1) * part)
-        last, pst = M.prefill(params, cfg, {"tokens": tokens[rows].to(dev)})
-        state = state_from_prefill(cfg, pst, s_max)
-        tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
-        step = make_serve_step(cfg, mesh, k=args.k)
-        gen = torch.Generator(dev).manual_seed(1)
-        toks = [tok]
-        for _ in range(args.gen - 1):
-            noise = gumbel((args.batch, args.k), gen)[rows]
-            tok, state = step(params, state, tok, None, noise=noise)
-            toks.append(tok)
-        out.append(torch.cat(toks, dim=1).cpu().numpy())
-    return np.concatenate(out, axis=0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = dtype is None and tf32
+    try:
+        params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                               max_seq=s_max, device=dev)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (args.batch, args.prompt_len)
+        ).astype(np.int32))
+        mesh = Mesh((1, args.model_par), ("data", "model"), dev)
+        part = args.batch // data_par
+        out = []
+        for d in range(data_par):
+            rows = slice(d * part, (d + 1) * part)
+            last, pst = M.prefill(params, cfg,
+                                  {"tokens": tokens[rows].to(dev)})
+            state = state_from_prefill(cfg, pst, s_max)
+            tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+            step = make_serve_step(cfg, mesh, k=args.k)
+            gen = torch.Generator(dev).manual_seed(1)
+            toks = [tok]
+            for _ in range(args.gen - 1):
+                noise = gumbel((args.batch, args.k), gen)[rows]
+                tok, state = step(params, state, tok, None, noise=noise)
+                toks.append(tok)
+            out.append(torch.cat(toks, dim=1).cpu().numpy())
+        return np.concatenate(out, axis=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _check_train_layout(lay, tr, cfg, card):
+    """(a) at one layout: the ranks' loss and norm bits, the replicas,
+    the bytes by axis and the gathered parameter bytes against their
+    reckonings; prints each rank's figures."""
+    _require(all(t["losses"] == tr[0]["losses"]
+                 and t["grad_norms"] == tr[0]["grad_norms"] for t in tr),
+             f"train over ranks {lay}: the ranks' loss or norm bits differ")
+    specs = tr[0]["specs"]
+    for name, spec in specs.items():
+        named = {a for e in spec if e is not None
+                 for a in ((e,) if isinstance(e, str) else e)}
+        for t in tr:
+            for u in tr:
+                # ranks that differ only on axes the spec leaves whole
+                # (the model axis of a replicated leaf too) hold the same
+                # block
+                same = all(t["coord"][i] == u["coord"][i]
+                           for i, a in enumerate(("data", "model"))
+                           if a in named)
+                _require(not same or t["digests"][name]
+                         == u["digests"][name],
+                         f"train over ranks {lay}: {name}'s replicas "
+                         f"differ")
+    for r, t in enumerate(tr):
+        warm = t["step_s"][1:] or t["step_s"]
+        print(f"[train ranks] {lay} rank {r} at (data, model) "
+              f"{t['coord']}: build {t['build_s']:.3f} s, steps "
+              f"{t['step_s']} s (warm mean {statistics.fmean(warm):.6f} "
+              f"s); bytes delivered a step by axis {t['sent_bytes']} (the "
+              f"reckoning {t['predicted_bytes']}; model-axis operands "
+              f"{t['model_axis_operands']}); parameter bytes gathered a "
+              f"step {t['gathered_bytes']} (the data-only reckoning "
+              f"{t['reckoned_gather_bytes']}, whole parameters "
+              f"{t['whole_param_bytes']}); max_memory_allocated "
+              f"{t.get('max_memory_allocated')} B; top-k launches a step "
+              f"{[c['topk'] for c in t['launches']]}; {card}")
+        _require(all(b == t["predicted_bytes"] for b in t["sent_bytes"]),
+                 f"train over ranks {lay}: rank {r} delivered "
+                 f"{t['sent_bytes']} B a step, the reckoning "
+                 f"{t['predicted_bytes']}")
+        _require(all(g == t["reckoned_gather_bytes"]
+                     for g in t["gathered_bytes"]),
+                 f"train over ranks {lay}: rank {r} gathered "
+                 f"{t['gathered_bytes']} B of parameters a step, the "
+                 f"data-only reckoning {t['reckoned_gather_bytes']}")
+    print(f"[train ranks] {TR_ARCH} at full size ({cfg.n_layers} "
+          f"layers), batch {TRAIN_B}, seq {TRAIN_SEQ}, {lay} over "
+          f"{RANKS} ranks: losses {tr[0]['losses']}, grad norms "
+          f"{tr[0]['grad_norms']}, the same bits on every rank; each "
+          f"leaf's replicas equal bit for bit; {card}")
+
+
+def _check_xcheck_layout(lay, outs):
+    """(b) at one layout: the f32 step over the ranks against one
+    process."""
+    x = outs[0]["xcheck"][lay]
+    worst = dict(sorted(x["param_rel"].items(),
+                        key=lambda kv: -kv[1])[:6])
+    _require(all(o["xcheck"][lay]["loss"] == x["loss"]
+                 and o["xcheck"][lay]["grad_norm"] == x["grad_norm"]
+                 for o in outs)
+             and x["loss_rel"] <= TRAIN_LOSS_RTOL
+             and x["grad_norm_rel"] <= TRAIN_GRAD_RTOL
+             and max(x["param_rel"].values()) <= TRAIN_GRAD_RTOL,
+             f"train ranks cross-check {lay}: loss {x['loss']} vs "
+             f"{x['one_loss']}, grad norm {x['grad_norm']} vs "
+             f"{x['one_grad_norm']}, worst parameters {worst}")
+    print(f"[train ranks] {lay}: full width, {TR_XCHECK_LAYERS} layers, "
+          f"f32, TF32 off, one step: loss {x['loss']} (4 ranks) vs "
+          f"{x['one_loss']} (one process, {lay} virtual), rel "
+          f"{x['loss_rel']}; grad norm {x['grad_norm']} vs "
+          f"{x['one_grad_norm']}, rel {x['grad_norm_rel']} (within "
+          f"{TRAIN_GRAD_RTOL}); {len(x['param_rel'])} parameters within "
+          f"relative L2 {TRAIN_GRAD_RTOL} after the update, largest "
+          + json.dumps(worst))
+
+
+def _check_decode_logits(arch, got, one):
+    """Each rank's block of the logits the config-dtype decode samples
+    from (``chip_train_ranks.decode_logits``: the prompt's last logits
+    and the first step's) against the one-process logits' columns of
+    its block, for its rows (one process computing each data rank's
+    rows apart, as it does): their L2 distance at most
+    ``DEC_SPLIT_FACTOR`` times the one-process logits' own rounding,
+    their distance from the same computation in the next wider dtype
+    (f32 for bf16) on the same weights."""
+    import numpy as np
+    worst = {}
+    for g in got:
+        width = g["last"].shape[1]
+        cols = slice(g["model_index"] * width,
+                     (g["model_index"] + 1) * width)
+        for key in ("last", "first"):
+            low = one[key][g["rows"], cols]
+            ref = one["wide"][key][g["rows"], cols]
+            split = float(np.linalg.norm(g[key] - low))
+            rnd = float(np.linalg.norm(low - ref))
+            _require(np.isfinite(g[key]).all()
+                     and split <= DEC_SPLIT_FACTOR * rnd,
+                     f"decode {arch} over ranks: the {key} logits block "
+                     f"of rank {g['rows'][0]}..{g['model_index']} is "
+                     f"{split} from one process's (L2), whose own "
+                     f"rounding is {rnd}")
+            rel = split / float(np.linalg.norm(ref))
+            w = worst.setdefault(key, [0.0, 0.0, 0.0])
+            w[:] = max(w, [split / rnd, rel, rnd / float(np.linalg.norm(
+                ref))])
+    print(f"[decode ranks] {arch} in the config's dtype over the ranks: "
+          f"each rank's logits block vs one process's columns, worst over "
+          f"the ranks (L2 distance / the one-process logits' own rounding "
+          f"vs the wider dtype, relative L2 distance, the rounding's "
+          f"relative L2): "
+          + json.dumps(worst) + f" (gate: the first at most "
+          f"{DEC_SPLIT_FACTOR})")
+
+
+def _check_tp_trace(outs, dev):
+    """Rank 0's real trace of a (2, 2) step against phase 17's fake
+    one (on the card; the CPU path, a check of this code, runs no
+    phase 17)."""
+    if dev.type != "cuda":
+        return
+    real = outs[0].get("trace")
+    _require(real is not None and "totals" in TR_FAKE,
+             "phase 16: rank 0's traced (2, 2) step or phase 17's fake "
+             "trace of it is missing")
+    fake = TR_FAKE["totals"]
+    keys = ("flops", "bytes_accessed", "kernels", "coll_by_axis")
+    got = {k: real[k] for k in keys}
+    want = {k: getattr(fake, k) for k in keys}
+    _require(got == want, f"TP step traces: real {got}, fake {want}")
+    print("[phase 17] rank 0's (2, 2) train step over 4 gloo ranks, real "
+          "trace == fake trace on a fake 4-rank world: "
+          + json.dumps(got))
 
 
 def _train_serve_ranks(dev, card, _build):
     """Phase 16: spawn the ranks (``tools/chip_train_ranks.py``, which
-    fail the phase by raising); check that every rank holds the same
-    loss and norm bits, that a leaf's replicas agree bit for bit, the
-    one-process cross-check, the checkpoint restored onto 2 ranks and
-    onto one process, and that the decode's tokens equal the
-    one-process decode's on the same mesh.  Returns the launches of the
-    training steps and the decodes, summed over ranks."""
+    fail the phase by raising); check every layout's training (loss and
+    norm bits on every rank, replicas bit-equal, bytes by axis and the
+    parameters gathered against their reckonings), the one-process
+    cross-checks, the checkpoint restored onto 2 ranks and onto one
+    process, and the decodes' tokens against the one-process decode's
+    on the same mesh.  Returns the launches of the training steps and
+    the decodes, summed over ranks."""
     import shutil
     import torch
     from repro_torch.ckpt.checkpoint import restore
     from repro_torch.configs.base import get_config
     from repro_torch.launch.ranks import spawn_ranks
-    from repro_torch.launch.serve import decode_run
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     sys.path.insert(0, str(ROOT / "tools"))
@@ -3794,6 +4134,7 @@ def _train_serve_ranks(dev, card, _build):
     smoke = dev.type == "cpu"
     conf = dict(arch=TR_ARCH, batch=TRAIN_B, seq=TRAIN_SEQ, steps=TR_STEPS,
                 xcheck_layers=TR_XCHECK_LAYERS, ckpt=str(ckpt),
+                layouts=TR_LAYOUTS, trace=bool(TR_FAKE),
                 decode={a: _ranks_decode_argv(a)[1:]
                         for a in TR_DECODE_ARCHS},
                 smoke=smoke, device=dev.type)
@@ -3804,76 +4145,29 @@ def _train_serve_ranks(dev, card, _build):
         secs = time.perf_counter() - t0
         launches = {name: 0 for name in _build.LAUNCHES}
         for o in outs:
-            for counts in o["train"]["launches"] + [
-                    d["launches"] for d in o["decode"].values()]:
-                for name, n in counts.items():
+            for lay in TR_LAYOUTS:
+                for counts in o["train"][lay]["launches"]:
+                    for name, n in counts.items():
+                        launches[name] += n
+            for d in list(o["decode"].values()) + list(
+                    o["decode_f32"].values()):
+                for name, n in d["launches"].items():
                     launches[name] += n
-        # (a) training
-        tr = [o["train"] for o in outs]
-        _require(all(t["losses"] == tr[0]["losses"]
-                     and t["grad_norms"] == tr[0]["grad_norms"] for t in tr),
-                 "train over ranks: the ranks' loss or norm bits differ")
-        specs = tr[0]["specs"]
-        for name, spec in specs.items():
-            named = {a for e in spec if e is not None
-                     for a in ((e,) if isinstance(e, str) else e)}
-            for t in tr:
-                for u in tr:
-                    # ranks that differ only on axes the spec leaves whole
-                    # hold the same block
-                    same = all(t["coord"][i] == u["coord"][i]
-                               for i, a in enumerate(("data", "model"))
-                               if a in named)
-                    _require(not same or t["digests"][name]
-                             == u["digests"][name],
-                             f"train over ranks: {name}'s replicas differ")
         cfg = get_config(TR_ARCH)
         if smoke:
             from repro_torch.configs.base import smoke_config
             cfg = smoke_config(cfg)
-        for r, t in enumerate(tr):
-            warm = t["step_s"][1:]
-            print(f"[train ranks] rank {r} at (data, model) {t['coord']}: "
-                  f"build {t['build_s']:.3f} s, steps {t['step_s']} s "
-                  f"(warm mean {statistics.fmean(warm):.6f} s), bytes "
-                  f"delivered a step {t['sent_bytes']} (the specs predict "
-                  f"{t['predicted_bytes']}), max_memory_allocated "
-                  f"{t.get('max_memory_allocated')} B, top-k launches a step "
-                  f"{[c['topk'] for c in t['launches']]}")
-            _require(all(b == t["predicted_bytes"] for b in t["sent_bytes"]),
-                     f"train over ranks: rank {r} delivered "
-                     f"{t['sent_bytes']} B a step, the specs predict "
-                     f"{t['predicted_bytes']}")
-        print(f"[train ranks] {TR_ARCH} at full size ({cfg.n_layers} "
-              f"layers), batch {TRAIN_B}, seq {TRAIN_SEQ}, (2, 2) over "
-              f"{RANKS} ranks: losses {tr[0]['losses']}, grad norms "
-              f"{tr[0]['grad_norms']}, the same bits on every rank; each "
-              f"leaf's replicas equal bit for bit; {card}")
-        # (b) the f32 cross-check and the checkpoint
-        x = outs[0]["xcheck"]
-        worst = dict(sorted(x["param_rel"].items(),
-                            key=lambda kv: -kv[1])[:6])
-        _require(all(o["xcheck"]["loss"] == x["loss"]
-                     and o["xcheck"]["grad_norm"] == x["grad_norm"]
-                     for o in outs)
-                 and x["loss_rel"] <= TRAIN_LOSS_RTOL
-                 and x["grad_norm_rel"] <= TRAIN_GRAD_RTOL
-                 and max(x["param_rel"].values()) <= TRAIN_GRAD_RTOL,
-                 f"train ranks cross-check: loss {x['loss']} vs "
-                 f"{x['one_loss']}, grad norm {x['grad_norm']} vs "
-                 f"{x['one_grad_norm']}, worst parameters {worst}")
-        print(f"[train ranks] full width, {TR_XCHECK_LAYERS} layers, f32, "
-              f"TF32 off, one step: loss {x['loss']} (4 ranks) vs "
-              f"{x['one_loss']} (one process, (2, 2) virtual), rel "
-              f"{x['loss_rel']}; grad norm {x['grad_norm']} vs "
-              f"{x['one_grad_norm']}, rel {x['grad_norm_rel']} (within "
-              f"{TRAIN_GRAD_RTOL}); {len(x['param_rel'])} parameters within "
-              f"relative L2 {TRAIN_GRAD_RTOL} after the update, largest "
-              + json.dumps(worst))
+        # (a) training and (b) the f32 cross-checks, at each layout
+        for lay in TR_LAYOUTS:
+            _check_train_layout(lay, [o["train"][lay] for o in outs], cfg,
+                                card)
+            _check_xcheck_layout(lay, outs)
+        _check_tp_trace(outs, dev)
+        saved = outs[0]["xcheck"][(2, 2)]["saved"]
         back2 = spawn_ranks(CT.restore_onto, 2, args=(conf,),
                             timeout=TR_TIMEOUT)
         for b in back2:
-            _same_digests("checkpoint onto 2 ranks", b, x["saved"])
+            _same_digests("checkpoint onto 2 ranks", b, saved)
         _free_card()
         xcfg = dataclasses.replace(cfg, n_layers=TR_XCHECK_LAYERS,
                                    param_dtype="float32",
@@ -3886,47 +4180,60 @@ def _train_serve_ranks(dev, card, _build):
                           lm.named_parameters()},
                "m": {n: CT.digest(t) for n, t in opt.m.items()},
                "v": {n: CT.digest(t) for n, t in opt.v.items()}}
-        _same_digests("checkpoint onto one process", one, x["saved"])
+        _same_digests("checkpoint onto one process", one, saved)
         del lm, opt
         _free_card()
-        print(f"[train ranks] the 4 ranks' checkpoint restored onto 2 ranks "
-              f"and onto one process bit for bit ({len(one['params'])} "
-              f"parameters, both moments)")
-        # (c) the decodes
+        print(f"[train ranks] the 4 ranks' (2, 2) checkpoint restored onto "
+              f"2 ranks and onto one process bit for bit "
+              f"({len(one['params'])} parameters, both moments)")
+        # (c) the decodes: f32 tokens == one process's; bf16 agreement
         for arch in TR_DECODE_ARCHS:
-            got = [o["decode"][arch] for o in outs]
             argv = _ranks_decode_argv(arch)[1:]
-            blocks = _decode_blocks(dev, argv, 2)
-            whole = decode_run(argv, data=2)["tokens"]
+            got = [o["decode_f32"][arch] for o in outs]
+            blocks = _decode_blocks(dev, argv, 2, "float32")
             _free_card()
             _require(all((g["tokens"] == blocks).all() for g in got),
-                     f"decode {arch} over ranks: tokens {got[0]['tokens']}"
-                     f" != the one-process decode's of each data block "
-                     f"{blocks}")
-            print(f"[decode ranks] {arch}: the ranks' tokens == one "
-                  f"process's, data block by data block; the one-process "
-                  f"decode of the whole batch on the (2, 16) mesh agrees "
-                  f"on {int((whole == blocks).sum())} of {whole.size} "
-                  f"tokens (first difference at step "
-                  f"{_first_diff(whole, blocks)})")
+                     f"decode {arch} over ranks in f32: tokens "
+                     f"{got[0]['tokens']} != the one-process decode's of "
+                     f"each data block {blocks}")
+            print(f"[decode ranks] {arch} in f32 (TF32 off), products "
+                  f"split over the model ranks: the ranks' tokens == one "
+                  f"process's, data block by data block (first difference "
+                  f"at step {_first_diff(got[0]['tokens'], blocks)})")
+            low = [o["decode"][arch] for o in outs]
+            _require(all((g["tokens"] == low[0]["tokens"]).all()
+                         for g in low),
+                     f"decode {arch} over ranks: the ranks' tokens differ")
+            _check_decode_logits(arch, [g["logits"] for g in low],
+                                 CT.decode_logits(argv, dev, blocks=2))
+            _free_card()
+            one = _decode_blocks(dev, argv, 2)
+            _free_card()
+            print(f"[decode ranks] {arch} in the config's dtype over the "
+                  f"ranks agrees with one process's data blocks on "
+                  f"{int((low[0]['tokens'] == one).sum())} of {one.size} "
+                  f"tokens (first differing step: "
+                  f"{_first_diff(low[0]['tokens'], one)})")
             dcfg = get_config(arch)
             if smoke:
                 from repro_torch.configs.base import smoke_config
                 dcfg = smoke_config(dcfg)
-            if not smoke:                # the CPU path launches nothing
-                _check_decode_run(f"decode {arch} over ranks", dcfg,
-                                  torch.from_numpy(got[0]["tokens"]),
-                                  {k: sum(g["launches"][k] for g in got)
-                                   for k in ("topk", "merge")})
-            t_dec = got[0]["t_decode"]
-            print(f"[decode ranks] {arch} (2, 2) over {RANKS} ranks, "
-                  f"{DEC_P} vocabulary peers: prefill "
-                  f"{got[0]['t_prefill']:.3f} s, "
-                  f"{DEC_GEN - 1} steps in {t_dec:.3f} s "
-                  f"({(DEC_GEN - 1) * DEC_B / t_dec:.3f} tok/s); bytes "
-                  f"delivered across ranks {[g['sent_bytes'] for g in got]}"
-                  f" (all {sum(g['sent_bytes'] for g in got)}); launches "
-                  f"by rank {[g['launches'] for g in got]}; {card}")
+            for what, runs in (("", low), (" f32", got)):
+                if not smoke:            # the CPU path launches nothing
+                    _check_decode_run(
+                        f"decode{what} {arch} over ranks", dcfg,
+                        torch.from_numpy(runs[0]["tokens"]),
+                        {k: sum(g["launches"][k] for g in runs)
+                         for k in ("topk", "merge")})
+                t_dec = runs[0]["t_decode"]
+                print(f"[decode ranks]{what} {arch} (2, 2) over {RANKS} "
+                      f"ranks, {DEC_P} vocabulary peers: prefill "
+                      f"{runs[0]['t_prefill']:.3f} s, {DEC_GEN - 1} steps "
+                      f"in {t_dec:.3f} s "
+                      f"({(DEC_GEN - 1) * DEC_B / t_dec:.3f} tok/s); bytes "
+                      f"delivered across ranks by axis "
+                      f"{[g['sent_by_axis'] for g in runs]}; launches by "
+                      f"rank {[g['launches'] for g in runs]}; {card}")
         for r, o in enumerate(outs):
             print(f"[phase 16] rank {r}: {o['seconds']:.3f} s, "
                   f"max_memory_allocated {o.get('max_memory_allocated')} B")
@@ -4609,8 +4916,17 @@ def _topk_select_row(scores, errs, launches, leaf):
                       "of the path counts one call of topk_cuda"}
 
 
+_T0 = [0.0]
+
+
+def _elapsed(what):
+    """How long the script has run, after ``what``."""
+    print(f"[elapsed] {what}: {time.perf_counter() - _T0[0]:.3f} s")
+
+
 def main() -> int:
     import torch
+    _T0[0] = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4649,19 +4965,31 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[kernels] {n} comparisons bit-equal to the plain versions "
           f"(f64/f32/bf16/f16); max abs err {errs}")
+    _elapsed("phases 1-2")
 
     serve_launches, _ = _serve(engine, _build)
+    _elapsed("phase 3")
     churn_launches, _ = _serve_churn(engine, _build)
+    _elapsed("phase 3b")
     _parity(engine, p)
+    _elapsed("phase 4")
 
     dev_launches, scores, _ = _device_path(dev, gen, _build)
+    _elapsed("phase 5")
     topo_launches = _topologies(dev, gen, errs, _build)
+    _elapsed("phase 7")
     prec_launches, _ = _reduced_precision(engine, dev, gen, errs, _build)
+    _elapsed("phase 8")
     overlay_launches = _overlay(dev, gen, errs, _build)
-    t0 = time.perf_counter()
-    cli_launches = _cli(card, _build)
-    shard_launches = _shard(engine, p, dev, gen, errs, _build)
-    print(f"[phase 10] {time.perf_counter() - t0:.3f} s")
+    _elapsed("phase 9")
+    dryruns = _p17_dryrun_start()
+    try:
+        t0 = time.perf_counter()
+        cli_launches = _cli(card, _build)
+        shard_launches = _shard(engine, p, dev, gen, errs, _build)
+        print(f"[phase 10] {time.perf_counter() - t0:.3f} s")
+    finally:
+        _p17_dryrun(dryruns)
     t0 = time.perf_counter()
     decode_launches, _ = _decode_cli(card, _build)
     dec_scores, _ = _decode_model(dev, card)
@@ -4684,6 +5012,7 @@ def main() -> int:
     _free_card()
     rank_launches, rank_leaf = _ranks(dev, card, _build)
     _free_card()
+    _elapsed("phase 15")
 
     launches = {"serve": serve_launches, "serve_churn": churn_launches,
                 "device": dev_launches, "topologies": topo_launches,
@@ -4703,8 +5032,10 @@ def main() -> int:
                           {**var_scores, **arch_scores}, router,
                           train_router))
     rows.append(_topk_select_row(scores, errs, launches, rank_leaf))
+    _elapsed("phase 6")
     _free_card()
     _dryrun_phase(dev, card, _build)
+    _elapsed("phase 17")
     _free_card()
     # phase 16 runs after the timing windows: one call with it before
     # them lost kernel records in phase 6's windows, cause not found
@@ -4714,6 +5045,7 @@ def main() -> int:
     tsr_launches = _train_serve_ranks(dev, card, _build)
     print(f"[phase 16] {time.perf_counter() - t0:.3f} s in all")
     _profiler_probe(scores)
+    _elapsed("phase 16")
     for row in rows:
         n = tsr_launches[row["name"]]
         row["launches_by_path"]["train_serve_ranks"] = n

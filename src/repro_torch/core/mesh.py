@@ -27,6 +27,16 @@ per combination of the other axes' rank coordinates, made by
 by every rank in the same order.  One rank per axis (the default) is
 the one-process mesh, whose code path and bits are unchanged.
 
+The model-axis collectives of the LM's products split over model ranks
+(``copy_to_model``, ``reduce_from_model``, ``gather_from_model``,
+``slice_to_model``) are autograd functions, each with its conjugate
+backward (Megatron's f / g pairs).  Their sum (:func:`all_reduce`) is a
+reduce-scatter in rank order followed by an all-gather: each chunk is
+summed by one rank over ranks 0 ... n-1 in order and then sent to every
+rank, so every rank holds the same bits, at 2 (n - 1) / n of the
+operand sent where ``psum``'s gather sends (n - 1) times it.  Over an
+axis within one rank each of them is the identity.
+
 Which backend: gloo.  NCCL refuses two ranks on one card, and a machine
 with one card then runs its ranks as processes that share it.  gloo's
 send and receive take host tensors, so every exchange of CUDA tensors
@@ -34,8 +44,8 @@ is staged through pinned host buffers, after the producing stream is
 synchronised (a fake tensor, which ``launch/dryrun.py`` runs over the
 ``fake`` backend's world, has nothing to wait for).  The mesh counts
 the payload bytes this rank delivers to other ranks
-(``Mesh.sent_bytes``): the traffic the paper counts, measured at a
-process boundary.
+(``Mesh.sent_bytes``, and by axis ``Mesh.sent_by_axis``): the traffic
+the paper counts, measured at a process boundary.
 
 A ``"data"`` mesh axis shards only the batch of queries; every
 collective is elementwise per batch row, so within one process it
@@ -126,6 +136,7 @@ class Mesh:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self.sent_bytes = 0
+        self.sent_by_axis: Dict[str, int] = {n: 0 for n in self.axis_names}
         self._axes = self._layout(group, ranks)
 
     def _layout(self, group, ranks) -> Dict[str, Axis]:
@@ -179,12 +190,18 @@ class Mesh:
                                          backend=dist.get_backend(group))
                 if base[:a] + base[a + 1:] == coord[:a] + coord[a + 1:]:
                     mine = (sub, line)
+                    _GROUP_AXIS[_group_name(sub)] = name
             axes[name] = Axis(name, self.shape[name], ranks[a], coord[a],
                               mine[0], mine[1], self)
             # a first collective on every axis group: later point-to-point
             # rounds may then involve only some of its ranks
             dist.barrier(group=mine[0])
         return axes
+
+    def count_sent(self, axis: Axis, n: int) -> None:
+        """Add ``n`` bytes this rank delivered over ``axis``."""
+        self.sent_bytes += n
+        self.sent_by_axis[axis.name] += n
 
     def axis(self, name: str) -> Axis:
         """The :class:`Axis` ``name`` as this rank sees it."""
@@ -202,6 +219,24 @@ class Mesh:
             return f"Mesh({self.shape}, device={self.device})"
         return (f"Mesh({self.shape}, ranks={self.ranks}, rank={self.rank}, "
                 f"device={self.device})")
+
+
+#: the mesh axis each rank-spanning axis group serves, by group name (the
+#: last mesh built names it), for ``roofline/trace.py``'s count by axis
+_GROUP_AXIS: Dict[str, str] = {}
+
+
+def _group_name(group) -> str:
+    import torch.distributed as dist
+    if not isinstance(group, dist.ProcessGroup):
+        group = dist.ProcessGroup.unbox(group)
+    return group.group_name
+
+
+def group_axis(group) -> Optional[str]:
+    """The mesh axis ``group`` (a process group, or the script object a
+    ``c10d`` op is handed) serves, or None."""
+    return _GROUP_AXIS.get(_group_name(group))
 
 
 def _group_size(group) -> int:
@@ -366,7 +401,7 @@ def _exchange(axis: Axis, perm: Permutation, xs, outs) -> None:
     for j, idx in perm.sends:
         host = _to_host(_pack([x.index_select(-2, idx) for x in xs]))
         ops.append(dist.P2POp(dist.isend, host, axis.peers[j], axis.group))
-        axis.mesh.sent_bytes += host.numel()
+        axis.mesh.count_sent(axis, host.numel())
     _synchronize(xs[0])
     for j, idx in perm.recvs:
         buf = _host_buffer(lead + (len(idx), row_bytes), torch.uint8, dev)
@@ -410,7 +445,7 @@ def broadcast_all(xs: Sequence[torch.Tensor], axis: Axis) -> list:
     _synchronize(xs[0])
     dist.broadcast(host, src=axis.peers[0], group=axis.group)
     if axis.index == 0:
-        axis.mesh.sent_bytes += host.numel() * (axis.ranks - 1)
+        axis.mesh.count_sent(axis, host.numel() * (axis.ranks - 1))
     return _unpack(host.to(dev, non_blocking=True), xs)
 
 
@@ -424,8 +459,8 @@ def gather_dim(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     _synchronize(x)
     parts = [torch.empty_like(host) for _ in range(axis.ranks)]
     dist.all_gather(parts, host, group=axis.group)
-    axis.mesh.sent_bytes += host.numel() * host.element_size() * (
-        axis.ranks - 1)
+    axis.mesh.count_sent(axis, host.numel() * host.element_size() * (
+        axis.ranks - 1))
     return torch.cat(parts, dim).to(x.device, non_blocking=True)
 
 
@@ -435,3 +470,131 @@ def all_gather(x: torch.Tensor, axis: Optional[Axis] = None
     ``(..., L, m)``: the ``(..., P * m)`` concatenation, peer 0 first."""
     flat = x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
     return gather_dim(flat, axis, -1)
+
+
+# --------------------------------------------------------------------------
+# sums in rank order and the model-axis collectives
+# --------------------------------------------------------------------------
+
+def _spans(axis: Optional[Axis]) -> bool:
+    return axis is not None and axis.ranks > 1
+
+
+def reduce_scatter(x: torch.Tensor, axis: Axis, dim: int = 0,
+                   op: str = "sum") -> torch.Tensor:
+    """This rank's block of ``dim`` (block ``axis.index`` of
+    ``axis.ranks`` equal ones) of ``x`` reduced over the axis's ranks:
+    each rank sends every other its block (one all-to-all) and reduces
+    the n blocks it receives in rank order, ``stack(...).sum(0)`` as
+    :func:`psum` sums them (``op="max"``: their maximum).  Sends (n - 1)
+    / n of ``x``."""
+    import torch.distributed as dist
+    n = axis.ranks
+    lead = x.movedim(dim, 0)
+    if lead.shape[0] % n:
+        raise ValueError(f"a dim of {lead.shape[0]} does not split over "
+                         f"{n} ranks")
+    host = _to_host(lead)
+    _synchronize(x)
+    got = torch.empty_like(host)
+    dist.all_to_all_single(got, host, group=axis.group)
+    axis.mesh.count_sent(axis, host.numel() * host.element_size()
+                         * (n - 1) // n)
+    got = got.to(x.device, non_blocking=True)
+    parts = got.view((n, lead.shape[0] // n) + tuple(lead.shape[1:]))
+    out = (parts.sum(0, dtype=x.dtype) if op == "sum"
+           else parts.amax(0))
+    return out.movedim(0, dim)
+
+
+def all_reduce(x: torch.Tensor, axis: Optional[Axis],
+               op: str = "sum") -> torch.Tensor:
+    """``x`` summed over the axis's ranks (``op="max"``: their
+    maximum), the same bits on every rank: :func:`reduce_scatter` of
+    the flattened ``x`` (zero-padded to a whole number of chunks), then
+    an all-gather of the chunks.  Sends 2 (n - 1) / n of ``x``.  The
+    identity over an axis within one rank."""
+    if not _spans(axis):
+        return x
+    n = axis.ranks
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    whole = gather_dim(reduce_scatter(flat, axis, 0, op), axis, 0)
+    return whole[:x.numel()].view(x.shape)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.size = axis, dim, x.shape[dim]
+        return gather_dim(x.contiguous(), axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.index * ctx.size,
+                        ctx.size), None, None
+
+
+class _SliceToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        part = x.shape[dim] // axis.ranks
+        return x.narrow(dim, axis.index * part, part).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        # the zero-padded slices summed over the ranks: their concatenation
+        return gather_dim(g.contiguous(), ctx.axis, ctx.dim), None, None
+
+
+def copy_to_model(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """The input of a product split over the model ranks: the identity,
+    whose gradient is summed over the ranks (:func:`all_reduce`)."""
+    return _CopyToModel.apply(x, axis) if _spans(axis) else x
+
+
+def reduce_from_model(x: torch.Tensor,
+                      axis: Optional[Axis]) -> torch.Tensor:
+    """The ranks' partial results summed (:func:`all_reduce`); the
+    gradient passes as it is."""
+    return _ReduceFromModel.apply(x, axis) if _spans(axis) else x
+
+
+def gather_from_model(x: torch.Tensor, axis: Optional[Axis],
+                      dim: int) -> torch.Tensor:
+    """The ranks' blocks concatenated on ``dim`` in rank order; the
+    gradient is this rank's block of it (every rank computes the same
+    loss from the gathered tensor, so it is not summed)."""
+    return _GatherFromModel.apply(x, axis, dim) if _spans(axis) else x
+
+
+def slice_to_model(x: torch.Tensor, axis: Optional[Axis],
+                   dim: int) -> torch.Tensor:
+    """This rank's block of ``dim`` of a tensor every rank holds whole;
+    the gradient is the sum of the ranks' zero-padded blocks, which is
+    their concatenation."""
+    return _SliceToModel.apply(x, axis, dim) if _spans(axis) else x

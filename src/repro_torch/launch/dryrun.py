@@ -22,14 +22,19 @@ Each cell's step is the port's, and so is what it reports:
 * ``train``: ``make_train_step(mesh=, specs=)`` on this rank's blocks
   of the parameters and moments (``launch.train.place_blocks``), AdamW,
   ``remat="full"``, the reference's microbatches
-  (:func:`pick_microbatches`): every leaf is gathered whole and every
-  gradient summed by gathering every data rank's term;
-* ``prefill``: ``make_prefill_step`` on this data rank's rows with
-  whole weights, as ``serve decode --ranks`` prefills;
+  (:func:`pick_microbatches`): every leaf is gathered over the data
+  axes only, so a leaf the specs put over ``model`` stays this rank's
+  model block; the products run on the blocks, the model ranks
+  exchanging activations (``core/mesh.py``'s model-axis collectives);
+  every gradient is reduce-scattered over the data ranks;
+* ``prefill``: ``make_prefill_step`` on this data rank's rows with this
+  rank's model blocks of the weights, as ``serve decode --ranks``
+  prefills;
 * ``decode``: ``make_serve_step(cfg, mesh, k=20, algorithm="fd",
-  schedule="halving")`` over the 16 model ranks, whole weights and this
-  data rank's rows of a decode state at its last position; the Gumbel
-  noise is an input.
+  schedule="halving")`` over the 16 model ranks, this rank's model
+  blocks of the weights and its data rows of a decode state at its last
+  position, the caches holding the KV heads the rank computes; the
+  Gumbel noise is an input.
 
 Rows follow ``input_specs_pytree``'s fit: a batch the data ranks do not
 divide (``long_500k``'s one row) is held whole by every rank.  Where
@@ -73,7 +78,8 @@ import torch
 from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
                                       get_config, list_archs,
                                       shape_applicable)
-from repro_torch.roofline.analysis import (HW, model_flops_estimate,
+from repro_torch.roofline.analysis import (HW, collective_terms,
+                                           model_flops_estimate,
                                            roofline_terms)
 
 DEFAULT_OUT = "artifacts/dryrun_torch"
@@ -302,6 +308,9 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, *,
         params = _init_params(cfg, max(shape.seq_len, 4096), device)
         whole = {n: (tuple(p.shape), p.element_size())
                  for n, p in params.named_parameters()}
+        if shape.kind != "train" and mesh.multi_rank:
+            # the model blocks, as serve decode --ranks holds them
+            place_blocks(params, cfg, mesh, axes=("model",))
         batch = _inputs(cfg, shape, mesh, device)
         q_block = overrides.get("q_block", 1024)
         kv_block = overrides.get("kv_block", 1024)
@@ -328,9 +337,11 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, *,
             args = (params, batch)
         else:
             k = overrides.get("k", 20)
-            state = M.init_decode_state(
-                cfg, batch=batch["tokens"].shape[0], s_max=shape.seq_len,
-                device=device)._replace(pos=shape.seq_len - 1)
+            with L.use_mesh(mesh):       # the caches of this rank's heads
+                state = M.init_decode_state(
+                    cfg, batch=batch["tokens"].shape[0],
+                    s_max=shape.seq_len,
+                    device=device)._replace(pos=shape.seq_len - 1)
             serve = make_serve_step(
                 cfg, mesh, k=k, algorithm=overrides.get("algorithm", "fd"),
                 schedule=overrides.get("schedule", "halving"))
@@ -341,6 +352,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, *,
                 return serve(params, state, tokens, None, noise)
             args = (params, state, batch["tokens"], noise)
         mesh.sent_bytes = 0
+        mesh.sent_by_axis = {a: 0 for a in mesh.axis_names}
         totals = analyze(step, *args, device=device.type)
     record["t_trace_s"] = round(time.time() - t0, 1)
     args_b = totals.argument_bytes
@@ -359,15 +371,20 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, *,
     record["convert_bytes"] = totals.convert_bytes
     record["collective"] = {"total": totals.collective_bytes,
                             "by_op": totals.coll_by_op,
-                            "counts": totals.coll_counts}
+                            "counts": totals.coll_counts,
+                            "by_axis": totals.coll_by_axis,
+                            "counts_by_axis": totals.coll_counts_by_axis}
     record["kernels"] = totals.kernels
     record["ops"] = totals.ops
     record["sent_bytes"] = mesh.sent_bytes
+    record["sent_by_axis"] = dict(mesh.sent_by_axis)
     mf = model_flops_estimate(cfg, shape, mode=shape.kind)
     record["roofline"] = roofline_terms(
         hlo_flops=totals.flops, hlo_bytes=totals.bytes_accessed,
         collective_bytes=totals.collective_bytes, hw=hw, model_flops=mf,
         chips=world)
+    record["roofline"]["by_axis"] = collective_terms(totals.coll_by_axis,
+                                                     hw)
     record["roofline"]["note"] = ("H100 SXM data-sheet bounds of the "
                                   "counts, not measurements")
     return record

@@ -12,13 +12,15 @@ network), with a collective timeout of ``COLLECTIVE_TIMEOUT_S`` seconds
 in place of gloo's 30 minutes.  ``fn`` must be importable by name: a
 module-level function of an importable module, never ``__main__``'s.
 What it returns is saved with ``torch.save`` and handed back, rank 0
-first.  When a rank fails, the others are killed and a ``RuntimeError``
-raised here holds each failed rank's traceback, the first to fail
-first (a rank whose peer died fails too, a little later); when
-``timeout`` seconds pass first, every rank is killed and
-``TimeoutError`` raised.  Build the CUDA
-kernels before spawning (``kernels._build.ensure_built``): the ranks
-then load the built libraries.
+first; the ranks then meet at a barrier before the group is torn down,
+so that no rank closes its connections while a peer still exchanges over
+them (gloo aborts a process whose peer left mid-collective).  When a
+rank fails, the others are killed and a ``RuntimeError`` raised here
+holds each failed rank's traceback, the first to fail first (a rank
+whose peer died fails too, a little later); when ``timeout`` seconds
+pass first, every rank is killed and ``TimeoutError`` raised.  Build the
+CUDA kernels before spawning (``kernels._build.ensure_built``): the
+ranks then load the built libraries.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ def _rank_main(rank: int, fn, world: int, store: str, out_dir: str,
     try:
         out = fn(rank, world, *args)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(f"{time.time():.6f}\n{traceback.format_exc()}")

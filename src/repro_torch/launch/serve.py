@@ -233,13 +233,15 @@ def _decode_args(argv):
     return ap.parse_args(argv)
 
 
-def decode_run(argv=None, *, group=None, data=None) -> dict:
+def decode_run(argv=None, *, group=None, data=None, dtype=None) -> dict:
     """The decode of ``main_decode`` without its lines: {"tokens" (batch,
     gen) numpy, "cfg", "policy", "t_prefill", "t_decode", "mesh"}.  A
     rank of a group passes its ``group``: it decodes its rows of the
     batch and gets the whole batch's tokens back.  On one process,
     ``data`` virtual data peers split the batch as the data ranks do
-    (MoE then dispatches per data shard), to compare with the ranks."""
+    (MoE then dispatches per data shard), to compare with the ranks.
+    ``dtype`` (e.g. ``"float32"``) replaces the config's parameter and
+    compute dtypes."""
     args = _decode_args(argv)
 
     import numpy as np
@@ -253,6 +255,7 @@ def decode_run(argv=None, *, group=None, data=None) -> dict:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
+    from repro_torch.launch.train import place_blocks
     from repro_torch.optim.sharding import batch_axes, gather_leaf, _entry
     from repro_torch.runtime.steps import make_serve_step
 
@@ -268,6 +271,10 @@ def decode_run(argv=None, *, group=None, data=None) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if dtype is not None:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, param_dtype=dtype,
+                                  compute_dtype=dtype)
     device = torch.device(args.device)
     if group is not None and device.type == "cuda":
         import torch.distributed as dist
@@ -284,6 +291,8 @@ def decode_run(argv=None, *, group=None, data=None) -> dict:
 
     params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
                            max_seq=s_max, device=device)
+    if mesh.multi_rank:                 # this rank's model blocks
+        place_blocks(params, cfg, mesh, axes=("model",))
 
     rng = np.random.default_rng(0)
     batch_np = {"tokens": rng.integers(
@@ -299,8 +308,8 @@ def decode_run(argv=None, *, group=None, data=None) -> dict:
     t0 = time.perf_counter()
     with L.use_mesh(mesh):
         last_logits, pstate = M.prefill(params, cfg, batch)
-    state = state_from_prefill(cfg, pstate, s_max)
-    tok = torch.argmax(last_logits, dim=-1)[:, None].to(torch.int32)
+        state = state_from_prefill(cfg, pstate, s_max)
+        tok = M.argmax_vocab(last_logits, cfg)[:, None].to(torch.int32)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_prefill = time.perf_counter() - t0
@@ -339,14 +348,18 @@ def main_decode(argv=None):
 
     ``--ranks R`` decodes over R gloo ranks (``launch/ranks.py``): the
     mesh ``(data, model)`` of ``launch/mesh.py::make_host_mesh`` over
-    the ranks, each rank holding the whole parameters and its data
-    rows of the batch and of the decode state (the batch entry of
-    ``optim/sharding.py::decode_state_specs``: each data rank prefills
-    its own rows), the ``--model-par`` peers of the vocabulary spread
-    over the model ranks, the FD top-k across them (``core/fd.py``),
-    MoE dispatched per data shard as the reference does.  The cache's
-    sequence dim, which ``decode_state_specs`` puts over ``model``,
-    stays whole on each model rank in this slice.  Rank 0 prints."""
+    the ranks, each rank holding the model block of every leaf (whole
+    over the data axes; ``--model-ranks`` sets how many ranks the model
+    axis spans) and its data rows of the batch and of the decode state
+    (the batch entry of ``optim/sharding.py::decode_state_specs``: each
+    data rank prefills its own rows), the products split over the model
+    ranks (attention heads, FFN columns, experts, the vocabulary block;
+    ``models/layers.py``), the ``--model-par`` peers of the vocabulary
+    spread over the model ranks, the FD top-k across them
+    (``core/fd.py``), MoE dispatched per data shard as the reference
+    does.  The caches hold the rank's KV heads; their sequence dim,
+    which ``decode_state_specs`` puts over ``model``, stays whole on
+    each model rank.  Rank 0 prints."""
     import sys
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _decode_args(argv)

@@ -11,8 +11,10 @@ is ``(R // M, M)`` over ``("data", "model")``, M the reference's clamp
 of ``--model-par`` to R, one peer a rank (``launch/mesh.py``).  Every
 rank initialises the model from seed 0 and keeps its blocks of it
 (``optim/sharding.py::param_specs``), with AdamW's moments placed as
-the parameters; each step gathers the parameters, computes on the
-rank's rows of the batch and reduces the gradients over the data ranks
+the parameters; each step gathers the parameters over the data ranks
+(a leaf the specs put over ``model`` stays its model block), computes
+on the rank's rows of the batch with the products split over the model
+ranks, and reduce-scatters the gradients over the data ranks
 (``runtime/steps.py::make_train_step``); checkpoints keep the global
 layout.  Rank 0 prints the reference's lines.  On one card the ranks
 share it.
@@ -76,16 +78,17 @@ def build(arch: str, *, smoke: bool, batch: int, seq: int, model_par: int,
     return cfg, mesh, params, opt_state, step_fn, data
 
 
-def place_blocks(params, cfg, mesh) -> dict:
+def place_blocks(params, cfg, mesh, axes=None) -> dict:
     """Keep this rank's blocks of ``params`` (in place, each a copy, so
-    the whole leaf is freed); returns the parameters' specs."""
-    from repro_torch.ckpt.elastic import reshard_tree
-    from repro_torch.optim.sharding import param_specs
+    the whole leaf is freed) over the rank-spanning axes of their specs
+    among ``axes`` (all of them by default; serving keeps the model
+    blocks, whole over the data axes, with ``("model",)``); returns the
+    parameters' specs."""
+    from repro_torch.optim.sharding import param_specs, shard_leaf
     specs = param_specs(params, cfg, mesh)
-    blocks = reshard_tree({n: p.data for n, p in params.named_parameters()},
-                          cfg, mesh, specs)
     for name, p in params.named_parameters():
-        p.data = blocks[name]
+        p.data = shard_leaf(p.data, specs[name], mesh, axes=axes).to(
+            mesh.device, copy=True)
     return specs
 
 

@@ -7,7 +7,8 @@ an MLA layer's (B, S_max, kv_lora_rank) and (B, S_max, qk_rope_dim), a
 cross-attention layer's (B, S_enc, H_kv, Dh) over the encoder's frames.
 
 The reference's ``flash_attention`` is plain ``jnp`` (a scan over kv
-blocks), not Pallas; the port keeps its numerics: scores in f32, per kv
+blocks), not Pallas; the port keeps its numerics: scores in f32 (in
+f64 for f64 inputs, ``layers.wide``), per kv
 block the running max, the rescale of the sums and the accumulator, and
 the zeroing of a fully masked block, in the same order.  A library
 attention (``scaled_dot_product_attention``) computes another rounding
@@ -19,6 +20,17 @@ cache that its serve step donates.  Sliding-window attention
 (``local_window``, recurrentgemma-2b's attention layers) decodes
 against a ring buffer of W slots (``WindowKVCache``,
 ``gqa_decode_window``), written in place at ``pos % W``.
+
+Over model ranks (:func:`head_split`), GQA runs on this rank's query
+heads ``[r hq / m, (r + 1) hq / m)`` where the rules split the heads:
+``w_q`` / ``b_q`` are column blocks, ``w_o`` a row block whose product
+is summed over the ranks.  Where the KV heads split too, ``w_k`` /
+``w_v`` / ``b_k`` / ``b_v`` are this rank's KV heads; where they do not
+(8 KV heads over 16 ranks), they stay whole, the rank computes only the
+KV heads its query heads read, and the gradient of those whole leaves,
+partial on each rank, is summed over the ranks (``copy_to_model`` on
+the leaf).  The caches hold the KV heads the rank computes.  MLA and
+head counts the model size does not divide run whole on every rank.
 """
 from __future__ import annotations
 
@@ -26,7 +38,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.layers import apply_norm, dense_init, norm_init
+from repro_torch.core.mesh import copy_to_model, reduce_from_model
+from repro_torch.models.layers import (apply_norm, dense_init, norm_init,
+                                       split_axis, wide)
 from repro_torch.models.rope import apply_mrope, apply_rope
 
 NEG_INF = -1e30
@@ -82,17 +96,16 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
     for qi in range(nq):
         q_pos = (q_offset + qi * q_block
                  + torch.arange(q_block, device=dev))
-        qf = qb[qi].float()                      # (B, Hkv, G, Bq, Dq)
-        m = torch.full((b, hkv, g, q_block), NEG_INF, dtype=torch.float32,
+        qf = wide(qb[qi])                        # (B, Hkv, G, Bq, Dq)
+        m = torch.full((b, hkv, g, q_block), NEG_INF, dtype=qf.dtype,
                        device=dev)
-        lse = torch.zeros((b, hkv, g, q_block), dtype=torch.float32,
-                          device=dev)
-        acc = torch.zeros((b, hkv, g, q_block, dv), dtype=torch.float32,
+        lse = torch.zeros((b, hkv, g, q_block), dtype=qf.dtype, device=dev)
+        acc = torch.zeros((b, hkv, g, q_block, dv), dtype=qf.dtype,
                           device=dev)
         for ki in range(nk):
             k_pos = ki * kv_block + torch.arange(kv_block, device=dev)
             s = torch.einsum("bhgqd,bhkd->bhgqk", qf,
-                             kb[ki].float()) * scale
+                             wide(kb[ki])) * scale
             mask = k_pos[None, :] < kv_valid_len
             if causal:
                 mask = mask & (q_pos[:, None] >= k_pos[None, :])
@@ -107,7 +120,7 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
             corr = torch.exp(m - new_m)
             lse = lse * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bhkd->bhgqd", p, vb[ki].float())
+                "bhgqk,bhkd->bhgqd", p, wide(vb[ki]))
             m = new_m
         outs.append(acc / torch.clamp_min(lse, 1e-30)[..., None])
 
@@ -152,20 +165,80 @@ def _rotate_qk(q, k, cfg, positions):
             apply_rope(k, positions, cfg.rope_theta))
 
 
-def _proj(params, x, name, heads, hd):
-    """``x @ w_<name> (+ b_<name>)`` as (B, S, heads, hd)."""
-    y = x @ params[f"w_{name}"]
-    if f"b_{name}" in params:
-        y = y + params[f"b_{name}"]
+class HeadSplit(NamedTuple):
+    """This rank's share of a GQA layer's heads: ``ax`` the model axis
+    the heads are split over (None: every head, the one-process path),
+    ``nq`` query heads from ``q0``, ``nk`` KV heads from ``k0``,
+    ``kv_tp`` whether ``w_k`` / ``w_v`` are blocks, and ``kv_of`` the
+    local KV head of each local query head where the query heads do
+    not group evenly over the local KV heads (else None)."""
+    ax: object
+    q0: int
+    nq: int
+    k0: int
+    nk: int
+    kv_tp: bool
+    kv_of: Optional[tuple]
+
+
+def head_split(cfg) -> HeadSplit:
+    """The heads of ``cfg``'s GQA layers this rank computes, as the
+    partition rules split them over the current mesh's model ranks."""
+    hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    ax = split_axis("attn", "w_q", cfg, nq * hd)
+    if ax is None:
+        return HeadSplit(None, 0, nq, 0, nkv, False, None)
+    q_l = nq // ax.ranks
+    q0 = ax.index * q_l
+    if split_axis("attn", "w_k", cfg, nkv * hd) is not None:
+        k_l = nkv // ax.ranks
+        return HeadSplit(ax, q0, q_l, ax.index * k_l, k_l, True, None)
+    g = nq // nkv
+    k0, k1 = q0 // g, (q0 + q_l - 1) // g + 1
+    even = g % q_l == 0 or (q_l % g == 0 and q0 % g == 0)
+    kv_of = None if even else tuple((q0 + i) // g - k0 for i in range(q_l))
+    return HeadSplit(ax, q0, q_l, k0, k1 - k0, False, kv_of)
+
+
+def _proj(params, x, name, heads, hd, sp: Optional[HeadSplit] = None):
+    """``x @ w_<name> (+ b_<name>)`` as (B, S, heads, hd).  Under ``sp``
+    a whole ``w_k`` / ``w_v`` (and bias) is cut to the rank's KV heads,
+    its gradient summed over the ranks."""
+    w = params[f"w_{name}"]
+    b = params[f"b_{name}"] if f"b_{name}" in params else None
+    if sp is not None and sp.ax is not None and name in ("k", "v") \
+            and not sp.kv_tp:
+        w = copy_to_model(w, sp.ax).narrow(1, sp.k0 * hd, sp.nk * hd)
+        if b is not None:
+            b = copy_to_model(b, sp.ax).narrow(0, sp.k0 * hd, sp.nk * hd)
+    y = x @ w
+    if b is not None:
+        y = y + b
     return y.reshape(x.shape[0], x.shape[1], heads, hd)
 
 
-def _qkv(params, x, cfg, positions):
-    """The rotated q (B, S, Hq, Dh) and k, v (B, S, Hkv, Dh) of ``x``."""
-    hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = _proj(params, x, "q", nq, hd)
-    k = _proj(params, x, "k", nkv, hd)
-    v = _proj(params, x, "v", nkv, hd)
+def _expand_kv(k, sp: HeadSplit):
+    """``k`` (B, S, nk, D) as one KV head a query head where the local
+    query heads do not group evenly over the local KV heads."""
+    if sp.kv_of is None:
+        return k
+    idx = torch.tensor(sp.kv_of, dtype=torch.int64, device=k.device)
+    return k.index_select(2, idx)
+
+
+def _out(params, y, sp: HeadSplit):
+    """``y (B, S, nq * hd) @ w_o``, summed over the model ranks."""
+    return reduce_from_model(y @ params["w_o"], sp.ax)
+
+
+def _qkv(params, x, cfg, positions, sp: HeadSplit):
+    """The rotated q (B, S, nq, Dh) and k, v (B, S, nk, Dh) of ``x``,
+    the rank's heads of ``sp``."""
+    hd = cfg.resolved_head_dim
+    x = copy_to_model(x, sp.ax)
+    q = _proj(params, x, "q", sp.nq, hd)
+    k = _proj(params, x, "k", sp.nk, hd, sp)
+    v = _proj(params, x, "v", sp.nk, hd, sp)
     q, k = _rotate_qk(q, k, cfg, positions)
     return q, k, v
 
@@ -188,17 +261,19 @@ def gqa_attention(params, x, cfg, *, positions, mode: str,
     and encode.
     """
     b, s, _ = x.shape
+    sp = head_split(cfg)
+    hd = cfg.resolved_head_dim
     if kv_source is not None:
         if mode == "decode":
             raise ValueError("gqa_attention: cross decode is cross_decode")
-        hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
-        q = _proj(params, x, "q", cfg.n_heads, hd)
-        k = _proj(params, kv_source, "k", nkv, hd)
-        v = _proj(params, kv_source, "v", nkv, hd)
+        q = _proj(params, copy_to_model(x, sp.ax), "q", sp.nq, hd)
+        src = copy_to_model(kv_source, sp.ax)
+        k = _proj(params, src, "k", sp.nk, hd, sp)
+        v = _proj(params, src, "v", sp.nk, hd, sp)
         new_cache = KVCache(k, v)
         q_offset, kv_valid, causal, window = 0, None, False, 0
     else:
-        q, k, v = _qkv(params, x, cfg, positions)
+        q, k, v = _qkv(params, x, cfg, positions, sp)
         new_cache = None
         if mode == "decode":
             if cache is None:
@@ -212,11 +287,12 @@ def gqa_attention(params, x, cfg, *, positions, mode: str,
             q_offset, kv_valid, causal = 0, None, mode != "encode"
             if mode == "prefill":
                 new_cache = KVCache(k, v)
-    y = flash_attention(q, k, v, causal=causal, window=window,
-                        q_offset=q_offset, kv_valid_len=kv_valid,
-                        q_block=q_block, kv_block=kv_block)
-    y = y.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
-    return y @ params["w_o"], new_cache
+    y = flash_attention(q, _expand_kv(k, sp), _expand_kv(v, sp),
+                        causal=causal, window=window, q_offset=q_offset,
+                        kv_valid_len=kv_valid, q_block=q_block,
+                        kv_block=kv_block)
+    y = y.reshape(b, s, sp.nq * hd)
+    return _out(params, y, sp), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -319,11 +395,11 @@ def _plain_decode_attn(q, k, v, mask):
     hkv = k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, 1, hkv, g, dq).to(k.dtype)
-    s = torch.einsum("bqhgd,bshd->bhgqs", qg.float(),
-                     k.float()) * dq ** -0.5
+    s = torch.einsum("bqhgd,bshd->bhgqs", wide(qg),
+                     wide(k)) * dq ** -0.5
     s = torch.where(mask[:, :, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqs,bshd->bqhgd", p.to(v.dtype).float(), v.float())
+    o = torch.einsum("bhgqs,bshd->bqhgd", wide(p.to(v.dtype)), wide(v))
     return o.reshape(b, 1, hq, -1).to(q.dtype)
 
 
@@ -346,15 +422,16 @@ def gqa_decode(params, x, cfg, *, cache: KVCache, cache_pos: int,
     """Single-token decode against a full-length cache (written in
     place).  Returns (y (B, 1, D), the cache)."""
     b = x.shape[0]
-    q, k, v = _qkv(params, x, cfg, positions)
+    sp = head_split(cfg)
+    q, k, v = _qkv(params, x, cfg, positions, sp)
     ck = _masked_cache_write(cache.k, k, cache_pos)
     cv = _masked_cache_write(cache.v, v, cache_pos)
     s_max = ck.shape[1]
     mask = (torch.arange(s_max, device=x.device)
             <= cache_pos)[None, None, None]
-    y = _plain_decode_attn(q, ck, cv, mask)
-    y = y.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
-    return y @ params["w_o"], KVCache(ck, cv)
+    y = _plain_decode_attn(q, _expand_kv(ck, sp), _expand_kv(cv, sp), mask)
+    y = y.reshape(b, 1, sp.nq * cfg.resolved_head_dim)
+    return _out(params, y, sp), KVCache(ck, cv)
 
 
 class WindowKVCache(NamedTuple):
@@ -374,26 +451,30 @@ def gqa_decode_window(params, x, cfg, *, cache: WindowKVCache,
     it.  Returns (y (B, 1, D), the cache)."""
     b = x.shape[0]
     w = cache.k.shape[1]
-    q, k, v = _qkv(params, x, cfg, positions)
+    sp = head_split(cfg)
+    q, k, v = _qkv(params, x, cfg, positions, sp)
     slot = cache_pos % w
     ck = _masked_cache_write(cache.k, k, slot)
     cv = _masked_cache_write(cache.v, v, slot)
     ps = cache.pos_slots
     ps[slot] = cache_pos
     valid = (ps >= 0) & (ps <= cache_pos) & (cache_pos - ps < w)
-    y = _plain_decode_attn(q, ck, cv, valid[None, None, None])
-    y = y.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
-    return y @ params["w_o"], WindowKVCache(ck, cv, ps)
+    y = _plain_decode_attn(q, _expand_kv(ck, sp), _expand_kv(cv, sp),
+                           valid[None, None, None])
+    y = y.reshape(b, 1, sp.nq * cfg.resolved_head_dim)
+    return _out(params, y, sp), WindowKVCache(ck, cv, ps)
 
 
 def cross_decode(params, x, cfg, *, cache: KVCache):
     """Cross-attention decode: the encoder's KV from prefill, static and
     unmasked.  Returns (y (B, 1, D), the cache)."""
     b = x.shape[0]
-    hd, nq = cfg.resolved_head_dim, cfg.n_heads
-    q = _proj(params, x, "q", nq, hd)
+    hd = cfg.resolved_head_dim
+    sp = head_split(cfg)
+    q = _proj(params, copy_to_model(x, sp.ax), "q", sp.nq, hd)
     mask = torch.ones((1, 1, 1, cache.k.shape[1]), dtype=torch.bool,
                       device=x.device)
-    y = _plain_decode_attn(q, cache.k, cache.v, mask)
-    y = y.reshape(b, 1, nq * hd)
-    return y @ params["w_o"], cache
+    y = _plain_decode_attn(q, _expand_kv(cache.k, sp),
+                           _expand_kv(cache.v, sp), mask)
+    y = y.reshape(b, 1, sp.nq * hd)
+    return _out(params, y, sp), cache

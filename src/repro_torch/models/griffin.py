@@ -10,13 +10,20 @@ reference's ``jax.lax.associative_scan`` does, with a log-depth
 (Hillis-Steele) scan over the (a, b) pairs: ceil(log2 S) elementwise
 steps, not a loop over time steps.  Its tree is not the reference's, so
 its f32 rounding differs by a few ulps.
+
+Over model ranks the RG-LRU width splits (the partition rules'
+``rglru`` entries): ``w_x`` / ``w_gate`` are column blocks, ``conv_w``,
+``conv_b`` and ``lam`` blocks of the width, ``w_a`` / ``w_i`` the
+rank's diagonal blocks, ``w_out`` a row block whose product is summed
+over the ranks, and the decode state holds the rank's width block.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, wide
+from repro_torch.core.mesh import copy_to_model, reduce_from_model
+from repro_torch.models.layers import dense_init, split_axis, wide
 
 _C = 8.0        # griffin's fixed recurrence sharpness constant
 _N_BLOCKS = 16  # block-diagonal gate matrices
@@ -89,12 +96,30 @@ def rglru(x, a_gate, i_gate, lam, h0):
     return h.to(x.dtype), h[:, -1]
 
 
+def width_split(cfg):
+    """(the model axis the RG-LRU width is split over, or None; this
+    rank's width)."""
+    lw = cfg.recurrent.lru_width or cfg.d_model
+    ax = split_axis("rglru", "w_x", cfg, lw)
+    if ax is None:
+        return None, lw
+    nb = _N_BLOCKS if lw % _N_BLOCKS == 0 else 1
+    if split_axis("rglru", "w_a", cfg, nb) is None:
+        raise ValueError(f"{cfg.name}: the RG-LRU width {lw} splits over "
+                         f"{ax.size} model peers, its {nb} gate blocks "
+                         f"do not")
+    return ax, lw // ax.ranks
+
+
 def apply_griffin(params, x, cfg, *, state):
     """Griffin recurrent block.  x: (B, S, D); state: (h (B, L) f32,
-    conv_buf (B, cw - 1, L) f32, cast to x's dtype on use).  Returns
-    (y, (h_S, the last cw - 1 conv inputs in f32))."""
+    conv_buf (B, cw - 1, L) f32, cast to x's dtype on use; L this
+    rank's width).  Returns (y, (h_S, the last cw - 1 conv inputs in
+    f32))."""
     cw = cfg.recurrent.conv_width
     h0, conv_buf = state
+    ax, _ = width_split(cfg)
+    x = copy_to_model(x, ax)
 
     xb = x @ params["w_x"]                                     # (B,S,L)
     gb = F.gelu(x @ params["w_gate"], approximate="tanh")
@@ -110,14 +135,15 @@ def apply_griffin(params, x, cfg, *, state):
     i_gate = _block_diag(conv, params["w_i"])
     h, h_last = rglru(conv, a_gate, i_gate, params["lam"], h0)
 
-    y = (h * gb) @ params["w_out"]
+    y = reduce_from_model((h * gb) @ params["w_out"], ax)
     return y, (h_last, new_buf)
 
 
 def griffin_init_state(cfg, batch: int, device):
-    """Zero (h (B, L), conv_buf (B, cw - 1, L)), both f32."""
+    """Zero (h (B, L), conv_buf (B, cw - 1, L)), both f32, L this rank's
+    width."""
     r = cfg.recurrent
-    lw = r.lru_width or cfg.d_model
+    _, lw = width_split(cfg)
     return (torch.zeros((batch, lw), dtype=torch.float32, device=device),
             torch.zeros((batch, r.conv_width - 1, lw), dtype=torch.float32,
                         device=device))

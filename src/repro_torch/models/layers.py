@@ -7,11 +7,19 @@ order and the same dtypes.
 
 The mesh helpers read the mesh that :func:`use_mesh` makes current, as
 the reference's read the ambient JAX mesh: ``batch_spec``,
-``model_size``, ``head_axis``, ``_mesh_axis_names`` and
+``model_size``, ``head_axis``, ``_mesh_axis_names``,
 ``local_batch_shards`` (the data peers this process holds, which MoE
-dispatches over).  The reference's ``constrain`` only annotates
-activations' layout for GSPMD and changes no value; it has no
-counterpart.
+dispatches over), ``model_ranks`` (the model axis where it spans ranks)
+and ``split_axis`` (whether a leaf is a block on its model rank).
+
+Over model ranks, a leaf that the partition rules put over ``model``
+(``optim/sharding.py``) is this rank's block, and the products run on
+the blocks: a column block's input passes ``copy_to_model`` and a row
+block's output ``reduce_from_model`` (``core/mesh.py``), so the ranks
+exchange only activations.  Over one rank every collective is the
+identity and the arithmetic is the one-process path's.  The reference's
+``constrain`` only annotates activations' layout for GSPMD and changes
+no value; it has no counterpart.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.core.mesh import copy_to_model, reduce_from_model
 
 # mesh axis-name conventions used everywhere
 BATCH_AXES = ("pod", "data")   # "pod" present only in the multi-pod mesh
@@ -64,6 +74,30 @@ def head_axis(n_heads: int):
     """``model`` iff the head count divides the model axis evenly."""
     ms = model_size()
     return MODEL_AXIS if ms > 1 and n_heads % ms == 0 else None
+
+
+def model_ranks():
+    """The current mesh's ``model`` axis (a ``core/mesh.py::Axis``) where
+    it spans ranks, else None."""
+    mesh = _CURRENT[0]
+    if mesh is None or MODEL_AXIS not in mesh.shape:
+        return None
+    ax = mesh.axis(MODEL_AXIS)
+    return ax if ax.ranks > 1 else None
+
+
+def split_axis(kind: str, name: str, cfg, dim_size: int):
+    """The model axis where leaf ``name`` of a ``kind`` block
+    (``optim/sharding.py``'s kinds) is a block on each model rank: the
+    axis spans ranks and the rule table puts ``model`` on the leaf for
+    the mesh's model size, its cut dim of ``dim_size`` entries (taken
+    from the config) fitting; else None."""
+    ax = model_ranks()
+    if ax is None:
+        return None
+    from repro_torch.optim.sharding import splits_over_model
+    return ax if splits_over_model(kind, name, cfg, ax.size,
+                                   dim_size) else None
 
 
 def local_batch_shards() -> int:
@@ -164,14 +198,24 @@ def ffn_init(gen: torch.Generator, d: int, d_ff: int, act: str,
             "b_down": torch.zeros((d,), dtype=dtype, device=dev)}
 
 
-def apply_ffn(params, x: torch.Tensor, act: str) -> torch.Tensor:
+def apply_ffn(params, x: torch.Tensor, act: str, cfg=None,
+              width: int = 0) -> torch.Tensor:
     """SwiGLU, or GELU with the tanh approximation (``jax.nn.gelu``'s
-    default)."""
+    default).
+
+    Given ``cfg`` (and the hidden ``width``, ``cfg.d_ff`` by default),
+    over model ranks where the rules split the hidden dim: ``w_gate`` /
+    ``w_up`` / ``b_up`` are column blocks and ``w_down`` a row block,
+    the input passes ``copy_to_model``, the output ``reduce_from_model``,
+    and ``b_down`` is added once, after the sum."""
+    ax = None if cfg is None else split_axis("ffn", "w_up", cfg,
+                                             width or cfg.d_ff)
+    x = copy_to_model(x, ax)
     if act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-        return h @ params["w_down"]
+        return reduce_from_model(h @ params["w_down"], ax)
     h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
-    return h @ params["w_down"] + params["b_down"]
+    return reduce_from_model(h @ params["w_down"], ax) + params["b_down"]
 
 
 # --------------------------------------------------------------------------
@@ -187,14 +231,19 @@ def rwkv_cmix_init(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
             "mix_r": torch.full((d,), 0.5, dtype=dtype, device=dev)}
 
 
-def apply_rwkv_cmix(params, x: torch.Tensor, x_prev: torch.Tensor):
+def apply_rwkv_cmix(params, x: torch.Tensor, x_prev: torch.Tensor,
+                    cfg=None):
     """RWKV channel mix with token shift.  x: (B, S, D); x_prev: (B, 1,
     D), the f32 carry.  Returns (y, x's last token in f32), so that the
-    decode cache's dtype stays f32."""
+    decode cache's dtype stays f32.  Given ``cfg``, over model ranks
+    where the rules split ``d_ff``: ``w_k`` is a column block and
+    ``w_v`` a row block, ``k @ w_v`` summed over the ranks; ``w_r`` and
+    the mixes stay whole, and ``r * v`` is taken after the sum."""
+    ax = None if cfg is None else split_axis("ffn", "w_k", cfg, cfg.d_ff)
     shifted = torch.cat([x_prev.to(x.dtype), x[:, :-1]], dim=1)
     xk = x * params["mix_k"] + shifted * (1 - params["mix_k"])
     xr = x * params["mix_r"] + shifted * (1 - params["mix_r"])
-    k = torch.square(torch.relu(xk @ params["w_k"]))
-    v = k @ params["w_v"]
+    k = torch.square(torch.relu(copy_to_model(xk, ax) @ params["w_k"]))
+    v = reduce_from_model(k @ params["w_v"], ax)
     r = torch.sigmoid(xr @ params["w_r"])
     return r * v, wide(x[:, -1:])

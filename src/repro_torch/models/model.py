@@ -32,6 +32,14 @@ precomputed patch embeddings over the first n_vis slots.
 The logits cover every row of ``cfg.padded_vocab()``, and the padding
 rows of the embedding are random like the rest, as in the reference;
 so the sampler can emit an id >= ``cfg.vocab_size``.
+
+Over model ranks (``layers.use_mesh`` with a model axis that spans
+ranks) the vocabulary is split as the partition rules put ``embed``
+(``(model, data)``) and ``w_lm`` (``(data, model)``): each rank looks
+up its row block of the embedding (the sum over the ranks is the
+lookup), scores its block of the vocabulary (``logits_fn``,
+``forward``, ``prefill`` and ``decode_step`` return that block), and
+``loss_fn`` is a vocabulary-parallel cross-entropy.
 """
 from __future__ import annotations
 
@@ -42,13 +50,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mesh as C
 from repro_torch.core.mesh import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.rope import sinusoidal_embedding
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-          "float16": torch.float16}
+          "float16": torch.float16, "float64": torch.float64}
 
 
 def _dt(cfg: ModelConfig):
@@ -185,18 +194,39 @@ def make_positions(cfg: ModelConfig, batch: int, seq: int, offset: int = 0,
     return pos
 
 
+def vocab_split(cfg: ModelConfig):
+    """(the model axis the vocabulary is split over, or None; the first
+    row of this rank's block; its rows)."""
+    v = cfg.padded_vocab()
+    ax = L.split_axis("top", "embed", cfg, v)
+    if ax is None:
+        return None, 0, v
+    part = v // ax.ranks
+    return ax, ax.index * part, part
+
+
 def embed_tokens(params: LM, cfg: ModelConfig, tokens, *,
                  vision_embeds=None, pos_offset: int = 0) -> torch.Tensor:
     """tokens: (B, S) int32 -> (B, S, D), rows of the embedding.  The
     VLM stub's ``vision_embeds`` (B, n_vis, D) overwrite the first n_vis
     slots (all S of them, the tokens unused, where n_vis >= S); learned
     positions add ``pos_embed[pos_offset:pos_offset + S]``, and an
-    offset past the table raises (the reference's slice would clamp)."""
+    offset past the table raises (the reference's slice would clamp).
+    Over model ranks each rank looks up the tokens of its row block,
+    the others' rows zero, and the ranks' lookups are summed."""
     s = tokens.shape[1]
     if vision_embeds is not None and vision_embeds.shape[1] >= s:
         x = vision_embeds[:, :s].to(params.embed.dtype)
     else:
-        x = torch.nn.functional.embedding(tokens, params.embed)
+        ax, lo, part = vocab_split(cfg)
+        if ax is None:
+            x = torch.nn.functional.embedding(tokens, params.embed)
+        else:
+            local = tokens.long() - lo
+            mine = (local >= 0) & (local < part)
+            x = torch.nn.functional.embedding(torch.where(mine, local, 0),
+                                              params.embed)
+            x = C.reduce_from_model(torch.where(mine[..., None], x, 0), ax)
         if vision_embeds is not None:
             x = torch.cat([vision_embeds.to(x.dtype),
                            x[:, vision_embeds.shape[1]:]], dim=1)
@@ -210,10 +240,29 @@ def embed_tokens(params: LM, cfg: ModelConfig, tokens, *,
 
 
 def logits_fn(params: LM, cfg: ModelConfig, x) -> torch.Tensor:
-    """Final norm + LM head over the padded vocabulary."""
+    """Final norm + LM head over the padded vocabulary: over model ranks,
+    this rank's block of it (``embed``'s row block transposed where the
+    embeddings are tied)."""
     h = L.apply_norm(params.norm_f, x, cfg.norm)
+    h = C.copy_to_model(h, vocab_split(cfg)[0])
     w = params.embed.t() if cfg.tie_embeddings else params.w_lm
     return h @ w.to(h.dtype)
+
+
+def argmax_vocab(logits, cfg: ModelConfig) -> torch.Tensor:
+    """The id of each row's largest logit, the lowest on ties
+    (``argmax``), int64 of ``logits``' leading shape; over model ranks
+    from this rank's vocabulary block: each rank's largest and its
+    global id gathered, the largest of them taken (the lowest rank on
+    ties, hence the lowest id)."""
+    ax, lo, _ = vocab_split(cfg)
+    if ax is None:
+        return torch.argmax(logits, dim=-1)
+    v, i = torch.max(logits, dim=-1)
+    vs = C.gather_dim(v[..., None].contiguous(), ax, -1)
+    ids = C.gather_dim((i + lo)[..., None].contiguous(), ax, -1)
+    return torch.take_along_dim(ids, torch.argmax(vs, dim=-1)[..., None],
+                                dim=-1)[..., 0]
 
 
 # --------------------------------------------------------------------------
@@ -271,8 +320,9 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
 def loss_fn(params: LM, cfg: ModelConfig, batch: dict, *,
             remat: str = "none", q_block: int = 1024, kv_block: int = 1024,
             n_tok=None):
-    """Next-token cross-entropy plus MoE's auxiliary loss.  labels:
-    (B, S) int32, -1 = ignore.  Returns (loss, {"ce", "aux", "n_tok"}),
+    """Next-token cross-entropy plus MoE's auxiliary loss (over model
+    ranks a vocabulary-parallel cross-entropy, ``_vocab_parallel_terms``).
+    labels: (B, S) int32, -1 = ignore.  Returns (loss, {"ce", "aux", "n_tok"}),
     f32 scalars.  ``n_tok`` replaces the count of labelled tokens the
     sum is divided by (over ranks: the whole batch's, so that the ranks'
     cross-entropies add up to the whole batch's).
@@ -286,16 +336,47 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: dict, *,
     logits, _, aux = forward(params, cfg, batch, mode="train", remat=remat,
                              q_block=q_block, kv_block=kv_block)
     labels = batch["labels"]
-    lf = L.wide(logits)
-    lse = torch.logsumexp(lf, dim=-1)                            # (B, S)
-    picked = torch.take_along_dim(
-        lf, labels.clamp_min(0).long()[..., None], dim=-1)[..., 0]
-    mask = (labels >= 0).to(lf.dtype)
+    lse, picked = ce_terms(logits, labels, cfg)
+    mask = (labels >= 0).to(lse.dtype)
     if n_tok is None:
         n_tok = torch.clamp_min(mask.sum(), 1.0)
     ce = ((lse - picked) * mask).sum() / n_tok
     loss = ce + aux
     return loss, {"ce": ce, "aux": aux, "n_tok": n_tok}
+
+
+def ce_terms(logits, labels, cfg: ModelConfig):
+    """(logsumexp over the padded vocabulary, the label's logit) of each
+    position, in f32 (f64 for an f64 model): ``logits`` (B, S, V_pad),
+    over model ranks this rank's block (:func:`_vocab_parallel_terms`);
+    ``labels`` (B, S), a label of -1 read as 0 (``loss_fn`` masks it)."""
+    lf = L.wide(logits)
+    ax, lo, part = vocab_split(cfg)
+    if ax is not None:
+        return _vocab_parallel_terms(lf, labels, ax, lo, part)
+    lse = torch.logsumexp(lf, dim=-1)                            # (B, S)
+    picked = torch.take_along_dim(
+        lf, labels.clamp_min(0).long()[..., None], dim=-1)[..., 0]
+    return lse, picked
+
+
+def _vocab_parallel_terms(lf, labels, ax, lo: int, part: int):
+    """(logsumexp, the label's logit) of the whole vocabulary from this
+    rank's block ``lf`` (B, S, V / m) of columns ``[lo, lo + part)``:
+    the maximum, the sum of exponentials and the label's logit (picked
+    on the rank that holds its column, zero elsewhere) each reduced over
+    the model ranks (``core/mesh.py``); the padding columns stay in the
+    sum.  No rank forms the whole logits."""
+    m = C.all_reduce(lf.detach().amax(dim=-1), ax, op="max")
+    sumexp = C.reduce_from_model(torch.exp(lf - m[..., None]).sum(dim=-1),
+                                 ax)
+    lse = m + torch.log(sumexp)
+    local = labels.clamp_min(0).long() - lo
+    mine = (local >= 0) & (local < part)
+    got = torch.take_along_dim(lf, torch.where(mine, local, 0)[..., None],
+                               dim=-1)[..., 0]
+    picked = C.reduce_from_model(torch.where(mine, got, 0), ax)
+    return lse, picked
 
 
 # --------------------------------------------------------------------------

@@ -22,6 +22,16 @@ depends on its batch-mates, reference fault 8).  Every expert's C rows
 are computed each step, as in the reference.  ``impl="ragged"`` is the
 dropless grouped product (the reference's ``lax.ragged_dot``), a loop
 over experts here, reached only by a direct call.
+
+Over model ranks, where the experts divide the model size, the experts
+run expert-parallel as in the reference (``src/repro/models/moe.py``):
+every model rank routes and dispatches the same tokens (the router's
+top-k included), keeps its ``E / m`` experts' rows of the buffer
+(``slice_to_model``), runs its experts' products on its weight blocks,
+and the ranks' outputs are all-gathered once a layer
+(``gather_from_model``) before the combine.  The shared experts are an
+FFN split over the model ranks (``layers.apply_ffn``).  Experts that do
+not divide stay whole on every rank, as the rules leave them.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.mesh import gather_from_model, slice_to_model
 from repro_torch.kernels.topk import topk_with_grad
 from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init, wide
@@ -120,9 +131,8 @@ def _combine(params, xf, yo, gate_vals, cfg, x):
     dtype."""
     y = (yo * gate_vals[..., None].to(yo.dtype)).sum(dim=1)
     if cfg.moe.n_shared_experts:
-        sp = params["shared"]
-        hs = F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"])
-        y = y + hs @ sp["w_down"]
+        y = y + L.apply_ffn(params["shared"], xf, "swiglu", cfg,
+                            cfg.moe.d_expert * cfg.moe.n_shared_experts)
     return y.reshape(x.shape).to(x.dtype)
 
 
@@ -167,9 +177,12 @@ def _moe_dispatch_outside(params, x, cfg, shards: int = 1):
     buf = torch.zeros((rows + 1, d), dtype=xf.dtype, device=dev)
     buf[slot.reshape(-1)] = xf[tok_idx.reshape(-1)]
     bufe = buf[:rows].view(n_e, shards * cap, d)
+    ax = L.split_axis("moe", "w_up", cfg, n_e)
+    bufe = slice_to_model(bufe, ax, 0)             # this rank's experts
     h = F.silu(torch.bmm(bufe, params["w_gate"])) * torch.bmm(
         bufe, params["w_up"])
-    y_buf = torch.bmm(h, params["w_down"]).reshape(rows, d)
+    y_buf = gather_from_model(torch.bmm(h, params["w_down"]), ax,
+                              0).reshape(rows, d)
     slot_of_flat = torch.gather(slot, 1, inv_order).reshape(-1)
     kept = (slot_of_flat < rows)[:, None]
     y_flat = y_buf[torch.clamp_max(slot_of_flat, rows - 1)]

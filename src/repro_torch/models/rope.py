@@ -15,10 +15,12 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
     """Rotate the halves of ``x`` (B, S, H, Dh) by the angles ``ang``
-    (B, S, Dh // 2) in f32, returning ``x``'s dtype."""
+    (B, S, Dh // 2) in f32 (an f64 ``x`` in f64), returning ``x``'s
+    dtype."""
     half = x.shape[-1] // 2
     cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
-    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    wide = torch.promote_types(x.dtype, torch.float32)
+    xf1, xf2 = x[..., :half].to(wide), x[..., half:].to(wide)
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                      dim=-1).to(x.dtype)
 

@@ -75,12 +75,14 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                      dtype, device, with_cross: bool = False,
                      enc_seq: int = 0) -> dict:
     """Zero caches for decode; the recurrent states in f32, a window
-    cache of min(window, s_max) empty slots."""
+    cache of min(window, s_max) empty slots.  Over model ranks (the
+    current mesh, ``layers.use_mesh``) they hold this rank's KV heads
+    and RG-LRU width."""
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
     f32 = torch.float32
-    hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    hd, nkv = cfg.resolved_head_dim, attn.head_split(cfg).nk
     if kind == "attn":
         if cfg.attn_kind == "mla":
             m = cfg.mla
@@ -101,7 +103,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
              "xp_t": zeros(batch, 1, cfg.d_model, dt=f32),
              "xp_c": zeros(batch, 1, cfg.d_model, dt=f32)}
     elif kind == "rglru":
-        lw = cfg.recurrent.lru_width or cfg.d_model
+        _, lw = griffin.width_split(cfg)
         c = {"h": zeros(batch, lw, dt=f32),
              "conv": zeros(batch, cfg.recurrent.conv_width - 1, lw, dt=f32)}
     else:
@@ -187,11 +189,11 @@ def block_apply(block: Block, cfg: ModelConfig, x, *, positions, mode: str,
         xp = (cache["xp_c"] if cache is not None
               else torch.zeros((b, 1, cfg.d_model), dtype=torch.float32,
                                device=dev))
-        y, xp = L.apply_rwkv_cmix(block.ffn, h, xp)
+        y, xp = L.apply_rwkv_cmix(block.ffn, h, xp, cfg)
         if keep:
             new_cache["xp_c"] = xp
     else:
-        y = L.apply_ffn(block.ffn, h, cfg.act)
+        y = L.apply_ffn(block.ffn, h, cfg.act, cfg)
     return x + y, new_cache, aux
 
 

@@ -22,7 +22,8 @@ full-size arch come without allocating it), and a mesh shape from a
 port :class:`~repro_torch.core.mesh.Mesh` or a dict.
 
 Placement over ranks (``shard_leaf``, ``gather_leaf``,
-``reduce_leaf``): each rank-spanning axis a spec names cuts that
+``reduce_leaf``; the first two over the spec's axes or those named):
+each rank-spanning axis a spec names cuts that
 dimension into equal blocks in rank-coordinate order, which is
 ``NamedSharding``'s layout where each rank holds one peer of an axis;
 an axis held as virtual peers inside one rank leaves the dimension
@@ -94,13 +95,36 @@ def batch_axes(mesh_shape: dict):
 # rule table
 # --------------------------------------------------------------------------
 
+def heads_split(cfg, msize: int) -> bool:
+    """The rules split attention heads over ``msize`` model peers: the
+    head count divides, and the attention is not MLA."""
+    return cfg.n_heads % msize == 0 and cfg.attn_kind != "mla"
+
+
+def kv_split(cfg, msize: int) -> bool:
+    """The rules split the KV heads too: the heads split and the KV
+    head count divides."""
+    return heads_split(cfg, msize) and cfg.n_kv_heads % msize == 0
+
+
+def splits_over_model(kind: str, name: str, cfg, msize: int,
+                      dim_size: int) -> bool:
+    """Whether the rules put ``model`` on leaf ``name`` of a ``kind``
+    block for ``msize`` model peers, where the dim they would cut has
+    ``dim_size`` entries (a size the caller takes from the config):
+    the rule table's own answer, with its fit."""
+    axes = (_top_level_rule(name, ()) if kind == "top"
+            else _rules_for(kind, name, cfg, {MODEL: msize}, 3))
+    return MODEL in axes and dim_size % msize == 0
+
+
 def _rules_for(kind: str, name: str, cfg, mesh_shape: dict, ndim: int):
     """Logical axes (pre-fit) for a leaf ``name`` inside a ``kind`` block
     (the reference's table, unchanged)."""
     msize = mesh_shape.get(MODEL, 1)
     F = fsdp_axes(mesh_shape)
-    attn_tp = cfg.n_heads % msize == 0 and cfg.attn_kind != "mla"
-    kv_tp = attn_tp and cfg.n_kv_heads % msize == 0
+    attn_tp = heads_split(cfg, msize)
+    kv_tp = kv_split(cfg, msize)
 
     if kind == "attn":
         if name == "w_q":
@@ -173,15 +197,21 @@ def _classify(tokens, cfg):
     return kind, name
 
 
-def _top_level_spec(name: str, shape, mesh_shape) -> tuple:
-    F = fsdp_axes(mesh_shape)
+def _top_level_rule(name: str, F) -> tuple:
     if name == "embed":
-        return _mk((MODEL, F), shape, mesh_shape)
+        return (MODEL, F)
     if name == "w_lm":
-        return _mk((F, MODEL), shape, mesh_shape)
+        return (F, MODEL)
     if name == "pos_embed":
-        return _mk((None, F), shape, mesh_shape)
-    return (None,) * len(shape)
+        return (None, F)
+    return ()
+
+
+def _top_level_spec(name: str, shape, mesh_shape) -> tuple:
+    rule = _top_level_rule(name, fsdp_axes(mesh_shape))
+    if not rule:
+        return (None,) * len(shape)
+    return _mk(rule, shape, mesh_shape)
 
 
 def param_shapes(params) -> Dict[str, Tuple[int, ...]]:
@@ -363,26 +393,38 @@ def global_shape(shape, spec, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
-def shard_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """This rank's block of the whole leaf ``x`` (``x`` itself when no
-    axis of ``spec`` spans ranks)."""
+def _cut_axes(entry, axes) -> tuple:
+    """The axes of ``entry`` that are in ``axes`` (all of them where
+    ``axes`` is None)."""
+    return tuple(a for a in _names(entry) if axes is None or a in axes)
+
+
+def shard_leaf(x: torch.Tensor, spec, mesh, axes=None) -> torch.Tensor:
+    """This rank's block of the whole leaf ``x`` over the rank-spanning
+    axes of ``spec`` among ``axes`` (all of them by default; serving
+    passes ``("model",)`` to keep the model block whole over the data
+    axes); ``x`` itself when none spans ranks."""
     for d in range(x.dim()):
-        r = _block_range(spec[d] if d < len(spec) else None, mesh,
+        entry = spec[d] if d < len(spec) else None
+        r = _block_range(_cut_axes(entry, axes) or None, mesh,
                          x.shape[d])
         if r is not None:
             x = x.narrow(d, *r)
     return x
 
 
-def gather_leaf(block: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """The whole leaf from every rank's block: ``core/mesh.py::gather_dim``
-    over each rank-spanning axis of each dim, the innermost axis first,
-    so that the blocks join in rank-coordinate order."""
+def gather_leaf(block: torch.Tensor, spec, mesh, axes=None) -> torch.Tensor:
+    """The leaf gathered from every rank's block over the rank-spanning
+    axes of ``spec`` among ``axes`` (all of them by default; the train
+    step passes the data axes, so that a model block stays one):
+    ``core/mesh.py::gather_dim`` over each such axis of each dim, the
+    innermost axis first, so that the blocks join in rank-coordinate
+    order."""
     from repro_torch.core.mesh import gather_dim
     x = block
     for d in range(block.dim()):
         entry = spec[d] if d < len(spec) else None
-        for a in reversed(_names(entry)):
+        for a in reversed(_cut_axes(entry, axes)):
             if a in mesh.shape and mesh.axis(a).ranks > 1:
                 x = gather_dim(x, mesh.axis(a), d)
     return x
@@ -405,9 +447,23 @@ def psum_axes(x: torch.Tensor, mesh, axes=FSDP_AXES) -> torch.Tensor:
 
 
 def reduce_leaf(grad: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """A leaf's whole gradient summed over the data ranks
-    (:func:`psum_axes`), then cut to this rank's block."""
-    return shard_leaf(psum_axes(grad, mesh), spec, mesh)
+    """A leaf's gradient summed over the data ranks and cut to this
+    rank's block of the data axes (its model dims, if any, are already
+    this rank's block): over ``pod`` then ``data``, as
+    :func:`psum_axes` sums, each a reduce-scatter in rank order
+    (``core/mesh.py::reduce_scatter``) where the spec cuts a dim over
+    the axis, else a reduce-scatter and an all-gather
+    (``core/mesh.py::all_reduce``).  The same bits as :func:`psum_axes`
+    then the cut, at 1 / n of its traffic for a cut leaf."""
+    from repro_torch.core.mesh import all_reduce, reduce_scatter
+    dims = {a: d for d, entry in enumerate(spec) for a in _names(entry)}
+    x = grad
+    for ax in rank_axes(mesh, FSDP_AXES):
+        if ax.name in dims:
+            x = reduce_scatter(x, ax, dims[ax.name])
+        else:
+            x = all_reduce(x, ax)
+    return x
 
 
 def counted_here(spec, mesh) -> bool:

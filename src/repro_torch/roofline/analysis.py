@@ -13,10 +13,11 @@ counter sees every ``c10d`` collective the rank issues (and with it
 goes the reference's ``DTYPE_BYTES``: a tensor knows its item size).
 
 ``roofline_terms`` and ``model_flops_estimate`` are the reference's,
-unchanged.  ``HW`` holds the H100 SXM data sheet's figures, dense rates
-without sparsity at the card's full 700 W; a card set to a lower power
-limit runs below them.  Every term is therefore a data-sheet bound, not
-a measurement.
+unchanged; ``collective_terms`` charges each mesh axis's collective
+bytes apart (the ``"pod"`` axis across hosts).  ``HW`` holds the H100
+SXM data sheet's figures, dense rates without sparsity at the card's
+full 700 W; a card set to a lower power limit runs below them.  Every
+term is therefore a data-sheet bound, not a measurement.
 """
 from __future__ import annotations
 
@@ -31,9 +32,9 @@ class HW:
     link_bw: float = 450e9           # bytes/s of NVLink, each way, per card
     # bytes/s of the host NIC a card is charged across hosts: a DGX H100
     # has one 400 Gb/s NDR InfiniBand adapter a GPU (NVIDIA DGX H100
-    # user guide, "network ports": 8 x single-port ConnectX-7).  Nothing
-    # reads it: roofline_terms, the reference's, charges every
-    # collective (the "pod" axis's too) to link_bw
+    # user guide, "network ports": 8 x single-port ConnectX-7).
+    # roofline_terms, the reference's, charges every collective to
+    # link_bw; collective_terms charges the "pod" axis's bytes here
     dcn_bw: float = 50e9
     hbm_bytes: float = 80e9          # device memory, per card
 
@@ -58,6 +59,17 @@ def roofline_terms(*, hlo_flops: float, hlo_bytes: float,
         # dominant term allows
         out["roofline_frac"] = (model_flops / chips / hw.peak_flops) / bound
     return out
+
+
+def collective_terms(coll_by_axis: dict, hw: HW = HW()) -> dict:
+    """Seconds of each mesh axis's collective operand bytes
+    (``roofline/trace.py``'s ``coll_by_axis``): the ``"pod"`` axis,
+    which spans hosts, at ``dcn_bw``, every other axis at ``link_bw``;
+    and their sum."""
+    out = {axis: sum(by.values()) / (hw.dcn_bw if axis == "pod"
+                                     else hw.link_bw)
+           for axis, by in coll_by_axis.items()}
+    return {"by_axis_s": out, "collective_s": sum(out.values())}
 
 
 def model_flops_estimate(cfg, shape, *, mode: str) -> float:

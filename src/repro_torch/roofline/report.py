@@ -5,7 +5,8 @@ The reference's ``roofline/report.py`` on the port's records
 trace's (``t_trace_s``) where a record has one, then a table of what
 only the port's records hold (where the fake tensors lived, whether the
 rank fits the card, what the reference's specs would place, the bytes
-sent, the kernel calls) and one of both meshes side by side.
+sent, the kernel calls), the collectives by mesh axis where the
+records hold them, and one of both meshes side by side.
 
   PYTHONPATH=src python -m repro_torch.roofline.report artifacts/dryrun_torch
 """
@@ -95,6 +96,26 @@ def port_table(recs, mesh: str):
     return "\n".join(rows)
 
 
+def axis_table(recs, mesh: str):
+    """Each traced cell's collective operands (GB) by mesh axis and
+    kind, and the bytes this rank sends over each axis (records of the
+    products split over model ranks; older records have neither)."""
+    rows = ["| arch | shape | axis | operands GB by kind | sent GB |",
+            "|---|---|---|---|---|"]
+    for r in recs:
+        if r.get("mesh") != mesh or r.get("skipped") or r.get("error"):
+            continue
+        by_axis = r.get("collective", {}).get("by_axis", {})
+        sent = r.get("sent_by_axis", {})
+        for axis in sorted(set(by_axis) | set(sent)):
+            kinds = " ".join(f"{k}:{v / 1e9:.3f}" for k, v in
+                             sorted(by_axis.get(axis, {}).items()) if v)
+            rows.append(f"| {r['arch']} | {r['shape']} | {axis} "
+                        f"| {kinds or '-'} "
+                        f"| {sent.get(axis, 0) / 1e9:.3f} |")
+    return "\n".join(rows)
+
+
 def brief_table(recs):
     """One row a cell, each column single pod / multi-pod: the rank's
     GiB, whether it fits, its collective GB, the dominant term and the
@@ -144,6 +165,9 @@ def main():
         if _traced(recs):
             print(f"\n## The port — mesh {mesh}\n")
             print(port_table(recs, mesh))
+            if any("by_axis" in r.get("collective", {}) for r in recs):
+                print(f"\n## Collectives by axis — mesh {mesh}\n")
+                print(axis_table(recs, mesh))
     if _traced(recs):
         print("\n## Both meshes (16x16 / 2x16x16)\n")
         print(brief_table(recs))

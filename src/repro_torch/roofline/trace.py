@@ -32,7 +32,15 @@ The :class:`Totals` keep the reference's field names:
   ``collective-permute``).  A point-to-point send counts as one
   ``collective-permute`` of its bytes (its receive is the peer's side
   of the pair); a broadcast as a ``collective-permute`` on its root
-  rank, which sends, and nothing elsewhere;
+  rank, which sends, and nothing elsewhere; the all-to-all that carries
+  ``core/mesh.py::reduce_scatter`` (the sums in rank order) as the
+  ``reduce-scatter`` it implements;
+* ``coll_by_axis``, ``coll_counts_by_axis``: the same operand bytes and
+  calls by the mesh axis whose process group carries them
+  (``core/mesh.py::group_axis``; ``"?"`` for a group no mesh axis
+  serves), then by kind: the model axis's reduce-scatters and
+  all-gathers of activations apart from the data axes' of parameters
+  and gradients;
 * ``kernels``: the calls of each of the port's kernel ops
   (``repro_torch::topk``, ``repro_torch::merge``), a field of the port's:
   the reference's Pallas calls are custom-calls inside its HLO;
@@ -74,7 +82,8 @@ _C10D = {
     "_reduce_scatter_base_": ("reduce-scatter", 1),
     "reduce_scatter_tensor_coalesced_": ("reduce-scatter", 1),
     "alltoall_": ("all-to-all", 1),
-    "alltoall_base_": ("all-to-all", 1),
+    # the port's one all-to-all carries core/mesh.py::reduce_scatter
+    "alltoall_base_": ("reduce-scatter", 1),
     "send": ("collective-permute", 0),
 }
 #: aten ops that read or write no tensor data
@@ -96,6 +105,8 @@ class Totals:
         default_factory=lambda: {o: 0.0 for o in COLL_OPS})
     coll_counts: dict = dataclasses.field(
         default_factory=lambda: {o: 0 for o in COLL_OPS})
+    coll_by_axis: dict = dataclasses.field(default_factory=dict)
+    coll_counts_by_axis: dict = dataclasses.field(default_factory=dict)
     kernels: dict = dataclasses.field(default_factory=dict)
     peak_device_bytes: int = 0
     argument_bytes: int = 0
@@ -196,6 +207,11 @@ class _Counter(TorchDispatchMode):
                 t.collective_bytes += b
                 t.coll_by_op[op] += b
                 t.coll_counts[op] += 1
+                axis = _axis_of(args)
+                by = t.coll_by_axis.setdefault(axis, {})
+                by[op] = by.get(op, 0) + b
+                n = t.coll_counts_by_axis.setdefault(axis, {})
+                n[op] = n.get(op, 0) + 1
             return out
         if ns == "repro_torch":
             t.kernels[name] = t.kernels.get(name, 0) + 1
@@ -208,6 +224,16 @@ class _Counter(TorchDispatchMode):
                 outs[0].dtype != args[0].dtype:
             t.convert_bytes += moved
         return out
+
+
+def _axis_of(args) -> str:
+    """The mesh axis whose group a ``c10d`` op was handed, or ``"?"``."""
+    import torch.distributed as dist
+    from repro_torch.core.mesh import group_axis
+    for a in args:
+        if isinstance(a, (dist.ProcessGroup, torch.ScriptObject)):
+            return group_axis(a) or "?"
+    return "?"
 
 
 def _group_rank(pg) -> int:

@@ -54,24 +54,32 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     this rank's rows (``data/pipeline.py::device_put_batch``).  The step
     then
 
-      * gathers every parameter whole before the forward
-        (``sharding.gather_leaf``) and puts the blocks back after the
-        backward;
+      * gathers every parameter over the data axes before the forward
+        (``sharding.gather_leaf(..., axes=FSDP_AXES)``) and puts the
+        blocks back after the backward: a leaf the specs put over
+        ``model`` stays this rank's model block;
       * divides each microbatch's cross-entropy by the whole
         microbatch's labelled tokens (the ranks' counts summed first,
         so a mask that weights ranks unequally is counted right) and
         the auxiliary loss by the data ranks, so that the ranks' losses
         and gradients add up to the whole batch's;
-      * sums each gradient over the data ranks in rank order
-        (``sharding.reduce_leaf``: every rank the same bits) and cuts
-        it to this rank's block;
+      * sums each gradient over the data ranks in rank order and cuts it
+        to this rank's block of the data axes
+        (``sharding.reduce_leaf``: a reduce-scatter, every rank the same
+        bits);
       * clips by the norm over the group (``adamw.global_norm``) and
         runs AdamW on the blocks.
 
-    The model ranks of one data rank compute the same rows: the
-    products are not split over model ranks in this slice, so their
-    gradients are equal and only the data ranks' are summed.  The loss
-    is the sum over data ranks, the same bits on every rank.
+    The model ranks of one data rank compute the same rows, each with
+    its blocks: the products run split over the model ranks
+    (``models/layers.py``), which exchange only activations, each
+    collective paired with its conjugate in the backward.  So a model
+    block's gradient is the block's own, and a leaf whole over
+    ``model`` gets the same gradient bits on every model rank (a whole
+    ``w_k`` / ``w_v`` that the rank cuts to the KV heads it computes
+    gets partial gradients, summed over the model ranks in the
+    backward).  The loss is the sum over data ranks, the same bits on
+    every rank.
     """
     from repro_torch.models import layers as L
     over_ranks = mesh is not None and mesh.multi_rank
@@ -112,7 +120,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         blocks = [p.data for p in leaves]
         if over_ranks:
             for n, p in zip(names, leaves):
-                p.data = S.gather_leaf(p.data, specs[n], mesh)
+                p.data = S.gather_leaf(p.data, specs[n], mesh,
+                                       axes=S.FSDP_AXES)
         try:
             with L.use_mesh(mesh):
                 if microbatches == 1:
@@ -201,28 +210,30 @@ def make_serve_step(cfg: ModelConfig, mesh, *, k: int = 20,
     ``lax.top_k``'s.  Both launch the top-k (and FD the merge) kernel
     on the card.  ``noise`` (B, k) replaces the draw from ``gen``.
     ``serve_step.select(scores)`` is that top-k alone, of (B, V_pad)
-    f32 scores: (vals, idx).  ``mesh`` is current for the decode step
+    f32 scores (over model ranks, this rank's (B, V_pad / ranks)
+    block): (vals, idx).  ``mesh`` is current for the decode step
     (``layers.use_mesh``), so MoE dispatches per data shard.
 
     Over a mesh whose axes span ranks, ``state`` and ``tokens`` hold
     this rank's rows of the batch (its data block), the parameters are
-    whole on every rank, and each model rank hands the FD rounds its
-    block of the vocabulary columns (its model peers' shards; every
-    model rank computes the whole logits in this slice).  The FD top-k
-    runs across the model ranks of this data rank (``core/fd.py``), and
-    every model rank gets the same values (and, under halving, the same
-    indices).  The noise is drawn for the whole batch from ``gen`` (the
-    same seed on every rank) and each rank keeps its rows, so the
-    tokens are the one-process run's.
+    this rank's model blocks (whole over the data axes), and the step's
+    logits are this rank's block of the vocabulary columns (its model
+    peers' shards), which ``select`` hands the FD rounds as they are.
+    The FD top-k runs across the model ranks of this data rank
+    (``core/fd.py``), and every model rank gets the same values (and,
+    under halving, the same indices).  The noise is drawn for the whole
+    batch from ``gen`` (the same seed on every rank) and each rank keeps
+    its rows, so the tokens are the one-process run's but for the split
+    products' rounding.
     """
     from repro_torch.models import layers as L
     if algorithm not in ("fd", "cn", "cn_star"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     msize = mesh.shape.get("model", 1)
     over_ranks = mesh.multi_rank
-    ax = mesh.axis("model")
     rounds = (fd.schedule_rounds(schedule, msize, mesh.device,
-                                 ax if over_ranks else None)
+                                 mesh.axis("model") if over_ranks
+                                 else None)
               if msize > 1 and algorithm == "fd" else None)
     if over_ranks:
         from repro_torch.optim import sharding as S
@@ -230,10 +241,6 @@ def make_serve_step(cfg: ModelConfig, mesh, *, k: int = 20,
 
     def select(scores):
         if msize > 1:
-            if ax.ranks > 1:
-                part = scores.shape[-1] // ax.ranks
-                scores = scores.narrow(-1, ax.index * part,
-                                       part).contiguous()
             return fd.fd_topk(scores, k, mesh, "model", schedule=schedule,
                               algorithm=algorithm, rounds=rounds)
         return local_topk(scores, k)

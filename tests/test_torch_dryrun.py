@@ -95,7 +95,10 @@ def test_full_size_decode_cell(runs, mesh_name):
     the dominant term, and the kernel calls FD's halving implies: one
     local top-k of the vocabulary block and a merge a round, log2(16)
     rounds over the 16 model ranks, then one broadcast of the answer
-    from the root (rank 0) to the other 15."""
+    from the root (rank 0) to the other 15; beside it the model axis's
+    sums of the products split over the 16 model ranks, their operands
+    and bytes as ``tools/chip_train_ranks.py::model_axis_events``
+    reckons them, and nothing over the data axes."""
     rec = runs["cells"]["decode"][mesh_name]
     rows = 128 // math.prod(n for a, n in W.MESHES[mesh_name].items()
                             if a != "model")
@@ -104,9 +107,17 @@ def test_full_size_decode_cell(runs, mesh_name):
     assert rec["flops"] > 0 and rec["hlo_bytes"] > 0
     assert rec["kernels"] == {"topk": 1, "merge": int(math.log2(16))}
     k, entry = 20, 4 + 4                   # an f32 value, an int32 owner
-    assert rec["collective"]["total"] == rows * k * entry
+    sys.path.insert(0, str(ROOT / "tools"))
+    import chip_train_ranks as CT
+    acts = CT.model_axis_bytes(CT.model_axis_events(
+        get_config("qwen1.5-0.5b"), "decode", rows, 32768, 16, 16), 16)
+    fd_bytes = rows * k * entry
+    assert rec["collective"]["by_axis"] == {"model": {
+        "collective-permute": fd_bytes, **acts["operands"]}}
+    assert rec["collective"]["total"] == fd_bytes + sum(
+        acts["operands"].values())
     assert rec["collective"]["counts"]["collective-permute"] == 1
-    assert rec["sent_bytes"] == 15 * rows * k * entry
+    assert rec["sent_bytes"] == 15 * fd_bytes + acts["sent"]
     assert rec["roofline"]["dominant"] == "memory_s"
     assert rec["roofline"]["chips"] == rec["world"]
     assert rec["memory"]["fits"] is True
@@ -115,9 +126,11 @@ def test_full_size_decode_cell(runs, mesh_name):
 
 
 def test_small_train_cell_sends_the_predicted_bytes(runs):
-    """A smoke-config train cell on the 256-rank world delivers exactly
-    the bytes ``tools/chip_train_ranks.py::predicted_bytes`` counts from
-    the specs: every leaf gathered, every gradient summed by gathering."""
+    """A smoke-config train cell (the dry run's full remat) on the
+    256-rank world delivers exactly the bytes ``tools/chip_train_ranks.py::
+    predicted_bytes`` counts from the specs and the config: every leaf
+    gathered over the data axes, every gradient reduce-scattered, the
+    model axis's sums of activations with the recompute's replays."""
     got = runs["cells"]["train"]
     rec = got["record"]
     assert rec["microbatches"] == W.SMALL_TRAIN[3]

@@ -175,6 +175,122 @@ def test_one_all_gather_over_a_fake_group():
     assert other == 0                  # a rank that only receives sends 0
 
 
+#: smoke train steps (2 microbatches) traced as rank 0 of a fake (data
+#: 2, model 4) world: (arch, rows a data rank, seq, remat); without
+#: remat, then under full and dots remat for each family whose
+#: recompute replays a different share of its forward's sums
+TP_STEPS = (("granite-moe-1b-a400m", 4, 32, "none"),
+            ("qwen2-0.5b", 4, 32, "none"),
+            ("whisper-large-v3", 4, 16, "none"),
+            ("qwen2-vl-72b", 2, 300, "none"))
+REMAT_STEPS = (("granite-moe-1b-a400m", 4, 32, "full"),
+               ("qwen2-0.5b", 4, 32, "dots"),
+               ("whisper-large-v3", 4, 16, "full"),
+               ("rwkv6-3b", 4, 32, "full"),
+               ("recurrentgemma-2b", 4, 32, "dots"),
+               ("moonshot-v1-16b-a3b", 4, 32, "full"))
+_TP_STEP = textwrap.dedent("""
+    import dataclasses, json, sys
+    import torch
+    sys.path.insert(0, "tools")
+    import chip_train_ranks as CT
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.data.pipeline import extra_model_inputs
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.train import place_blocks
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.roofline.trace import analyze
+    from repro_torch.runtime.steps import make_train_step
+    import numpy as np
+    out = {}
+    with D._fake_world(8) as group:
+        mesh = Mesh((2, 4), ("data", "model"), "cpu", group=group,
+                    ranks=(2, 4))
+        for arch, rows, seq, remat in %r:
+            cfg = smoke_config(get_config(arch))
+            # at least one remat group (recurrentgemma's is 3 layers)
+            cfg = dataclasses.replace(cfg, n_layers=max(
+                cfg.n_layers, len(cfg.mixer_pattern)))
+            params = M.init_params(torch.Generator().manual_seed(0), cfg,
+                                   max_seq=512, device="cpu")
+            specs = place_blocks(params, cfg, mesh)
+            opt = adamw_init(params, AdamWConfig())
+            step = make_train_step(cfg, AdamWConfig(), microbatches=2,
+                                   remat=remat, mesh=mesh, specs=specs)
+            raw = {"tokens": np.zeros((rows, seq), np.int32),
+                   "labels": np.zeros((rows, seq), np.int32)}
+            batch = {k: torch.from_numpy(v) for k, v in
+                     extra_model_inputs(cfg, raw).items()}
+            by_axis = CT.predicted_by_axis(params, specs, mesh, 2)
+            mesh.sent_by_axis = {a: 0 for a in mesh.axis_names}
+            t = analyze(step, params, opt, batch, device="cpu")
+            acts = CT.model_axis_bytes(CT.model_axis_events(
+                cfg, "train", rows, seq, 4, 4, microbatches=2,
+                remat=remat), 4)
+            plain = CT.model_axis_bytes(CT.model_axis_events(
+                cfg, "train", rows, seq, 4, 4, microbatches=2), 4)
+            out[f"{arch}/{remat}"] = [t.coll_by_axis,
+                                      dict(mesh.sent_by_axis), by_axis,
+                                      acts, plain["sent"]]
+    print(json.dumps(out))
+""") % (TP_STEPS + REMAT_STEPS,)
+
+
+@pytest.fixture(scope="module")
+def tp_steps():
+    out = subprocess.run([sys.executable, "-c", _TP_STEP], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stdout + out.stderr
+    import json
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _model_axis_bytes(got):
+    coll, sent, by_axis, acts, _ = got
+    want = dict(acts["operands"])
+    want["all-gather"] += 4
+    assert coll["model"] == want
+    assert sent["model"] == by_axis["model"] + acts["sent"]
+    assert sent["data"] == by_axis["data"] > 0
+    assert set(coll) == {"data", "model"}
+
+
+@pytest.mark.parametrize("arch", [a for a, _, _, _ in TP_STEPS])
+def test_model_axis_bytes_of_a_smoke_train_step(tp_steps, arch):
+    """A smoke train step over a fake (data 2, model 4) world: the
+    trace's model-axis operands, by kind, are the reckoned sums of the
+    products' activations (``tools/chip_train_ranks.py::
+    model_axis_events``; an all-reduce is a reduce-scatter of the
+    zero-padded tensor and an all-gather of its chunk) plus the
+    gradient norm's all-gather of one f32; the bytes this rank delivers
+    over each axis are the reckoned ones.  qwen2-0.5b's 14 heads do not
+    divide the 4 model ranks: its attention runs whole, and only its
+    FFN columns and vocabulary block split; qwen2-vl-72b's 300-token
+    rows hold 256 vision slots, so the lookup's sum runs."""
+    _model_axis_bytes(tp_steps[f"{arch}/none"])
+
+
+@pytest.mark.parametrize("step", REMAT_STEPS,
+                         ids=[f"{a}-{r}" for a, _, _, r in REMAT_STEPS])
+def test_model_axis_bytes_under_remat(tp_steps, step):
+    """The same under remat="full" / "dots": the backward's recompute of
+    each remat group replays its forward's model-axis sums and gathers
+    up to the last one a backward reads (``model_axis_events``' remat
+    rule): granite's expert gather (the combine reads it), qwen2-0.5b's
+    and whisper's attention sums but not their layers' closing FFN sum,
+    RWKV's channel-mix sum (``r * v`` reads it), recurrentgemma's
+    group of three layers (two RG-LRU, one attention), moonshot's shared
+    experts."""
+    arch, _, _, remat = step
+    got = tp_steps[f"{arch}/{remat}"]
+    _model_axis_bytes(got)
+    assert got[3]["sent"] > got[4]          # the recompute replays sums
+
+
 # --------------------------------------------------------------------------
 # analysis.py and report.py against the reference
 # --------------------------------------------------------------------------
@@ -268,3 +384,20 @@ def test_report_of_the_ports_records(tmp_path):
     assert brief[3] == ("| qwen2-0.5b | train_4k | 1.5 / - | True / - | "
                         f"3.000 / - | memory / - | {bound} / - |")
     assert brief[2].startswith("| qwen2-0.5b | decode_32k | - / 2.5 |")
+
+
+def test_report_of_collectives_by_axis():
+    """Records with the trace's collectives by axis: a row an axis, its
+    operands by kind in GB and the bytes sent over it."""
+    recs = _records()[:1]
+    recs[0]["collective"]["by_axis"] = {
+        "data": {"all-gather": 2e9, "reduce-scatter": 5e8},
+        "model": {"reduce-scatter": 4e9, "all-gather": 2.5e8}}
+    recs[0]["sent_by_axis"] = {"data": 1e9, "model": 7.5e9}
+    rows = R.axis_table(recs, "16x16").splitlines()
+    assert rows[2:] == [
+        "| qwen2-0.5b | train_4k | data | all-gather:2.000 "
+        "reduce-scatter:0.500 | 1.000 |",
+        "| qwen2-0.5b | train_4k | model | all-gather:0.250 "
+        "reduce-scatter:4.000 | 7.500 |"]
+    assert R.axis_table(recs, "2x16x16").count("\n") == 1

@@ -16,14 +16,17 @@ spawned by ``launch.ranks.spawn_ranks`` with a time limit).
 
 Bits: every rank ends with the same parameters and the same loss and
 norm bits, and the one-process (2, 1) and (2, 2) meshes give the same
-bits (the model axis changes no arithmetic in this slice).  The ranks
-are NOT bit-equal to the one-process mesh: a weight gradient sums the
-products of all of a microbatch's tokens in one GEMM on one process,
-and each rank's tokens first and then the ranks' sums over ranks, so
-the rounding differs; both are held to the reference within loss rtol
-1e-5 and parameters rtol 1e-4 / atol 1e-5, and to each other within
-the same.  Checkpoints are global leaves, so they restore across
-layouts bit for bit.
+bits (a model axis of virtual peers inside one process changes no
+arithmetic).  The ranks are NOT bit-equal to the one-process mesh: a
+weight gradient sums the products of all of a microbatch's tokens in
+one GEMM on one process, and each rank's tokens first and then the
+ranks' sums over ranks; over model ranks the products are split
+(attention heads, FFN columns, experts, the vocabulary block) and
+their partial results summed over the ranks
+(``tests/test_torch_model_ranks.py``), so the rounding differs; both
+are held to the reference within loss rtol 1e-5 and parameters rtol
+1e-4 / atol 1e-5, and to each other within the same.  Checkpoints are
+global leaves, so they restore across layouts bit for bit.
 """
 import os
 import re

@@ -55,8 +55,9 @@ def cells(out_path: str) -> None:
         mesh = make_production_mesh(group=group, device=device)
         params = D._init_params(cfg, 4096, device)
         specs = place_blocks(params, cfg, mesh)
-        predicted = chip_train_ranks.predicted_bytes(params, specs, mesh,
-                                                     microbatches=mb)
+        predicted = chip_train_ranks.predicted_bytes(
+            params, specs, mesh, microbatches=mb, cfg=cfg,
+            rows=batch // mesh.axis("data").ranks, seq=seq, remat="full")
         model = mesh.axis("model")
         out["production"] = {"ranks": dict(mesh.ranks),
                              "backend": dist.get_backend(model.group),

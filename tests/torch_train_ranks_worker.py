@@ -148,8 +148,8 @@ def decode(cfg, params, mesh, tokens, noise):
     ``make_serve_step``; returns every data rank's tokens gathered."""
     with L.use_mesh(mesh):
         last, pstate = M.prefill(params, cfg, {"tokens": tokens})
+        tok = M.argmax_vocab(last, cfg)[:, None].to(torch.int32)
     state = state_from_prefill(cfg, pstate, DEC_PROMPT + DEC_GEN)
-    tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
     step = make_serve_step(cfg, mesh, k=DEC_K)
     out = [tok]
     for i in range(DEC_GEN - 1):
@@ -163,12 +163,14 @@ def decode(cfg, params, mesh, tokens, noise):
 
 def decode_ranks(rank, world, conf):
     """granite's smoke decode over a (2, 2) mesh of 4 ranks: each rank
-    its 2 rows of the prompt and of the reference's noise."""
+    its model blocks of the parameters and its 2 rows of the prompt and
+    of the reference's noise."""
     torch.set_num_threads(1)
     lay = conf["layout"]
     mesh = Mesh(lay, ("data", "model"), "cpu", group=dist.group.WORLD,
                 ranks=lay)
     cfg, params = init(conf["arch"])
+    place_blocks(params, cfg, mesh, axes=("model",))
     rows = S.shard_leaf(torch.arange(DEC_B), ("data",), mesh)
     tokens = torch.from_numpy(conf["tokens"])[rows]
     noise = torch.from_numpy(conf["noise"])[:, rows]

@@ -9,29 +9,37 @@ failed check raises.  ``tests/test_torch_train_ranks.py`` holds the same
 code paths to the reference on the CPU; ``conf["device"] = "cpu"`` runs
 this module there at a small ``conf``.
 
-(a) training: ``launch.train.build`` over the group at ``--model-par
-    2``, the (data 2, model 2) mesh, one peer a rank: each rank keeps
-    its blocks of granite-moe-1b-a400m at full size and takes
-    ``conf["steps"]`` steps of ``conf["batch"]`` x ``conf["seq"]``,
-    each timed with the card synchronised; its loss and norm bits, its
-    top-k launches a step, the bytes it delivered to other ranks a step
-    beside the count the specs predict (:func:`predicted_bytes`), its
+(a) training, at each (data, model) rank layout of ``conf["layouts"]``
+    ((2, 2) and (1, 4)): ``launch.train.build`` over the group at
+    ``--model-par`` the layout's model ranks, one peer a rank: each rank
+    keeps its blocks of granite-moe-1b-a400m at full size and takes
+    ``conf["steps"][layout]`` steps of ``conf["batch"]`` x
+    ``conf["seq"]``, each timed with the card synchronised; its loss
+    and norm bits, its top-k launches a step, the bytes it delivered to
+    other ranks a step by axis beside the count reckoned from the specs
+    and the config (:func:`predicted_by_axis`,
+    :func:`model_axis_events`), the
+    parameter bytes the step gathered beside the data-only reckoning
+    (each leaf's model block whole over the data axes), its
     ``max_memory_allocated``, and a digest of each block (the replicas
     of a leaf must agree bit for bit);
-(b) the same arch at full width and ``conf["xcheck_layers"]`` layers
-    in f32 with TF32 off: one step over the ranks, whose state the group
-    then checkpoints to ``conf["ckpt"]``; rank 0 takes the same step on
-    one process over a (2, 2) mesh of virtual peers (the same data
-    shards, so the same MoE capacity) and measures the relative error
-    of the loss and of the gradient's norm (AdamW's update does not
-    see the gradient's scale, so the norm is what holds the reduce's
-    sum over data ranks) and each parameter's relative L2 error after
-    the update;
+(b) at each layout, the same arch at full width and
+    ``conf["xcheck_layers"]`` layers in f32 with TF32 off: one step over
+    the ranks (the (2, 2) state then checkpointed to ``conf["ckpt"]``);
+    rank 0 takes the same step on one process over a mesh of virtual
+    peers of the same shape (the same data shards, so the same MoE
+    capacity) and measures the relative error of the loss and of the
+    gradient's norm (AdamW's update does not see the gradient's scale,
+    so the norm is what holds the reduce's sum over data ranks) and each
+    parameter's relative L2 error after the update;
 (c) ``serve decode`` (``launch.serve.decode_run``) over the group for
-    each arch of ``conf["decode_archs"]``: its tokens, seconds, launches
-    and delivered bytes.
+    each arch of ``conf["decode"]``, in the config's dtype and in f32
+    with TF32 off: its tokens, seconds, launches and delivered bytes;
+    in the config's dtype also this rank's blocks of the logits it
+    samples from (:func:`decode_logits`).
 """
 import dataclasses
+import math
 import time
 
 import torch
@@ -58,93 +66,338 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def predicted_bytes(params, specs, mesh, microbatches=1) -> int:
-    """The bytes this rank delivers to other ranks in one train step,
-    from the specs alone: each leaf gathered whole (each rank-spanning
-    axis of each dim in turn: the piece held so far, to every other rank
-    of the axis), each whole gradient (f32 under microbatches, else the
-    parameter's dtype) summed over the data ranks (gathered from every
-    one), the labelled-token counts and the loss over the data ranks,
-    and the norm's partial sum over each rank axis in turn."""
+def predicted_by_axis(params, specs, mesh, microbatches=1) -> dict:
+    """The bytes this rank delivers to other ranks in one train step over
+    each mesh axis, from the specs alone, apart from the model axis's
+    activations (:func:`model_axis_bytes`): each leaf gathered over the
+    data axes (each rank-spanning axis of each dim in turn: the piece
+    held so far, to every other rank of the axis); each gradient (f32
+    under microbatches, else the parameter's dtype; a model block whole
+    over the data axes) reduced over ``pod`` then ``data``, a
+    reduce-scatter ((n - 1) / n of it) where the spec cuts it over the
+    axis, else a reduce-scatter and an all-gather of its zero-padded
+    chunks; the labelled-token counts and the loss gathered over each
+    data axis in turn, and the norm's partial sum over every rank
+    axis."""
     from repro_torch.optim import sharding as S
-    rd = 1
-    for ax in S.rank_axes(mesh, S.FSDP_AXES):
-        rd *= ax.ranks
-    sent = 0
+    out = {a: 0 for a in mesh.axis_names}
+    data_axes = S.rank_axes(mesh, S.FSDP_AXES)
     for name, p in params.named_parameters():
+        spec = specs[name]
         piece = p.numel() * p.element_size()
-        for d, entry in enumerate(specs[name]):
+        whole = p.numel()
+        for entry in spec:
             for a in reversed(S._names(entry)):
-                if a in mesh.shape and mesh.axis(a).ranks > 1:
+                if a in S.FSDP_AXES and a in mesh.shape \
+                        and mesh.axis(a).ranks > 1:
                     r = mesh.axis(a).ranks
-                    sent += piece * (r - 1)
+                    out[a] += piece * (r - 1)
                     piece *= r
-        whole = 1
-        for n in S.global_shape(p.shape, specs[name], mesh):
-            whole *= n
+                    whole *= r
         size = 4 if microbatches > 1 else p.element_size()
-        sent += whole * size * (rd - 1)
-    sent += 4 * microbatches * (rd - 1) + 4 * (rd - 1)
-    sent += sum(4 * (ax.ranks - 1) for ax in S.rank_axes(mesh,
-                                                         mesh.axis_names))
-    return sent
+        named = {a for entry in spec for a in S._names(entry)}
+        cur = whole
+        for ax in data_axes:
+            n = ax.ranks
+            if ax.name in named:
+                out[ax.name] += cur * size * (n - 1) // n
+                cur //= n
+            else:
+                out[ax.name] += 2 * -(-cur // n) * (n - 1) * size
+    for ax in data_axes:
+        out[ax.name] += 4 * microbatches * (ax.ranks - 1) \
+            + 4 * (ax.ranks - 1)
+    for ax in S.rank_axes(mesh, mesh.axis_names):
+        out[ax.name] += 4 * (ax.ranks - 1)
+    return out
 
 
-def _train(rank, conf, dev):
+def model_axis_events(cfg, mode, rows, seq, msize, ranks,
+                      microbatches=1, remat="none") -> list:
+    """The model-axis collectives of one step's products, reckoned from
+    the config and the partition rules (``optim/sharding.py``'s
+    predicates), as ``(kind, elements, itemsize)``: ``"all-reduce"`` a
+    sum in rank order of a tensor every model rank holds
+    (``core/mesh.py::all_reduce``), ``"all-gather"`` the concatenation
+    of a block of that many elements.  ``mode``: ``"train"`` (forward
+    and backward of ``loss_fn`` on each microbatch of ``rows`` /
+    ``microbatches`` rows), ``"decode"`` (one token) or ``"prefill"``;
+    ``msize`` model peers over ``ranks`` model ranks.  Empty over one
+    rank.
+
+    Under ``remat`` ``"full"`` or ``"dots"`` the backward recomputes
+    each group of ``len(cfg.mixer_pattern)`` decoder layers
+    (``models/transformer.py::stack_apply``; the remainder layers, the
+    encoder, the lookup and the loss are not wrapped), and the recompute
+    replays the group's forward collectives in their order up to the
+    last one whose output a backward reads: torch's checkpoint stops
+    recomputing once every saved tensor is back, so the sum that closes
+    the group's last FFN (``apply_ffn``'s, which only a residual add
+    reads) is not replayed, while a sum that a later product or norm
+    reads is."""
+    from repro_torch.models.model import DTYPES
+    from repro_torch.optim import sharding as S
+    if ranks == 1:
+        return []
+    m = msize
+    e = DTYPES[cfg.param_dtype].itemsize
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    train = mode == "train"
+    b = rows // microbatches if train else rows
+    s = 1 if mode == "decode" else seq
+    ev = []
+    fwd = []           # the forward events of the layer being reckoned
+    tail = [False]     # whether fwd ends with an FFN's closing sum
+
+    def ar(n, size=e, back=False, closing=False):
+        if not back or train:
+            ev.append(("all-reduce", n, size))
+        if not back:
+            fwd.append(("all-reduce", n, size))
+            tail[0] = closing
+
+    def ag(n, back=False):
+        ev.append(("all-gather", n, e))
+        if not back:
+            fwd.append(("all-gather", n, e))
+            tail[0] = False
+
+    def split(kind, name, n):
+        return S.splits_over_model(kind, name, cfg, m, n)
+
+    def attn(t, src=None):
+        if not S.heads_split(cfg, m):
+            return
+        ar(t * d)                                  # w_o's sum
+        ar(t * d, back=True)                       # copy_to_model(x)
+        if src is not None:
+            ar(src * d, back=True)                 # copy_to_model(enc)
+        if not S.kv_split(cfg, m):
+            n_kv = cfg.n_kv_heads * hd
+            for _ in ("w_k", "w_v"):
+                ar(d * n_kv, back=True)
+            if cfg.qkv_bias:
+                for _ in ("b_k", "b_v"):
+                    ar(n_kv, back=True)
+
+    def ffn(t):
+        if cfg.moe is not None:
+            mo = cfg.moe
+            if split("moe", "w_up", mo.n_experts):
+                cap = math.ceil(t * mo.top_k / mo.n_experts
+                                * mo.capacity_factor)
+                block = mo.n_experts // ranks * cap * d
+                ag(block)                                   # ye
+                if train:
+                    ag(block, back=True)                    # buf
+            fs = mo.d_expert * mo.n_shared_experts
+            if fs and split("ffn", "w_up", fs):
+                ar(t * d, closing=True)
+                ar(t * d, back=True)
+            return
+        if split("ffn", "w_k" if cfg.act == "rwkv_channel_mix"
+                 else "w_up", cfg.d_ff):
+            # the channel mix's r * v reads its sum
+            ar(t * d, closing=cfg.act != "rwkv_channel_mix")
+            ar(t * d, back=True)
+
+    def mixer(kind, t):
+        if kind == "attn" and cfg.attn_kind != "mla":
+            attn(t)
+        elif kind == "rglru" and split("rglru", "w_x",
+                                       cfg.recurrent.lru_width or d):
+            ar(t * d)
+            ar(t * d, back=True)
+
+    kinds = cfg.layer_kinds()
+    glen = len(cfg.mixer_pattern)
+    grouped = (len(kinds) // glen * glen
+               if train and remat in ("full", "dots") else 0)
+    for _ in range(microbatches if train else 1):
+        t = b * s
+        vocab = split("top", "embed", cfg.padded_vocab())
+        n_vis = min(256, seq) if cfg.mrope_sections is not None \
+            and mode != "decode" else 0
+        if vocab and n_vis < s:
+            ar(t * d)                              # the lookup's sum
+        if cfg.is_encoder_decoder and mode != "decode":
+            for _ in range(cfg.n_encoder_layers):
+                attn(b * cfg.encoder_seq)
+                ffn(b * cfg.encoder_seq)
+        for i, kind in enumerate(kinds):
+            if i % glen == 0:
+                fwd.clear()
+                tail[0] = False
+            mixer(kind, t)
+            if cfg.is_encoder_decoder:
+                if mode == "decode":
+                    if S.heads_split(cfg, m):
+                        ar(t * d)
+                else:
+                    attn(t, b * cfg.encoder_seq)
+            ffn(t)
+            if i < grouped and i % glen == glen - 1:
+                ev.extend(fwd[:-1] if tail[0] else fwd)    # the recompute
+        if vocab and train:
+            ar(t * d, back=True)                   # copy_to_model(h)
+            wide = max(e, 4)
+            for _ in ("max", "sumexp", "picked"):
+                ar(t, wide)
+    return ev
+
+
+def model_axis_bytes(events, ranks) -> dict:
+    """From :func:`model_axis_events` over ``ranks`` model ranks: the
+    bytes this rank delivers (``"sent"``) and the collectives' operand
+    bytes by kind as ``roofline/trace.py`` counts them (an all-reduce is
+    a reduce-scatter of the zero-padded tensor and an all-gather of its
+    chunk)."""
+    n = ranks
+    sent, ops = 0, {"reduce-scatter": 0, "all-gather": 0}
+    for kind, numel, size in events:
+        if kind == "all-reduce":
+            chunk = -(-numel // n)
+            sent += 2 * chunk * (n - 1) * size
+            ops["reduce-scatter"] += chunk * n * size
+            ops["all-gather"] += chunk * size
+        else:
+            sent += numel * (n - 1) * size
+            ops["all-gather"] += numel * size
+    return {"sent": sent, "operands": ops}
+
+
+def predicted_bytes(params, specs, mesh, microbatches=1, cfg=None,
+                    rows=None, seq=None, remat="none") -> int:
+    """The bytes this rank delivers to other ranks in one train step:
+    :func:`predicted_by_axis` over every axis, plus, given the config
+    and this rank's ``rows`` x ``seq`` batch, the model axis's
+    activations under ``remat`` (:func:`model_axis_bytes`)."""
+    total = sum(predicted_by_axis(params, specs, mesh,
+                                  microbatches).values())
+    if cfg is not None:
+        ax = mesh.axis("model")
+        total += model_axis_bytes(model_axis_events(
+            cfg, "train", rows, seq, ax.size, ax.ranks, microbatches,
+            remat), ax.ranks)["sent"]
+    return total
+
+
+def _train(rank, conf, dev, layout):
     from repro_torch.data.pipeline import device_put_batch
     from repro_torch.kernels import _build
     from repro_torch.launch import train
+    from repro_torch.optim import sharding as S
     group = dist.group.WORLD
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     cfg, mesh, params, opt, step_fn, data = train.build(
         conf["arch"], smoke=conf.get("smoke", False), batch=conf["batch"],
-        seq=conf["seq"], model_par=2, microbatches=1, remat="none",
-        lr=3e-4, steps=conf["steps"], device=dev, group=group)
+        seq=conf["seq"], model_par=layout[1], microbatches=1, remat="none",
+        lr=3e-4, steps=conf["steps"][layout], device=dev, group=group)
     _sync(dev)
     build_s = time.perf_counter() - t0
-    _require(mesh.shape == {"data": 2, "model": 2}
-             and mesh.ranks == {"data": 2, "model": 2},
-             f"rank {rank}: mesh {mesh}")
+    _require(tuple(mesh.shape.values()) == layout
+             and tuple(mesh.ranks.values()) == layout,
+             f"rank {rank}: mesh {mesh}, want {layout}")
     specs = step_fn.specs
-    predicted = predicted_bytes(params, specs, mesh)
-    losses, norms, step_s, sent, launches = [], [], [], [], []
-    for i in range(conf["steps"]):
-        batch = device_put_batch(data.batch_at(i), mesh)
-        _sync(dev)
-        dist.barrier()
-        _build.reset_launches()
-        before = mesh.sent_bytes
-        t0 = time.perf_counter()
-        params, opt, m = step_fn(params, opt, batch)
-        _sync(dev)
-        step_s.append(time.perf_counter() - t0)
-        sent.append(mesh.sent_bytes - before)
-        launches.append(dict(_build.LAUNCHES))
-        losses.append(m["loss"].item())
-        norms.append(m["grad_norm"].item())
+    by_axis = predicted_by_axis(params, specs, mesh)
+    ax = mesh.axis("model")
+    rows = conf["batch"] // layout[0]
+    acts = model_axis_bytes(model_axis_events(
+        cfg, "train", rows, conf["seq"], ax.size, ax.ranks), ax.ranks)
+    predicted = {a: by_axis[a] + (acts["sent"] if a == "model" else 0)
+                 for a in by_axis}
+    # the parameters a step holds gathered: each leaf's model block,
+    # whole over the data axes (the data-only reckoning), against the
+    # whole parameters
+    reckoned_gather = sum(
+        math.prod(S.global_shape(p.shape, tuple(
+            e if any(a in S.FSDP_AXES for a in S._names(e)) else None
+            for e in specs[n]), mesh)) * p.element_size()
+        for n, p in params.named_parameters())
+    whole_bytes = sum(math.prod(S.global_shape(p.shape, specs[n], mesh))
+                      * p.element_size()
+                      for n, p in params.named_parameters())
+    gathered = [0]
+    plain_gather = S.gather_leaf
+
+    def counting_gather(block, spec, mesh_, axes=None):
+        out = plain_gather(block, spec, mesh_, axes=axes)
+        gathered[0] += out.numel() * out.element_size()
+        return out
+    losses, norms, step_s, sent, launches, got_gather = ([], [], [], [], [],
+                                                         [])
+    S.gather_leaf = counting_gather
+    try:
+        for i in range(conf["steps"][layout]):
+            batch = device_put_batch(data.batch_at(i), mesh)
+            _sync(dev)
+            dist.barrier()
+            _build.reset_launches()
+            before = dict(mesh.sent_by_axis)
+            gathered[0] = 0
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            _sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            sent.append({a: mesh.sent_by_axis[a] - before[a]
+                         for a in before})
+            got_gather.append(gathered[0])
+            launches.append(dict(_build.LAUNCHES))
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+    finally:
+        S.gather_leaf = plain_gather
+    trace = None
+    if conf.get("trace") and layout == (2, 2):
+        # one more step traced (phase 17's fake trace of it is the peer)
+        from repro_torch.roofline.trace import analyze
+        totals = analyze(step_fn, params, opt,
+                         device_put_batch(data.batch_at(0), mesh),
+                         device=dev.type)
+        trace = {"flops": totals.flops,
+                 "bytes_accessed": totals.bytes_accessed,
+                 "kernels": totals.kernels,
+                 "coll_by_axis": totals.coll_by_axis}
     want = {"topk": cfg.n_layers, "topk_select": 0, "merge": 0}
     for i, got in enumerate(launches):
         got = {k: got[k] for k in want}
         _require(dev.type != "cuda" or got == want,
                  f"rank {rank} step {i}: launches {got}, want {want}")
-    import math
     _require(all(math.isfinite(x) for x in losses + norms),
              f"rank {rank}: losses {losses}, norms {norms}")
     out = {"losses": losses, "grad_norms": norms, "step_s": step_s,
            "sent_bytes": sent, "predicted_bytes": predicted,
+           "model_axis_operands": acts["operands"],
+           "gathered_bytes": got_gather,
+           "reckoned_gather_bytes": reckoned_gather,
+           "whole_param_bytes": whole_bytes,
            "launches": launches, "build_s": build_s,
            "coord": (mesh.axis("data").index, mesh.axis("model").index),
            "digests": {n: digest(p) for n, p in params.named_parameters()},
-           "specs": specs, "n_layers": cfg.n_layers}
+           "specs": specs, "n_layers": cfg.n_layers, "trace": trace}
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     return out
 
 
-def _xcheck(rank, conf, dev):
-    """(b): the f32 step over the ranks against one process."""
-    from repro_torch.ckpt.checkpoint import save
+def _f32(conf):
+    """The arch at full width and ``conf["xcheck_layers"]`` layers in
+    f32."""
     from repro_torch.configs.base import get_config, smoke_config
+    base = get_config(conf["arch"])
+    if conf.get("smoke"):
+        base = smoke_config(base)
+    return dataclasses.replace(base, n_layers=conf["xcheck_layers"],
+                               param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def _xcheck(rank, conf, dev, layout):
+    """(b): the f32 step over the ranks at ``layout`` against one
+    process; the (2, 2) state is checkpointed."""
+    from repro_torch.ckpt.checkpoint import save
     from repro_torch.core.mesh import Mesh
     from repro_torch.data.pipeline import SyntheticLM, device_put_batch
     from repro_torch.launch.train import place_blocks
@@ -152,20 +405,15 @@ def _xcheck(rank, conf, dev):
     from repro_torch.optim import sharding as S
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.runtime.steps import make_train_step
-    base = get_config(conf["arch"])
-    if conf.get("smoke"):
-        base = smoke_config(base)
-    cfg = dataclasses.replace(base, n_layers=conf["xcheck_layers"],
-                              param_dtype="float32",
-                              compute_dtype="float32")
+    cfg = _f32(conf)
     ocfg = AdamWConfig(lr=3e-4, total_steps=2, warmup_steps=1)
     raw = SyntheticLM(cfg.vocab_size, conf["seq"], conf["batch"],
                       seed=4).batch_at(0)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        mesh = Mesh((2, 2), ("data", "model"), dev,
-                    group=dist.group.WORLD, ranks=(2, 2))
+        mesh = Mesh(layout, ("data", "model"), dev,
+                    group=dist.group.WORLD, ranks=layout)
 
         def model():
             return M.init_params(torch.Generator(dev).manual_seed(0), cfg,
@@ -180,18 +428,20 @@ def _xcheck(rank, conf, dev):
         loss, norm = m["loss"].item(), m["grad_norm"].item()
         whole = {n: S.gather_leaf(p.detach(), specs[n], mesh)
                  for n, p in params.named_parameters()}
-        save(conf["ckpt"], 1, (params, opt), mesh=mesh, specs=specs)
-        saved = {"params": {n: digest(t) for n, t in whole.items()},
-                 "m": {n: digest(S.gather_leaf(t, specs[n], mesh))
-                       for n, t in opt.m.items()},
-                 "v": {n: digest(S.gather_leaf(t, specs[n], mesh))
-                       for n, t in opt.v.items()}}
+        out = {"loss": loss, "grad_norm": norm}
+        if layout == (2, 2):
+            save(conf["ckpt"], 1, (params, opt), mesh=mesh, specs=specs)
+            out["saved"] = {
+                "params": {n: digest(t) for n, t in whole.items()},
+                "m": {n: digest(S.gather_leaf(t, specs[n], mesh))
+                      for n, t in opt.m.items()},
+                "v": {n: digest(S.gather_leaf(t, specs[n], mesh))
+                      for n, t in opt.v.items()}}
         del params, opt
-        out = {"loss": loss, "grad_norm": norm, "saved": saved}
         dist.barrier()
         if rank == 0:
             one = model()
-            vmesh = Mesh((2, 2), ("data", "model"), dev)
+            vmesh = Mesh(layout, ("data", "model"), dev)
             step1 = make_train_step(cfg, ocfg, remat="none", mesh=vmesh)
             one, _, m1 = step1(one, adamw_init(one, ocfg),
                                device_put_batch(raw, dev))
@@ -215,19 +465,13 @@ def restore_onto(rank, world, conf):
     """The f32 checkpoint of (b) restored onto this group's (world, 1)
     mesh; digests of the whole leaves."""
     from repro_torch.ckpt.checkpoint import restore
-    from repro_torch.configs.base import get_config, smoke_config
     from repro_torch.core.mesh import Mesh
     from repro_torch.launch.train import place_blocks
     from repro_torch.models import model as M
     from repro_torch.optim import sharding as S
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     dev = _device(conf)
-    base = get_config(conf["arch"])
-    if conf.get("smoke"):
-        base = smoke_config(base)
-    cfg = dataclasses.replace(base, n_layers=conf["xcheck_layers"],
-                              param_dtype="float32",
-                              compute_dtype="float32")
+    cfg = _f32(conf)
     mesh = Mesh((world, 1), ("data", "model"), dev,
                 group=dist.group.WORLD, ranks=(world, 1))
     params = M.init_params(torch.Generator(dev).manual_seed(1), cfg,
@@ -244,18 +488,90 @@ def restore_onto(rank, world, conf):
             "step": int(opt.step)}
 
 
-def _decode(rank, argv, dev):
+def _decode(rank, argv, dev, dtype=None):
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import decode_run
     _sync(dev)
     dist.barrier()
     _build.reset_launches()
-    out = decode_run(argv, group=dist.group.WORLD)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = dtype is None and tf32
+    try:
+        out = decode_run(argv, group=dist.group.WORLD, dtype=dtype)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     _sync(dev)
     return {"tokens": out["tokens"], "t_prefill": out["t_prefill"],
             "t_decode": out["t_decode"],
             "sent_bytes": out["mesh"].sent_bytes,
+            "sent_by_axis": dict(out["mesh"].sent_by_axis),
             "launches": dict(_build.LAUNCHES)}
+
+
+def decode_logits(argv, dev, group=None, blocks=1):
+    """The logits ``serve decode`` of ``argv`` computes before it
+    samples, in the config's dtype, on ``decode_run``'s weights and
+    prompt: the prompt's last logits and the first step's logits (the
+    step fed the prompt's first token, so every side feeds the same
+    one).  Over a group, this rank's rows and vocabulary block on its
+    model blocks; else, without ``group``, the whole batch and
+    vocabulary on the whole weights, ``blocks`` data blocks of rows one
+    at a time (MoE dispatches per data shard, as over the data ranks),
+    in the config's dtype and, as ``"wide"``, on the same weights in
+    the next wider dtype (f32 with TF32 off for bf16, f64 for f32).
+    Numpy f32."""
+    import numpy as np
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import _decode_args, state_from_prefill
+    from repro_torch.launch.train import place_blocks
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.optim import sharding as S
+    args = _decode_args(argv)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    s_max = args.prompt_len + args.gen
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                           max_seq=s_max, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32))
+    mesh, rows = None, torch.arange(args.batch)
+    if group is not None:
+        mesh = make_host_mesh(model=args.model_par, device=dev, cfg=cfg,
+                              group=group, model_ranks=args.model_ranks)
+        place_blocks(params, cfg, mesh, axes=("model",))
+        rows = S.shard_leaf(rows, ("data",), mesh)
+
+    def logits(params, cfg):
+        out = {"last": [], "first": []}
+        for part in rows.chunk(blocks):
+            batch = {"tokens": tokens[part].to(dev)}
+            with L.use_mesh(mesh):
+                last, pst = M.prefill(params, cfg, batch)
+                state = state_from_prefill(cfg, pst, s_max)
+                first, _ = M.decode_step(params, cfg, state,
+                                         batch["tokens"][:, :1])
+            out["last"].append(last.float().cpu().numpy())
+            out["first"].append(first[:, 0].float().cpu().numpy())
+        return {k: np.concatenate(v) for k, v in out.items()}
+
+    out = logits(params, cfg)
+    out["rows"] = rows.numpy()
+    if mesh is not None:
+        out["model_index"] = mesh.axis("model").index
+        return out
+    wide = "float64" if cfg.compute_dtype == "float32" else "float32"
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out["wide"] = logits(params.to(getattr(torch, wide)),
+                             dataclasses.replace(cfg, param_dtype=wide,
+                                                 compute_dtype=wide))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
 
 
 def _device(conf):
@@ -270,18 +586,33 @@ def _device(conf):
     return dev
 
 
+def _free(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def run(rank: int, world: int, conf: dict) -> dict:
-    """Phase 16 on this rank: (a), (b), (c)."""
+    """Phase 16 on this rank: (a) and (b) at each layout of
+    ``conf["layouts"]``, then (c), each decode in the config's dtype and
+    in f32 (TF32 off)."""
     dev = _device(conf)
     t0 = time.perf_counter()
-    out = {"train": _train(rank, conf, dev)}
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    out["xcheck"] = _xcheck(rank, conf, dev)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    out["decode"] = {arch: _decode(rank, argv, dev)
-                     for arch, argv in conf["decode"].items()}
+    out = {"train": {}, "xcheck": {}, "decode": {}, "decode_f32": {}}
+    for lay in conf["layouts"]:
+        out["train"][lay] = _train(rank, conf, dev, lay)
+        if out["train"][lay]["trace"] is not None:
+            out["trace"] = out["train"][lay]["trace"]
+        _free(dev)
+        out["xcheck"][lay] = _xcheck(rank, conf, dev, lay)
+        _free(dev)
+    for arch, argv in conf["decode"].items():
+        out["decode"][arch] = _decode(rank, argv, dev)
+        _free(dev)
+        out["decode"][arch]["logits"] = decode_logits(
+            argv, dev, group=dist.group.WORLD)
+        _free(dev)
+        out["decode_f32"][arch] = _decode(rank, argv, dev, "float32")
+        _free(dev)
     out["seconds"] = time.perf_counter() - t0
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
