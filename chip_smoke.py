@@ -92,11 +92,12 @@ result line) when any phase fails:
      ``run_s`` in f64 / f32 / bf16; the 1,000,000-peer star with an
      int32 plan in f32 (tolerance contract, build and run seconds);
   9. a live overlay (the reference's full-size ``overlay_dynamics``
-     workload: hierarchical, 100,000 peers, seed 7, 16 cached origins):
+     workload: hierarchical, 100,000 peers, seed 7; cut to 4 cached
+     origins of its 16 and one session of its three, for time):
      a ``SimEngine`` bound to an ``Overlay`` on the card, then one
-     leave, one join and random sessions of 2, 8 and 32 events, each
+     leave, one join and a random session of 32 events, each
      followed by a timed incremental ``plan.sync()`` and a drained
-     ``QueryServer`` batch (fd-dynamic over the 16 origins, 4 of them at
+     ``QueryServer`` batch (fd-dynamic over the 4 origins, 2 of them at
      lifetime 60 s, one fd-st1+2, and after each session one request
      from a departed peer); every served answer equal, bit for bit, to
      a card engine on a plan rebuilt from scratch (timed, with its
@@ -109,11 +110,11 @@ result line) when any phase fails:
      at the synced plan's shapes;
   10. the serving CLI as a user starts it,
      ``repro_torch.launch.serve.main(["overlay", ...])`` in process
-     over 100,000-peer BA and hierarchical overlays on the card: 32
+     over 100,000-peer BA and hierarchical overlays on the card: 16
      requests (fd-dynamic and cn) from 8 clients all served, none shed,
      timed out or failed, the merge, arrivals and wait kernels launched,
      throughput and p50 / p95 / p99 printed beside the card; then entry
-     sharding on the phase-3 overlay: 32 independent fd-dynamic entries
+     sharding on the phase-3 overlay: 8 independent fd-dynamic entries
      in f64 and in validated f32 through ``SimEngine(shard=True)``
      (one card: the unsharded sweep, as in the reference) and through
      4 forced chunks of the card (f32 unvalidated), each equal to
@@ -153,7 +154,8 @@ result line) when any phase fails:
      of its 80 layers (145.46 GB in bf16 does not fit one card) through
      ``init_params``, ``prefill``, ``state_from_prefill`` and
      ``make_serve_step``: tokens (4, 16) inside the padded vocabulary,
-     top-k and merge launched on each of the 15 steps; prefill seconds,
+     top-k and merge launched on each of the 15 steps; at 8 layers (8 +
+     8; cut for time) prefill seconds,
      synchronised steps, tok/s and a 2-step profiler window split into
      the model's and the sampling's device time with the idle share; an
      f32 cross-check at full width, card == CPU path within rtol 1e-4,
@@ -164,13 +166,15 @@ result line) when any phase fails:
   13. the last four archs on the card, each the same decode command at
      full size: granite-moe-1b-a400m (MoE, 32 experts, top-8) through
      ``serve.main(["decode", ...])``, moonshot-v1-16b-a3b (64 experts,
-     top-6, 2 shared; 57.78 GB in bf16), rwkv6-3b (RWKV-6) and
+     top-6, 2 shared; 24 of its 48 layers, for time: 28.9 of 57.78 GB
+     in bf16), rwkv6-3b (RWKV-6) and
      recurrentgemma-2b (RG-LRU and window attention, a 2,080-token
      prompt, so its 2,048-slot ring wraps while it decodes) through the
      CLI's functions: tokens (4, 16) inside the padded vocabulary,
      exactly 1 + (MoE layers) top-k and 4 merge launches a step (and a
      top-k a MoE layer in the prefill); recurrentgemma's rings holding
-     the last 2,048 positions after decode; prefill seconds, synchronised
+     the last 2,048 positions after decode; at 8 layers (cut for time)
+     prefill seconds, synchronised
      steps, tok/s and a 2-step profiler window with the idle share; each
      MoE router's top-k on the card bit-equal to ``topk_ref`` on the
      probabilities captured from one prefill and one decode step; an f32
@@ -186,12 +190,13 @@ result line) when any phase fails:
      AdamW moments, batch 8, seq 128): 20 steps with finite losses and
      exactly 24 top-k launches a step (the routers, through the top-k
      kernel with its new gradient), the checkpoint of step 20 restored
-     onto the card equal to the trained state bit for bit, a second
-     call to 24 steps resuming from step 20, and the checkpoint cycle
-     of ``--ckpt-every 5`` through the same CLI with ``--smoke`` (a
-     full-size checkpoint is 13.9 GB: the script writes two, 28 GB, not
-     the cycle's six, 83 GB): checkpoints 10, 15 and 20 kept (keep 3 across the forced
-     re-save, the repair of reference fault 3), then 15, 20 and 24;
+     onto the card equal to the trained state bit for bit, and the
+     checkpoint cycle of ``--ckpt-every 5`` through the same CLI with
+     ``--smoke`` (a full-size checkpoint is 13.9 GB: the script writes
+     one, not the cycle's six, 83 GB): checkpoints 10, 15 and 20 kept
+     (keep 3 across the forced re-save, the repair of reference fault
+     3), then a second call to 24 steps resuming from step 20 (at smoke
+     size only, cut for time) and 15, 20 and 24 kept;
      granite (the CLI's settings) and qwen2-0.5b (2 microbatches, remat
      ``"dots"``) timed over repeated-batch steps whose loss must fall,
      one profiled step each (kernels, device ms, idle share) and
@@ -265,6 +270,9 @@ result line) when any phase fails:
      and ``python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b
      --shape decode_32k`` as a process (exit 0, a top-k and 4 merges on
      fake card tensors, its record under ``artifacts/dryrun_torch``)
+     whose rank holds what ``decode_state_specs`` places of the decode
+     state (its caches' sequence over the 16 model ranks:
+     ``memory.cache_gib == memory.specs_cache_gib``),
      and a smoke-size granite train cell (full remat) on the 256-rank
      fake world on fake card tensors, whose bytes sent equal
      ``tools/chip_train_ranks.py::predicted_bytes`` with the
@@ -279,7 +287,8 @@ result line) when any phase fails:
      ``launch.train.build`` over the group keeps each rank's blocks of
      granite-moe-1b-a400m at full size (``optim/sharding.py::
      param_specs``; a leaf the specs put over ``model`` stays a block
-     through the step) for 3 steps at (2, 2) and 2 at (1, 4) of batch
+     through the step) for 2 steps at each layout ((2, 2) cut from 3
+     for time) of batch
      8, seq 128, every rank with the same loss and norm bits, each
      leaf's replicas (the replicated leaves across the model ranks too)
      equal bit for bit, exactly 24 top-k launches a step on each rank,
@@ -305,8 +314,26 @@ result line) when any phase fails:
      rounding (their L2 distance from f32 on the same weights) of their
      columns (the tokens' agreement with one process's printed: the
      split products round otherwise), the bytes across ranks by axis
-     and tok/s printed; its launches are the ``train_serve_ranks`` key
-     of ``launches_by_path``.
+     and tok/s printed; the same decodes over (1, 4) in f32 against one
+     process's decode of the whole batch (qwen2-0.5b's tokens equal;
+     for granite, one process in f32 and f64 fed the ranks' router
+     choices differs from them only where two experts tie (f64 margin
+     at most 3 times the margins' own f32 rounding) and the ranks'
+     logits blocks lie within 3 times one process's f32-f64 rounding
+     of its columns, the tokens' agreement printed: one process's f32
+     routers turn at such a tie); and ``TR_WIDE``'s decodes
+     over (1, 4), one vocabulary peer a rank, in f32 at full width and
+     cut depth (recurrentgemma-2b one mixer group with phase 13's
+     2,080-token prompt, its ring wrapping; minicpm3-4b 2 layers;
+     whisper-large-v3 2 + 2 layers) against one process.  With S_max 48
+     every decode's caches hold each rank's block of their sequence
+     (S_max, the window's 2,048 slots, whisper's 1,500 frames at 4
+     model peers) for every KV head: each rank's attention cache bytes
+     == ``chip_train_ranks.decode_state_layout``'s block, the caches
+     cut == those the rule cuts, and one more decode step's bytes ==
+     ``model_axis_events``
+     on the model axis and nothing on the data axis; its launches are
+     the ``train_serve_ranks`` key of ``launches_by_path``.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -419,23 +446,27 @@ def _profiled(body, tries=4):
 _MARKER = "spin_kernel"
 
 
-def _device_ms(fn, match=None, reps=10):
+def _device_ms(fn, match=None, reps=10, tries=3):
     """Device milliseconds of one call of ``fn``: the CUDA time of the
     kernels whose names hold one of ``match`` (all kernels when None),
     summed over one ``torch.profiler`` window around ``reps`` calls and
-    divided by ``reps``.  None when the profiler saw no such kernel."""
+    divided by ``reps``.  A window that saw no such kernel is taken
+    again, up to ``tries`` windows, then None."""
     from torch.autograd import DeviceType
     fn()
-    prof = _profiled(lambda: [fn() for _ in range(reps)])
-    us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or _MARKER in ev.key:
-            continue
-        if match is not None and not any(m in ev.key for m in match):
-            continue
-        us += getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0))
-    return us / 1e3 / reps if us > 0 else None
+    for _ in range(tries):
+        prof = _profiled(lambda: [fn() for _ in range(reps)])
+        us = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA or _MARKER in ev.key:
+                continue
+            if match is not None and not any(m in ev.key for m in match):
+                continue
+            us += getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            return us / 1e3 / reps
+    return None
 
 
 def _device_ms_each(fn, n_launch, match, reps=10, tries=3):
@@ -1953,14 +1984,17 @@ SPREAD_PEERS = 2_000
 # overlay_dynamics.py, incremental_sync_rows and churn_sweep_rows): a
 # hierarchical overlay of 100,000 peers, seed 7, SimParams(seed=0),
 # cached origins drawn by default_rng(11); one leave (a deep leaf,
-# "reconnect" repair), one join, then random sessions of 2, 8 and 32
-# events between syncs, here on one overlay
+# "reconnect" repair), one join, then a random session of 32 events
+# between syncs, here on one overlay.  Cut to fit the call's time: a hot
+# set of 4 origins (the reference's 16) and one session (its 2, 8 and
+# 32)
 OV_PEERS = 100_000
-OV_ORIGINS = 16
-OV_SESSIONS = (2, 8, 32)
+OV_ORIGINS = 4
+OV_SESSIONS = (32,)
 # how many of the hot set also get a churned request (phase 3b's heavy
-# churn, lifetime 60 s), and overlay_dynamics._parity's lifetime
-OV_CHURN_ORIGINS = 4
+# churn, lifetime 60 s; 2 of 4 here, 4 of 16 before the cut), and
+# overlay_dynamics._parity's lifetime
+OV_CHURN_ORIGINS = 2
 OV_PARITY_LIFETIME_S = 30.0
 
 
@@ -1999,8 +2033,9 @@ def _warm_hot_set(engine, origins):
 
 def _overlay_requests(origins, i, tomb):
     """Event ``i``'s requests: fd-dynamic on independent streams over the
-    hot set, four of them at lifetime 60 s, one fd-st1+2 and, where a
-    peer has left, one fd-dynamic request from it."""
+    hot set, ``OV_CHURN_ORIGINS`` of them at lifetime 60 s, one
+    fd-st1+2 and, where a peer has left, one fd-dynamic request from
+    it."""
     from repro_torch.engine import QuerySpec, get_policy
     churn = get_policy("fd-dynamic").variant(lifetime_mean_s=CHURN_HEAVY_S)
     seed = 3000 + 100 * i
@@ -2284,14 +2319,16 @@ def _overlay_on_card(dev, gen, errs, _build, origins, cpu_out, cpu_proc):
 
 # the CLI as a user starts it: two warm 100k-peer engines (BA, the
 # reference's jax_backend overlay, and hierarchical, the live-overlay
-# one), 32 requests from 8 closed-loop clients, fd-dynamic and cn
-# round-robin, on the card
-CLI_REQUESTS = 32
+# one), 16 requests (cut from 32 to fit the call's time) from 8
+# closed-loop clients, fd-dynamic and cn round-robin, on the card
+CLI_REQUESTS = 16
 CLI_ARGV = ["overlay", "--topology", "ba,hierarchical", "--n-peers",
             str(N_PEERS), "--requests", str(CLI_REQUESTS), "--concurrency",
             "8", "--policies", "fd-dynamic,cn", "--device", "cuda"]
-# the sharded sweep's forced chunks on one card: each chunk is one sweep
-# of E_MAIN / SHARD_CHUNKS entries under torch.cuda.device(0)
+# the sharded sweep's entries (cut from E_MAIN's 32 to fit the call's
+# time) and its forced chunks on one card: each chunk is one sweep of
+# SHARD_E / SHARD_CHUNKS entries under torch.cuda.device(0)
+SHARD_E = 8
 SHARD_CHUNKS = 4
 
 
@@ -2324,7 +2361,7 @@ def _cli(card, _build):
 
 
 def _shard(engine, p, dev, gen, errs, _build):
-    """``SimEngine(shard=True)`` on the phase-3 overlay: 32 independent
+    """``SimEngine(shard=True)`` on the phase-3 overlay: 8 independent
     fd-dynamic entries, f64 and validated f32, equal to ``shard=False``
     bit for bit; with one card ``shard=True`` is the unsharded sweep,
     so the same runs are repeated on ``SHARD_CHUNKS`` forced chunks of
@@ -2345,7 +2382,7 @@ def _shard(engine, p, dev, gen, errs, _build):
     }
     _require(engines["shard=True"]._shard is None or n_dev > 1,
              "shard=True split the entries over one card")
-    spec = QuerySpec(origins=(0,), n_trials=E_MAIN, seed=4242,
+    spec = QuerySpec(origins=(0,), n_trials=SHARD_E, seed=4242,
                      rng="independent")
     base, counts = {}, {}
     for name, eng in engines.items():
@@ -2365,7 +2402,7 @@ def _shard(engine, p, dev, gen, errs, _build):
                 tol = res.extras["tolerance"]
                 _require(tol["ok"] and tol == base[prec].extras["tolerance"],
                          f"{what}: tolerance {tol}")
-            print(f"[shard] {what}: {E_MAIN} entries in {wall:.3f} s host "
+            print(f"[shard] {what}: {SHARD_E} entries in {wall:.3f} s host "
                   f"wall (compile_s {res.compile_s:.3f})"
                   + ("" if name == "shard=False" else
                      "; values, indices, metrics == shard=False bit for bit"))
@@ -2377,7 +2414,7 @@ def _shard(engine, p, dev, gen, errs, _build):
     print("[shard] launches " + json.dumps(counts))
     st = engine.plan.origin_statics([0], p.ttl, "st1+2")[0][0]
     levels = _device_slices(engine.plan.depth_slices(st), dev)[0]
-    rows = E_MAIN // SHARD_CHUNKS
+    rows = SHARD_E // SHARD_CHUNKS
     n = 0
     for dt in (torch.float64, torch.float32):
         n += _check_levels("a chunk", levels, rows, dt, gen, dev, errs)
@@ -2821,6 +2858,17 @@ VAR_XCHECK = {"minicpm3-4b": (2, 0, DEC_B), "whisper-large-v3": (2, 2, DEC_B),
               VAR_VL: (1, 0, DEC_B)}
 # decode steps in each variant's profiled window
 VAR_PROFILE_STEPS = 2
+# the depth (decoder and encoder layers) of phases 12 and 13's timed and
+# profiled model (:func:`_decode_model`), cut to fit the call's time;
+# their CLI runs keep the arch's own depth
+MODEL_LAYERS = 8
+
+
+def _model_depth(cfg):
+    """``cfg`` with at most ``MODEL_LAYERS`` decoder and encoder layers."""
+    return dataclasses.replace(
+        cfg, n_layers=min(cfg.n_layers, MODEL_LAYERS),
+        n_encoder_layers=min(cfg.n_encoder_layers, MODEL_LAYERS))
 
 
 def _free_card():
@@ -2884,7 +2932,8 @@ def _variants(dev, card, errs, _build):
     cross attention, learned positions) through the decode CLI at full
     size, qwen2-vl-72b (M-RoPE, the vision stub) at full width and
     ``VAR_VL_LAYERS`` layers through the CLI's functions; each timed and
-    profiled (:func:`_decode_model`), held in f32 to the CPU path
+    profiled at ``MODEL_LAYERS`` layers (:func:`_decode_model`), held in
+    f32 to the CPU path
     (:func:`_decode_xcheck`) and its kernels to their plain versions at
     its shapes (:func:`_decode_kernels`).  Returns (launches by path,
     one step's f32 scores by arch)."""
@@ -2902,7 +2951,7 @@ def _variants(dev, card, errs, _build):
             launches[f"variants_{arch}"], _ = _decode_cli(card, _build, arch,
                                                           what)
         _free_card()
-        scores[arch], _ = _decode_model(dev, card, cfg, what,
+        scores[arch], _ = _decode_model(dev, card, _model_depth(cfg), what,
                                         VAR_PROFILE_STEPS)
         _free_card()
         layers, enc_layers, batch = VAR_XCHECK[arch]
@@ -2927,6 +2976,9 @@ def _variants(dev, card, errs, _build):
 ARCH_CLI = "granite-moe-1b-a400m"
 ARCHS = (ARCH_CLI, "moonshot-v1-16b-a3b", "rwkv6-3b", "recurrentgemma-2b")
 ARCH_PROMPT = {"recurrentgemma-2b": 2_080}
+# depths cut to fit the call's time (moonshot's 48 layers: 57.8 GB of
+# bf16 weights to make and a router a layer a step)
+ARCH_LAYERS = {"moonshot-v1-16b-a3b": 24}
 # the f32 cross-checks at full width, the card's f32 against the CPU
 # path in f64 (the exact function): at these widths the CPU's own f32
 # rounding is as large as the card's, and recurrentgemma's card-vs-CPU
@@ -3048,8 +3100,10 @@ def _check_window_wrapped(what, cfg, prompt):
 def _archs(dev, card, errs, _build):
     """Phase 13: granite-moe-1b-a400m through the decode CLI,
     moonshot-v1-16b-a3b, rwkv6-3b and recurrentgemma-2b (a 2,080-token
-    prompt) through the CLI's functions, all at full size; each checked
-    for its exact launches, timed and profiled (:func:`_decode_model`),
+    prompt) through the CLI's functions, at full size (moonshot at
+    ``ARCH_LAYERS``' depth); each checked
+    for its exact launches, timed and profiled at ``MODEL_LAYERS``
+    layers (:func:`_decode_model`),
     its routers' top-k held to ``topk_ref`` (MoE), held in f32 to the
     CPU path (:func:`_decode_xcheck`) and its sampling kernels to their
     plain versions (:func:`_decode_kernels`).  Returns (launches by path,
@@ -3061,6 +3115,8 @@ def _archs(dev, card, errs, _build):
         t0 = time.perf_counter()
         what = f"archs {arch}"
         cfg = get_config(arch)
+        if arch in ARCH_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=ARCH_LAYERS[arch])
         prompt = ARCH_PROMPT.get(arch, DEC_PROMPT)
         if arch == ARCH_CLI:
             n, _ = _decode_cli(card, _build, arch, what)
@@ -3072,9 +3128,10 @@ def _archs(dev, card, errs, _build):
         launches[f"decode_{arch}"] = n
         _check_arch_launches(what, cfg, n)
         _free_card()
+        mcfg = _model_depth(cfg)
         scores[arch], res = _decode_model(
-            dev, card, cfg, what, VAR_PROFILE_STEPS, prompt,
-            _router_check(what, cfg, errs) if cfg.moe else None)
+            dev, card, mcfg, what, VAR_PROFILE_STEPS, prompt,
+            _router_check(what, mcfg, errs) if cfg.moe else None)
         if cfg.moe:
             router[arch] = res["after"]
         del res
@@ -3096,16 +3153,16 @@ def _archs(dev, card, errs, _build):
 
 # the training CLI at full size (random bf16 weights from seed 0, f32
 # AdamW moments, SyntheticLM data): granite-moe-1b-a400m, 20 steps at
-# batch 8, seq 128, then a second call to 24 steps that resumes from
-# step 20; qwen2-0.5b through build() and make_train_step with 2
-# microbatches and remat "dots".  granite's state is 13.9 GB a
-# checkpoint, so each full-size call writes only its final checkpoint
-# (the CLI's default --ckpt-every 50 > 24; 28 GB to disk in all), and
-# the checkpoint cycle of --ckpt-every 5 (five writes, six with the
-# resume: 83 GB at full size) runs through the same CLI with --smoke
+# batch 8, seq 128; qwen2-0.5b through build() and make_train_step with
+# 2 microbatches and remat "dots".  granite's state is 13.9 GB a
+# checkpoint, so the full-size call writes only its final checkpoint
+# (the CLI's default --ckpt-every 50 > 20), and the checkpoint cycle of
+# --ckpt-every 5 (five writes, six with the resume to 24 steps: 83 GB at
+# full size) runs through the same CLI with --smoke
 TRAIN_ARCH, TRAIN_B, TRAIN_SEQ = "granite-moe-1b-a400m", 8, 128
 TRAIN_STEPS, TRAIN_RESUME, TRAIN_EVERY = 20, 24, 5
-DENSE_ARCH, DENSE_STEPS, DENSE_MB, DENSE_REMAT = "qwen2-0.5b", 10, 2, "dots"
+# (qwen2-0.5b's timed steps cut from 10 to 6 to fit the call's time)
+DENSE_ARCH, DENSE_STEPS, DENSE_MB, DENSE_REMAT = "qwen2-0.5b", 6, 2, "dots"
 # steps timed with the device synchronised (the first is cold)
 TRAIN_TIMED = 6
 # the f32 cross-check: full width, 2 layers, batch 2, seq 64, TF32 off
@@ -3156,12 +3213,13 @@ def _train_cli(dev, card, _build):
     step; on 20 fresh batches at lr 3e-4 the loss is noise, so whether it
     falls is printed, and :func:`_train_timed` requires it to fall on a
     repeated batch), its checkpoint of step 20
-    restored onto the card equal to the trained state bit for bit, and
-    ``main`` to 24 steps, which must resume from step 20; then the
-    checkpoint cycle with ``--ckpt-every 5 --smoke``: checkpoints 10, 15
-    and 20 left after 20 steps (keep 3 across the forced re-save of step
-    20: the port's repair of reference fault 3), 15, 20 and 24 after the
-    resume.  Returns the first call's launches."""
+    restored onto the card equal to the trained state bit for bit; then
+    the checkpoint cycle with ``--ckpt-every 5 --smoke``: checkpoints 10,
+    15 and 20 left after 20 steps (keep 3 across the forced re-save of
+    step 20: the port's repair of reference fault 3), then ``main`` to 24
+    steps, which must resume from step 20 and leave 15, 20 and 24 (the
+    resume at smoke size only: at full size it wrote and read 28 GB more,
+    cut for time).  Returns the first call's launches."""
     import shutil
     import torch
     from repro_torch.ckpt import checkpoint as C
@@ -3198,13 +3256,6 @@ def _train_cli(dev, card, _build):
         nbytes = sum(_nbytes(x) for x in a)
         del state, restored, lm, a, b
         _free_card()
-        losses2, out, wall2 = _run_cli(train.main,
-                                       _train_argv(TRAIN_RESUME, ckpt))
-        _check_resumed("train CLI resume", out, losses2,
-                       TRAIN_RESUME - TRAIN_STEPS)
-        kept2 = C._finished(str(ckpt))
-        _require(kept2 == [TRAIN_STEPS, TRAIN_RESUME],
-                 f"train CLI resume: checkpoints {kept2}")
         shutil.rmtree(ckpt)
         cycle = ("--ckpt-every", str(TRAIN_EVERY), "--smoke")
         _run_cli(train.main, _train_argv(TRAIN_STEPS, ckpt, *cycle))
@@ -3220,10 +3271,10 @@ def _train_cli(dev, card, _build):
         _require(kept4 == [15, 20, 24], f"train CLI --smoke resume: "
                  f"checkpoints {kept4}, want [15, 20, 24]")
         res = {"losses": losses, "last_below_first": losses[-1] < losses[0],
-               "resumed_losses": losses2, "main_s": wall,
-               "resume_main_s": wall2, "restore_check_s": restore_s,
+               "smoke_resumed_losses": losses4, "main_s": wall,
+               "restore_check_s": restore_s,
                "checkpoint_bytes": nbytes, "kept": kept,
-               "kept_after_resume": kept2, "smoke_cycle_kept": kept3,
+               "smoke_cycle_kept": kept3,
                "smoke_cycle_kept_after_resume": kept4,
                "launches": launches}
         print("[train] CLI " + json.dumps(res) + f"; {card}")
@@ -3440,14 +3491,23 @@ def _train(dev, card, errs, _build):
     remat "dots") timed and profiled (:func:`_train_timed`); both held
     in f32 to the CPU path (:func:`_train_xcheck`).  Returns (launches
     of the CLI's run, (layer 0's router probabilities of one step, k))."""
+    t0 = time.perf_counter()
     launches = _train_cli(dev, card, _build)
     _free_card()
+    took = {"cli": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     res = _train_timed(dev, card, TRAIN_ARCH, 1, "none", TRAIN_TIMED,
                        router=_train_router(dev, errs, _build))
+    took[f"timed {TRAIN_ARCH}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     _train_timed(dev, card, DENSE_ARCH, DENSE_MB, DENSE_REMAT, DENSE_STEPS)
+    took[f"timed {DENSE_ARCH}"] = time.perf_counter() - t0
     for arch in (TRAIN_ARCH, DENSE_ARCH):
+        t0 = time.perf_counter()
         _train_xcheck(dev, arch, errs)
         _free_card()
+        took[f"f32 check {arch}"] = time.perf_counter() - t0
+    print("[phase 14] seconds by part " + json.dumps(took))
     return launches, res["router"]
 
 
@@ -3811,6 +3871,10 @@ def _p17_dryrun(procs):
     _require(rec["device"] == "cuda" and rec["kernels"] == {
         "topk": 1, "merge": 4}, f"phase 17 dry run: {rec['device']} "
         f"{rec['kernels']}")
+    # the decode state laid out with each cache's sequence over the 16
+    # model ranks: the rank holds what decode_state_specs places
+    _require(rec["memory"]["cache_gib"] == rec["memory"]["specs_cache_gib"],
+             f"phase 17 dry run: caches {rec['memory']}")
     train = json.loads(smoke_log.strip().splitlines()[-1])
     _require(train["device"] == "cuda" and train["kernels"].get("topk", 0)
              > 0 and train["sent_bytes"] == train["predicted_bytes"],
@@ -3882,14 +3946,25 @@ def _dryrun_phase(dev, card, _build):
 # rtol 1e-5, the norm's and each parameter's relative L2 error after the
 # update 1e-4) and the (2, 2) checkpoint restored onto 2 ranks and onto
 # one process bit for bit; then serve decode of qwen2-0.5b and granite
-# at full size over (2, 2), phase 11's command with the 16 vocabulary
-# peers spread over the 2 model ranks, in f32 against the one-process
-# decode on the same (2, 16) mesh and in bf16
+# at full size over (2, 2) and (1, 4), phase 11's command with the 16
+# vocabulary peers spread over the model ranks, in f32 against the
+# one-process decode on the same mesh shape (and at (2, 2) in bf16),
+# each cache's sequence (S_max 48) cut over the model ranks; then three
+# families over (1, 4) in f32 at full width and cut depth
+# (``TR_WIDE``), against one process
 TR_ARCH, TR_XCHECK_LAYERS = "granite-moe-1b-a400m", 2
 TR_LAYOUTS = ((2, 2), (1, 4))
-#: steps at each layout
-TR_STEPS = {(2, 2): 3, (1, 4): 2}
+#: steps at each layout ((2, 2) cut from 3 to 2 to fit the call's time)
+TR_STEPS = {(2, 2): 2, (1, 4): 2}
 TR_DECODE_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m")
+#: the decodes of the other cache families over (1, 4), one vocabulary
+#: peer a rank, f32, full width, cut depth (config changes): the window
+#: (one mixer group, phase 13's 2,080-token prompt: the 2,048-slot ring
+#: wraps), MLA (2 of 62 layers), the encoder-decoder (2 + 2 of 32 + 32
+#: layers; its 1,500 frames divide 4, so the cross caches are cut too)
+TR_WIDE = {"recurrentgemma-2b": {"n_layers": 3},
+           "minicpm3-4b": {"n_layers": 2},
+           "whisper-large-v3": {"n_layers": 2, "n_encoder_layers": 2}}
 #: the config-dtype decode over ranks: each rank's logits block may lie
 #: at most this many times as far (L2) from one process's as the
 #: one-process logits lie from the next wider dtype (f32 for bf16) on
@@ -3902,8 +3977,18 @@ TR_TIMEOUT = 600
 TR_FAKE = {}
 
 
-def _ranks_decode_argv(arch):
-    return _decode_argv(arch) + ["--model-ranks", "2"]
+def _ranks_decode_argv(arch, model_ranks=2):
+    return _decode_argv(arch) + ["--model-ranks", str(model_ranks)]
+
+
+def _wide_decode_argv(arch, smoke):
+    """``TR_WIDE``'s decode of ``arch`` over (1, 4): one vocabulary peer
+    a model rank, phase 13's prompt where it has one (40 tokens on the
+    CPU path's smoke config, which wrap its 32-slot window)."""
+    argv = _decode_argv(arch) + ["--model-par", "4", "--model-ranks", "4"]
+    if arch in ARCH_PROMPT:
+        argv += ["--prompt-len", str(40 if smoke else ARCH_PROMPT[arch])]
+    return argv
 
 
 def _same_digests(what, a, b):
@@ -3920,19 +4005,21 @@ def _first_diff(a, b):
     return cols[0] if cols else None
 
 
-def _decode_blocks(dev, argv, data_par, dtype=None):
+def _decode_blocks(dev, argv, data_par, dtype=None, changes=None):
     """The decode of ``argv`` (``serve decode``'s flags) on one process,
     one of ``data_par`` data blocks of the batch at a time: each
-    block's rows of the prompt through ``prefill`` and
-    ``make_serve_step`` over the ``--model-par`` virtual peers, with its
-    rows of the whole batch's noise; the tokens of the blocks stacked.
-    What each data rank of the (2, 2) mesh computes, at the same batch
-    size: the card's products round a row by the batch it is computed
-    in.  ``dtype`` replaces the config's (TF32 off under f32)."""
+    block's rows of the prompt (and of the stub frames) through
+    ``prefill`` and ``make_serve_step`` over the ``--model-par`` virtual
+    peers, with its rows of the whole batch's noise; the tokens of the
+    blocks stacked.  What each data rank of the (2, 2) mesh computes, at
+    the same batch size: the card's products round a row by the batch
+    it is computed in.  ``dtype`` replaces the config's (TF32 off under
+    f32), ``changes`` other fields of it."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config, smoke_config
     from repro_torch.core.mesh import Mesh
+    from repro_torch.data.pipeline import extra_model_inputs
     from repro_torch.launch.serve import _decode_args, state_from_prefill
     from repro_torch.models import model as M
     from repro_torch.runtime.steps import gumbel, make_serve_step
@@ -3943,22 +4030,24 @@ def _decode_blocks(dev, argv, data_par, dtype=None):
     if dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=dtype,
                                   compute_dtype=dtype)
+    cfg = dataclasses.replace(cfg, **(changes or {}))
     s_max = args.prompt_len + args.gen
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = dtype is None and tf32
     try:
         params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
                                max_seq=s_max, device=dev)
-        tokens = torch.from_numpy(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (args.batch, args.prompt_len)
-        ).astype(np.int32))
+        whole = extra_model_inputs(cfg, {"tokens": np.random.default_rng(
+            0).integers(0, cfg.vocab_size, (args.batch, args.prompt_len)
+                        ).astype(np.int32)})
         mesh = Mesh((1, args.model_par), ("data", "model"), dev)
         part = args.batch // data_par
         out = []
         for d in range(data_par):
             rows = slice(d * part, (d + 1) * part)
-            last, pst = M.prefill(params, cfg,
-                                  {"tokens": tokens[rows].to(dev)})
+            last, pst = M.prefill(params, cfg, {
+                k: torch.from_numpy(v[rows]).to(dev)
+                for k, v in whole.items()})
             state = state_from_prefill(cfg, pst, s_max)
             tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
             step = make_serve_step(cfg, mesh, k=args.k)
@@ -4051,15 +4140,57 @@ def _check_xcheck_layout(lay, outs):
           + json.dumps(worst))
 
 
-def _check_decode_logits(arch, got, one):
-    """Each rank's block of the logits the config-dtype decode samples
-    from (``chip_train_ranks.decode_logits``: the prompt's last logits
-    and the first step's) against the one-process logits' columns of
-    its block, for its rows (one process computing each data rank's
-    rows apart, as it does): their L2 distance at most
-    ``DEC_SPLIT_FACTOR`` times the one-process logits' own rounding,
-    their distance from the same computation in the next wider dtype
-    (f32 for bf16) on the same weights."""
+def _check_moe_decode(dev, what, argv, got):
+    """A MoE decode over the ranks in f32 (``got``: each rank's
+    ``chip_train_ranks.decode_logits`` with its routers' log) against
+    one process on the same weights, in f32 and in f64, its routers
+    made to take the ranks' experts (``replay``): (a) every choice where
+    one process would itself pick other experts than the ranks did is a
+    tie, its margin in f64 (the k-th and the (k+1)-th probability's gap
+    over the k-th) at most ``DEC_SPLIT_FACTOR`` times the margins' own
+    f32 rounding (the largest f32-f64 difference of a margin in this
+    run); (b) on those routes, each rank's logits blocks lie at most
+    ``DEC_SPLIT_FACTOR`` times as far from one process's f32 columns as
+    those lie from f64 (:func:`_check_decode_logits`).  Prints the
+    margins."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "tools"))
+    import chip_train_ranks as CT
+    ranks = [g["routes"][0] for g in got if not g["model_index"]]
+    _require(len(ranks) == 1, f"decode {what}: one data rank expected")
+    one = CT.decode_logits(argv, dev, dtype="float32", routes=True,
+                           replay=ranks)
+    _free_card()
+    low, wide = one["routes"][0], one["wide"]["routes"][0]
+    m32, m64 = CT.route_margins(low), CT.route_margins(wide)
+    rounding = max(float(np.abs(a - b).max()) for a, b in zip(m32, m64))
+    flips = {}
+    for name, log in (("f32", low), ("f64", wide)):
+        flips[name] = [(c, t, float(m64[c][t]))
+                       for c, t in CT.route_flips(log, ranks[0])]
+    ties = [f for fl in flips.values() for f in fl]
+    print(f"[decode ranks] {what} f32 routers: {len(m64)} calls, "
+          f"{sum(m.size for m in m64)} choices; smallest "
+          f"f64 margin {min(float(m.min()) for m in m64)}, the margins' "
+          f"f32 rounding {rounding}; choices one process, fed the "
+          f"ranks' routes, would make otherwise (call, token, f64 "
+          f"margin): f32 {flips['f32']}, f64 {flips['f64']} (gate: every "
+          f"margin at most {DEC_SPLIT_FACTOR} x the rounding)")
+    _require(all(m <= DEC_SPLIT_FACTOR * rounding for _, _, m in ties),
+             f"decode {what} over ranks in f32: the ranks route other "
+             f"experts than one process where no two nearly tie: {ties}")
+    _check_decode_logits(what, got, one, "in f32 on the ranks' routes")
+
+
+def _check_decode_logits(arch, got, one, how="in the config's dtype"):
+    """Each rank's block of the logits the decode samples from
+    (``chip_train_ranks.decode_logits``: the prompt's last logits and
+    the first step's) against the one-process logits' columns of its
+    block, for its rows (one process computing each data rank's rows
+    apart, as it does): their L2 distance at most ``DEC_SPLIT_FACTOR``
+    times the one-process logits' own rounding, their distance from the
+    same computation in the next wider dtype (f32 for bf16, f64 for
+    f32) on the same weights."""
     import numpy as np
     worst = {}
     for g in got:
@@ -4081,7 +4212,7 @@ def _check_decode_logits(arch, got, one):
             w = worst.setdefault(key, [0.0, 0.0, 0.0])
             w[:] = max(w, [split / rnd, rel, rnd / float(np.linalg.norm(
                 ref))])
-    print(f"[decode ranks] {arch} in the config's dtype over the ranks: "
+    print(f"[decode ranks] {arch} {how} over the ranks: "
           f"each rank's logits block vs one process's columns, worst over "
           f"the ranks (L2 distance / the one-process logits' own rounding "
           f"vs the wider dtype, relative L2 distance, the rounding's "
@@ -4135,8 +4266,10 @@ def _train_serve_ranks(dev, card, _build):
     conf = dict(arch=TR_ARCH, batch=TRAIN_B, seq=TRAIN_SEQ, steps=TR_STEPS,
                 xcheck_layers=TR_XCHECK_LAYERS, ckpt=str(ckpt),
                 layouts=TR_LAYOUTS, trace=bool(TR_FAKE),
-                decode={a: _ranks_decode_argv(a)[1:]
-                        for a in TR_DECODE_ARCHS},
+                decode={(a, lay): _ranks_decode_argv(a, lay[1])[1:]
+                        for a in TR_DECODE_ARCHS for lay in TR_LAYOUTS},
+                decode_wide={a: (_wide_decode_argv(a, smoke)[1:], ch)
+                             for a, ch in TR_WIDE.items()},
                 smoke=smoke, device=dev.type)
     _free_card()
     try:
@@ -4163,6 +4296,7 @@ def _train_serve_ranks(dev, card, _build):
                                 card)
             _check_xcheck_layout(lay, outs)
         _check_tp_trace(outs, dev)
+        t0 = time.perf_counter()
         saved = outs[0]["xcheck"][(2, 2)]["saved"]
         back2 = spawn_ranks(CT.restore_onto, 2, args=(conf,),
                             timeout=TR_TIMEOUT)
@@ -4186,10 +4320,12 @@ def _train_serve_ranks(dev, card, _build):
         print(f"[train ranks] the 4 ranks' (2, 2) checkpoint restored onto "
               f"2 ranks and onto one process bit for bit "
               f"({len(one['params'])} parameters, both moments)")
+        took = {"checkpoint": time.perf_counter() - t0}
         # (c) the decodes: f32 tokens == one process's; bf16 agreement
         for arch in TR_DECODE_ARCHS:
+            t0 = time.perf_counter()
             argv = _ranks_decode_argv(arch)[1:]
-            got = [o["decode_f32"][arch] for o in outs]
+            got = [o["decode_f32"][(arch, (2, 2))] for o in outs]
             blocks = _decode_blocks(dev, argv, 2, "float32")
             _free_card()
             _require(all((g["tokens"] == blocks).all() for g in got),
@@ -4200,7 +4336,9 @@ def _train_serve_ranks(dev, card, _build):
                   f"split over the model ranks: the ranks' tokens == one "
                   f"process's, data block by data block (first difference "
                   f"at step {_first_diff(got[0]['tokens'], blocks)})")
+            _check_decode_layout(f"{arch} (2, 2) f32", got)
             low = [o["decode"][arch] for o in outs]
+            _check_decode_layout(f"{arch} (2, 2)", low)
             _require(all((g["tokens"] == low[0]["tokens"]).all()
                          for g in low),
                      f"decode {arch} over ranks: the ranks' tokens differ")
@@ -4234,14 +4372,92 @@ def _train_serve_ranks(dev, card, _build):
                       f"delivered across ranks by axis "
                       f"{[g['sent_by_axis'] for g in runs]}; launches by "
                       f"rank {[g['launches'] for g in runs]}; {card}")
+            took[f"decode {arch} (2, 2)"] = time.perf_counter() - t0
+        for arch in TR_DECODE_ARCHS:
+            t0 = time.perf_counter()
+            _check_whole_batch_decode(
+                dev, f"{arch} (1, 4)", _ranks_decode_argv(arch, 4)[1:],
+                [o["decode_f32"][(arch, (1, 4))] for o in outs], None, card)
+            took[f"decode {arch} (1, 4)"] = time.perf_counter() - t0
+        for arch, changes in TR_WIDE.items():
+            t0 = time.perf_counter()
+            _check_whole_batch_decode(
+                dev, f"{arch} {changes} (1, 4)",
+                _wide_decode_argv(arch, smoke)[1:],
+                [o["decode_f32"][(arch, "wide")] for o in outs], changes,
+                card)
+            took[f"decode {arch} wide"] = time.perf_counter() - t0
         for r, o in enumerate(outs):
             print(f"[phase 16] rank {r}: {o['seconds']:.3f} s, "
-                  f"max_memory_allocated {o.get('max_memory_allocated')} B")
+                  f"max_memory_allocated {o.get('max_memory_allocated')} B;"
+                  " seconds by part " + json.dumps(
+                      {k: round(v, 3)
+                       for k, v in o["seconds_by_part"].items()}))
+        print("[phase 16] this process's checks, seconds by part "
+              + json.dumps({k: round(v, 3) for k, v in took.items()}))
         print(f"[phase 16] {RANKS} gloo ranks on {card}: {secs:.3f} s")
         _left_behind(dev)
         return launches
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _check_decode_layout(what, runs):
+    """Each rank's decode state after ``serve decode`` over the ranks:
+    the caches cut over the model ranks == those the rule cuts, their
+    bytes == ``decode_state_layout``'s block; one more decode step's
+    bytes == ``model_axis_events``' reckoning on the model axis, nothing
+    on the data axis.  Prints each rank's figures."""
+    for r, g in enumerate(runs):
+        lay, step = g["layout"], g["step"]
+        print(f"[decode ranks] {what} rank {r}: caches cut {lay['split']} "
+              f"(the rule's {lay['want_split']}), {lay['bytes']} B (the "
+              f"layout's block {lay['layout_bytes']} B); a "
+              f"decode step delivered {step['sent']} B (model axis "
+              f"reckoned {step['reckoned_model']} B)")
+        _require(lay["bytes"] == lay["layout_bytes"]
+                 and lay["split"] == lay["want_split"],
+                 f"decode {what}: rank {r}'s caches {lay}")
+        _require(step["sent"] == {"data": 0,
+                                  "model": step["reckoned_model"]},
+                 f"decode {what}: rank {r}'s step delivered "
+                 f"{step['sent']}, reckoned {step['reckoned_model']}")
+
+
+def _check_whole_batch_decode(dev, what, argv, runs, changes, card):
+    """An f32 decode over (1, 4) (TF32 off) against one process's decode
+    of the whole batch on the same mesh shape (:func:`_decode_blocks`),
+    and its layout (:func:`_check_decode_layout`).  Every rank's tokens
+    are the same; a dense model's equal one process's.  A MoE model's
+    logits and routers are gated instead (:func:`_check_moe_decode`),
+    and its tokens printed: its routers' top-k turns a difference in
+    the last bit of a router probability into another expert where two
+    experts nearly tie, and its capacity then moves the batch-mates'
+    rows too (reference fault 8)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import _decode_args
+    one = _decode_blocks(dev, argv, 1, "float32", changes)
+    _free_card()
+    _require(all((g["tokens"] == runs[0]["tokens"]).all() for g in runs),
+             f"decode {what} over ranks in f32: the ranks' tokens differ")
+    agree = (f"{int((runs[0]['tokens'] == one).sum())} of {one.size} tokens "
+             f"equal, first differing step "
+             f"{_first_diff(runs[0]['tokens'], one)}")
+    if get_config(_decode_args(argv).arch).moe is None:
+        _require((runs[0]["tokens"] == one).all(),
+                 f"decode {what} over ranks in f32: tokens "
+                 f"{runs[0]['tokens']} != one process's {one}")
+    else:
+        _check_moe_decode(dev, what, argv, [g["logits"] for g in runs])
+    _check_decode_layout(f"{what} f32", runs)
+    g = runs[0]
+    print(f"[decode ranks] {what} in f32 (TF32 off), each cache's "
+          f"sequence cut over the model ranks, against one process's "
+          f"whole-batch decode: {agree}; prefill "
+          f"{g['t_prefill']:.3f} s, {DEC_GEN - 1} steps in "
+          f"{g['t_decode']:.3f} s; bytes delivered across ranks by axis "
+          f"{[r['sent_by_axis'] for r in runs]}; launches by rank "
+          f"{[r['launches'] for r in runs]}; {card}")
 
 
 def _left_behind(dev):

@@ -35,7 +35,10 @@ reduce-scatter in rank order followed by an all-gather: each chunk is
 summed by one rank over ranks 0 ... n-1 in order and then sent to every
 rank, so every rank holds the same bits, at 2 (n - 1) / n of the
 operand sent where ``psum``'s gather sends (n - 1) times it.  Over an
-axis within one rank each of them is the identity.
+axis within one rank each of them is the identity.  The decode over a
+cache whose sequence is cut over the model ranks adds their maximum
+(``max_over_model``) and an exchange of blocks (``all_to_all``, heads
+for sequence blocks), which have no gradient.
 
 Which backend: gloo.  NCCL refuses two ranks on one card, and a machine
 with one card then runs its ranks as processes that share it.  gloo's
@@ -598,3 +601,36 @@ def slice_to_model(x: torch.Tensor, axis: Optional[Axis],
     the gradient is the sum of the ranks' zero-padded blocks, which is
     their concatenation."""
     return _SliceToModel.apply(x, axis, dim) if _spans(axis) else x
+
+
+def max_over_model(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """The elementwise maximum of the ranks' ``x`` (:func:`all_reduce`
+    with ``op="max"``: exact, so every rank holds the same bits); no
+    gradient (the decode's softmax over a sequence cut over the ranks
+    reads it)."""
+    return all_reduce(x, axis, op="max") if _spans(axis) else x
+
+
+def all_to_all(x: torch.Tensor, axis: Optional[Axis], split_dim: int,
+               cat_dim: int) -> torch.Tensor:
+    """``x`` cut into ``axis.ranks`` equal blocks of ``split_dim``, block
+    j sent to the axis's rank j, and the blocks this rank receives
+    concatenated on ``cat_dim`` in rank order (``jax.lax.all_to_all``
+    with ``tiled=True``): one ``dist.all_to_all_single`` (gloo has no
+    list form) of the blocks stacked, (n - 1) / n of ``x`` sent.  The
+    identity over an axis within one rank."""
+    if not _spans(axis):
+        return x
+    import torch.distributed as dist
+    n = axis.ranks
+    if x.shape[split_dim] % n:
+        raise ValueError(f"a dim of {x.shape[split_dim]} does not split "
+                         f"over {n} ranks")
+    host = _to_host(torch.stack(x.chunk(n, split_dim)))
+    _synchronize(x)
+    got = torch.empty_like(host)
+    dist.all_to_all_single(got, host, group=axis.group)
+    axis.mesh.count_sent(axis, host.numel() * host.element_size()
+                         * (n - 1) // n)
+    got = got.to(x.device, non_blocking=True)
+    return torch.cat(got.unbind(0), cat_dim)

@@ -33,15 +33,21 @@ Each cell's step is the port's, and so is what it reports:
 * ``decode``: ``make_serve_step(cfg, mesh, k=20, algorithm="fd",
   schedule="halving")`` over the 16 model ranks, this rank's model
   blocks of the weights and its data rows of a decode state at its last
-  position, the caches holding the KV heads the rank computes; the
-  Gumbel noise is an input.
+  position, laid out as ``serve decode --ranks`` lays it out
+  (``optim/sharding.py::cache_seq_block``): each attention cache holds
+  this rank's block of its sequence (S_max, the window, the encoder's
+  frames) for every KV head where that dim divides the model size, else
+  the KV heads the rank computes over the whole sequence; the Gumbel
+  noise is an input.
 
 Rows follow ``input_specs_pytree``'s fit: a batch the data ranks do not
 divide (``long_500k``'s one row) is held whole by every rank.  Where
 the port holds more than the reference's specs place on a rank, the
 record shows both: ``memory`` is what the trace saw, and
 ``memory.specs_argument_gib`` what ``param_specs``, ``opt_state_specs``
-and ``decode_state_specs`` would place.
+and ``decode_state_specs`` would place; a decode cell's
+``memory.cache_gib`` is the bytes of this rank's decode state and
+``memory.specs_cache_gib`` those ``decode_state_specs`` places.
 
 The reference's ``xla_cost_analysis`` and ``while_trip_counts`` have no
 counterpart (nothing is compiled, eager runs every layer), and its
@@ -216,6 +222,20 @@ def _pairs(state, specs) -> list:
     return [x for a, b in zip(state, specs) for x in _pairs(a, b)]
 
 
+def _specs_cache_bytes(cfg, shape, mesh_shape: dict) -> int:
+    """The bytes of the global batch's decode state that
+    ``decode_state_specs`` places on one device of ``mesh_shape``."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import sharding as S
+    state = M.init_decode_state(cfg, batch=shape.global_batch,
+                                s_max=shape.seq_len, device="meta")
+    sspecs = S.decode_state_specs(state, cfg, mesh_shape,
+                                  s_max=shape.seq_len)
+    return sum(t.element_size() * math.prod(_block_shape(
+        t.shape, sp, lambda a: mesh_shape.get(a, 1)))
+        for t, sp in _pairs(state.caches, sspecs.caches))
+
+
 def _specs_argument_bytes(cfg, shape, whole: dict, mesh_shape: dict) -> int:
     """What the reference's specs place on one device of ``mesh_shape``:
     the parameters of ``whole`` (``{name: (shape, itemsize)}``) by
@@ -236,12 +256,7 @@ def _specs_argument_bytes(cfg, shape, whole: dict, mesh_shape: dict) -> int:
         ospecs = S.opt_state_specs(shapes, cfg, mesh_shape)
         total += 2 * sum(block(s, 4, ospecs[n]) for n, s in shapes.items())
     if shape.kind == "decode":
-        state = M.init_decode_state(cfg, batch=shape.global_batch,
-                                    s_max=shape.seq_len, device="meta")
-        sspecs = S.decode_state_specs(state, cfg, mesh_shape,
-                                      s_max=shape.seq_len)
-        total += sum(block(t.shape, t.element_size(), sp)
-                     for t, sp in _pairs(state.caches, sspecs.caches))
+        total += _specs_cache_bytes(cfg, shape, mesh_shape)
     specs = input_specs(cfg, shape)
     fit = S.input_specs_pytree({k: v.shape for k, v in specs.items()},
                                mesh_shape)
@@ -337,7 +352,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, *,
             args = (params, batch)
         else:
             k = overrides.get("k", 20)
-            with L.use_mesh(mesh):       # the caches of this rank's heads
+            with L.use_mesh(mesh):       # the caches laid out over ranks
                 state = M.init_decode_state(
                     cfg, batch=batch["tokens"].shape[0],
                     s_max=shape.seq_len,
@@ -351,6 +366,8 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, *,
             def step(params, state, tokens, noise):
                 return serve(params, state, tokens, None, noise)
             args = (params, state, batch["tokens"], noise)
+            cache_b = sum(t.numel() * t.element_size()
+                          for t, _ in _pairs(state.caches, state.caches))
         mesh.sent_bytes = 0
         mesh.sent_by_axis = {a: 0 for a in mesh.axis_names}
         totals = analyze(step, *args, device=device.type)
@@ -366,6 +383,10 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, *,
         "fits": total_b <= hw.hbm_bytes,
         "specs_argument_gib": round(_specs_argument_bytes(
             cfg, shape, whole, dict(zip(axes, mesh_shape))) / 2 ** 30, 3)}
+    if shape.kind == "decode":
+        record["memory"]["cache_gib"] = round(cache_b / 2 ** 30, 3)
+        record["memory"]["specs_cache_gib"] = round(_specs_cache_bytes(
+            cfg, shape, dict(zip(axes, mesh_shape))) / 2 ** 30, 3)
     record["flops"] = totals.flops
     record["hlo_bytes"] = totals.bytes_accessed
     record["convert_bytes"] = totals.convert_bytes

@@ -55,15 +55,56 @@ def state_from_prefill(cfg, prefill_state, s_max: int, cache_dtype=None):
     kept whole (the reference pads or trims it to ``s_max`` too, so its
     decode attends to other frames).  The recurrent states (RWKV's
     ``state`` / ``xp_t`` / ``xp_c``, the RG-LRU's ``h`` / ``conv``,
-    all f32) pass through as they are, as in the reference."""
+    all f32) pass through as they are, as in the reference.
+
+    Under a mesh whose model axis spans ranks (``layers.use_mesh``),
+    each attention cache is laid out as ``init_decode_state`` lays it
+    (``optim/sharding.py::cache_seq_block``): where its sequence dim
+    (S_max, W, the frames) is cut, this rank's block of it for every KV
+    head: the block of the prefill's caches where they hold every KV
+    head (the heads do not split), else the ranks' KV heads traded for
+    sequence blocks over the model ranks in one all-to-all, each KV head
+    taken from the first rank that computed it (``attention.kv_spans``;
+    ranks whose query heads share a KV head under whole ``w_k`` /
+    ``w_v`` both hold it); elsewhere this rank's KV heads over the whole
+    sequence, as the prefill left them."""
     import torch
 
+    from repro_torch.core.mesh import all_to_all
     from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
 
     if cache_dtype is None:
         cache_dtype = torch.float32
     pos = int(prefill_state.pos)
+    spans = A.kv_spans(cfg)
+    split = {}
+
+    def every_head(a, ax):
+        """This rank's sequence block of every KV head from each rank's
+        KV heads ``a`` (B, n, nk, Dh), padded to the most any rank
+        holds, over one all-to-all."""
+        most = max(nk for _, nk in spans)
+        a = torch.nn.functional.pad(a, (0, 0, 0, most - a.shape[2]))
+        got = all_to_all(a, ax, 1, 2)      # rank r's heads at r * most
+        first = [next(r for r, (k0, nk) in enumerate(spans)
+                      if k0 <= h < k0 + nk) for h in range(cfg.n_kv_heads)]
+        idx = [r * most + h - spans[r][0] for h, r in enumerate(first)]
+        if idx == list(range(got.shape[2])):
+            return got
+        return got.index_select(2, torch.tensor(idx, device=got.device))
+
+    def lay_out(key, a, heads=True):
+        """``a`` (B, n, H, Dh), or (B, n, D) without ``heads``, whole over
+        its sequence dim of n, in the decode layout."""
+        block = L.seq_block(a.shape[1])
+        if block is None:
+            return a
+        split[key] = a.shape[1]
+        if heads and spans is not None:
+            return every_head(a, block[0])
+        return a.narrow(1, block[1], block[2])
 
     def pad_seq(a):
         cur = a.shape[1]
@@ -85,20 +126,25 @@ def state_from_prefill(cfg, prefill_state, s_max: int, cache_dtype=None):
         v[:, slots] = c.v[:, lo:pos].to(cache_dtype)
         pos_slots[slots] = torch.arange(lo, pos, dtype=torch.int32,
                                         device=dev)
-        return A.WindowKVCache(k, v, pos_slots)
+        block = L.seq_block(w)
+        if block is not None:
+            pos_slots = pos_slots.narrow(0, block[1], block[2])
+        return A.WindowKVCache(lay_out("self", k), lay_out("self", v),
+                               pos_slots)
 
     def conv(key, c):
         if key == "cross":
-            return type(c)(*(a.to(cache_dtype) for a in c))
+            return type(c)(*(lay_out(key, a.to(cache_dtype)) for a in c))
         if key != "self":
             return c
         if isinstance(c, A.KVCache) and cfg.local_window:
             return conv_window(c, cfg.local_window)
-        return type(c)(*(pad_seq(a) for a in c))
+        return type(c)(*(lay_out(key, pad_seq(a), isinstance(c, A.KVCache))
+                         for a in c))
 
     caches = [{key: conv(key, c) for key, c in layer.items()}
               for layer in prefill_state.caches]
-    return M.DecodeState(caches, prefill_state.pos)
+    return M.DecodeState(caches, prefill_state.pos, split)
 
 
 def main_overlay(argv=None):
@@ -233,15 +279,18 @@ def _decode_args(argv):
     return ap.parse_args(argv)
 
 
-def decode_run(argv=None, *, group=None, data=None, dtype=None) -> dict:
+def decode_run(argv=None, *, group=None, data=None, dtype=None,
+               changes=None) -> dict:
     """The decode of ``main_decode`` without its lines: {"tokens" (batch,
-    gen) numpy, "cfg", "policy", "t_prefill", "t_decode", "mesh"}.  A
-    rank of a group passes its ``group``: it decodes its rows of the
-    batch and gets the whole batch's tokens back.  On one process,
-    ``data`` virtual data peers split the batch as the data ranks do
-    (MoE then dispatches per data shard), to compare with the ranks.
-    ``dtype`` (e.g. ``"float32"``) replaces the config's parameter and
-    compute dtypes."""
+    gen) numpy, "cfg", "policy", "t_prefill", "t_decode", "mesh",
+    "params" (this rank's blocks), "state" (the decode state after the
+    last step, this rank's rows and blocks)}.  A rank of a group passes
+    its ``group``: it decodes its rows of the batch and gets the whole
+    batch's tokens back.  On one process, ``data`` virtual data peers
+    split the batch as the data ranks do (MoE then dispatches per data
+    shard), to compare with the ranks.  ``dtype`` (e.g. ``"float32"``)
+    replaces the config's parameter and compute dtypes, ``changes``
+    (e.g. ``{"n_layers": 2}``) other fields of the config."""
     args = _decode_args(argv)
 
     import numpy as np
@@ -271,10 +320,12 @@ def decode_run(argv=None, *, group=None, data=None, dtype=None) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    if dtype is not None:
+    if dtype is not None or changes:
         import dataclasses
-        cfg = dataclasses.replace(cfg, param_dtype=dtype,
-                                  compute_dtype=dtype)
+        if dtype is not None:
+            changes = dict(changes or {}, param_dtype=dtype,
+                           compute_dtype=dtype)
+        cfg = dataclasses.replace(cfg, **changes)
     device = torch.device(args.device)
     if group is not None and device.type == "cuda":
         import torch.distributed as dist
@@ -327,7 +378,8 @@ def decode_run(argv=None, *, group=None, data=None, dtype=None) -> dict:
     toks = toks.cpu().numpy()
     t_decode = time.perf_counter() - t0
     return {"tokens": toks, "cfg": cfg, "policy": pol.name,
-            "t_prefill": t_prefill, "t_decode": t_decode, "mesh": mesh}
+            "t_prefill": t_prefill, "t_decode": t_decode, "mesh": mesh,
+            "params": params, "state": state}
 
 
 def _decode_rank(rank: int, world: int, argv) -> dict:
@@ -337,6 +389,7 @@ def _decode_rank(rank: int, world: int, argv) -> dict:
     from repro_torch.launch.train import _share_cores
     _share_cores(world)
     out = decode_run(argv, group=dist.group.WORLD)
+    del out["params"], out["state"]
     out["sent_bytes"] = out.pop("mesh").sent_bytes
     out["name"] = out.pop("cfg").name
     return out
@@ -357,9 +410,13 @@ def main_decode(argv=None):
     ``models/layers.py``), the ``--model-par`` peers of the vocabulary
     spread over the model ranks, the FD top-k across them
     (``core/fd.py``), MoE dispatched per data shard as the reference
-    does.  The caches hold the rank's KV heads; their sequence dim,
-    which ``decode_state_specs`` puts over ``model``, stays whole on
-    each model rank.  Rank 0 prints."""
+    does.  Each attention cache's sequence dim (S_max, the window, the
+    encoder's frames), which ``decode_state_specs`` puts over
+    ``model``, is cut over the model ranks where it divides the model
+    size: the rank holds its block for every KV head, and the
+    attention's softmax and its product with V are reduced over the
+    model ranks (``models/attention.py``); elsewhere a cache holds the
+    rank's KV heads over the whole sequence.  Rank 0 prints."""
     import sys
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _decode_args(argv)

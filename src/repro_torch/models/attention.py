@@ -29,8 +29,26 @@ is summed over the ranks.  Where the KV heads split too, ``w_k`` /
 (8 KV heads over 16 ranks), they stay whole, the rank computes only the
 KV heads its query heads read, and the gradient of those whole leaves,
 partial on each rank, is summed over the ranks (``copy_to_model`` on
-the leaf).  The caches hold the KV heads the rank computes.  MLA and
-head counts the model size does not divide run whole on every rank.
+the leaf).  MLA and head counts the model size does not divide run
+whole on every rank.
+
+A decode cache holds the rank's KV heads over the whole sequence, or,
+where ``optim/sharding.py::cache_seq_block`` cuts its sequence dim over
+the model ranks (``DecodeState.seq_split``), the rank's block of the
+sequence (of the window's slots, of the encoder's frames) for every KV
+head.  The decode then attends over the block (:func:`_split_decode_attn`):
+the scores' maximum and the sum of their exponentials are reduced over
+the model ranks, and so is the product of the probabilities with the
+block of V; only (B, H) and (B, H, Dh) partials cross the ranks, never
+the cache.  Where the query heads split, the rank gathers every query
+head first and keeps its heads of the result (a reduce-scatter in rank
+order), which its row block of ``w_o`` reads; the new token's k and v
+of every KV head are gathered where ``w_k`` / ``w_v`` are blocks and
+projected by the rank where they are whole.  A prefill's caches hold the
+rank's KV heads over the whole prompt; the decode state's conversion
+(``launch/serve.py::state_from_prefill``) trades them for sequence
+blocks of every KV head in one all-to-all (:func:`kv_spans` says which
+rank holds which head).
 """
 from __future__ import annotations
 
@@ -38,9 +56,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.mesh import copy_to_model, reduce_from_model
-from repro_torch.models.layers import (apply_norm, dense_init, norm_init,
-                                       split_axis, wide)
+from repro_torch.core.mesh import (all_reduce, copy_to_model,
+                                   gather_from_model, max_over_model,
+                                   reduce_from_model, reduce_scatter)
+from repro_torch.models.layers import (apply_norm, dense_init, model_ranks,
+                                       norm_init, split_axis, wide)
 from repro_torch.models.rope import apply_mrope, apply_rope
 
 NEG_INF = -1e30
@@ -152,17 +172,19 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def _rotate_qk(q, k, cfg, positions):
-    """q and k rotated by RoPE, or by M-RoPE over (3, B, S) positions
+def _rotate(t, cfg, positions):
+    """``t`` rotated by RoPE, or by M-RoPE over (3, B, S) positions
     where ``cfg.mrope_sections`` is set; unrotated unless
     ``cfg.pos_kind == "rope"``."""
     if cfg.pos_kind != "rope":
-        return q, k
+        return t
     if cfg.mrope_sections is not None:
-        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
-                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta))
+        return apply_mrope(t, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(t, positions, cfg.rope_theta)
+
+
+def _rotate_qk(q, k, cfg, positions):
+    return _rotate(q, cfg, positions), _rotate(k, cfg, positions)
 
 
 class HeadSplit(NamedTuple):
@@ -188,16 +210,37 @@ def head_split(cfg) -> HeadSplit:
     ax = split_axis("attn", "w_q", cfg, nq * hd)
     if ax is None:
         return HeadSplit(None, 0, nq, 0, nkv, False, None)
-    q_l = nq // ax.ranks
-    q0 = ax.index * q_l
-    if split_axis("attn", "w_k", cfg, nkv * hd) is not None:
-        k_l = nkv // ax.ranks
-        return HeadSplit(ax, q0, q_l, ax.index * k_l, k_l, True, None)
+    kv_tp = split_axis("attn", "w_k", cfg, nkv * hd) is not None
+    q0, q_l, k0, nk = _heads_of(cfg, ax.ranks, ax.index, kv_tp)
     g = nq // nkv
-    k0, k1 = q0 // g, (q0 + q_l - 1) // g + 1
-    even = g % q_l == 0 or (q_l % g == 0 and q0 % g == 0)
+    even = kv_tp or g % q_l == 0 or (q_l % g == 0 and q0 % g == 0)
     kv_of = None if even else tuple((q0 + i) // g - k0 for i in range(q_l))
-    return HeadSplit(ax, q0, q_l, k0, k1 - k0, False, kv_of)
+    return HeadSplit(ax, q0, q_l, k0, nk, kv_tp, kv_of)
+
+
+def _heads_of(cfg, ranks: int, index: int, kv_tp: bool):
+    """(first query head, query heads, first KV head, KV heads) of model
+    rank ``index`` of ``ranks``: a block of the query heads, and the
+    KV heads' block (``kv_tp``) or the KV heads its query heads read."""
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    q_l = nq // ranks
+    q0 = index * q_l
+    if kv_tp:
+        return q0, q_l, index * (nkv // ranks), nkv // ranks
+    g = nq // nkv
+    k0 = q0 // g
+    return q0, q_l, k0, (q0 + q_l - 1) // g + 1 - k0
+
+
+def kv_spans(cfg):
+    """(first KV head, KV heads) that each model rank's GQA layers
+    compute under the current mesh, in rank order, or None where the
+    heads do not split."""
+    sp = head_split(cfg)
+    if sp.ax is None:
+        return None
+    return [_heads_of(cfg, sp.ax.ranks, i, sp.kv_tp)[2:]
+            for i in range(sp.ax.ranks)]
 
 
 def _proj(params, x, name, heads, hd, sp: Optional[HeadSplit] = None):
@@ -241,6 +284,23 @@ def _qkv(params, x, cfg, positions, sp: HeadSplit):
     v = _proj(params, x, "v", sp.nk, hd, sp)
     q, k = _rotate_qk(q, k, cfg, positions)
     return q, k, v
+
+
+def _every_kv_head(params, x, cfg, positions, sp: HeadSplit, k, v):
+    """``k`` and ``v`` (B, S, nk, Dh) of the rank's KV heads as every KV
+    head's: themselves on one process and where the heads stay whole;
+    gathered over the model ranks (one message for both) where ``w_k`` /
+    ``w_v`` are blocks; projected from ``x`` (rotated at ``positions``
+    unless None) where they are whole."""
+    if sp.ax is None:
+        return k, v
+    hd = cfg.resolved_head_dim
+    if sp.kv_tp:
+        kv = gather_from_model(torch.cat([k, v], dim=-1), sp.ax, 2)
+        return kv[..., :hd], kv[..., hd:]
+    k = _proj(params, x, "k", cfg.n_kv_heads, hd)
+    v = _proj(params, x, "v", cfg.n_kv_heads, hd)
+    return (k if positions is None else _rotate(k, cfg, positions)), v
 
 
 def gqa_attention(params, x, cfg, *, positions, mode: str,
@@ -323,14 +383,18 @@ class MLACache(NamedTuple):
 
 def mla_attention(params, x, cfg, *, positions, mode: str,
                   cache: Optional[MLACache] = None, cache_pos=None,
-                  q_block: int = 1024, kv_block: int = 1024):
+                  q_block: int = 1024, kv_block: int = 1024,
+                  seq_len: Optional[int] = None):
     """MLA: latent-compressed KV.  Train / prefill expand to the
     multi-head form (q and k of nope + rope dims, the rope part of k
     shared by the heads) through ``flash_attention``; decode uses the
-    absorbed form in f32 (``q_nope . W_uk`` against the latent cache),
-    so the cache stays (kv_lora + rope) wide, and writes both caches in
-    place.  Returns (y, the prompt's MLACache in prefill, the written
-    cache in decode, None in train)."""
+    absorbed form in f32 (``q_nope . W_uk`` against the latent cache; an
+    f64 model in f64, ``layers.wide``), so the cache stays (kv_lora +
+    rope) wide, and writes both caches in place.  ``seq_len`` (decode):
+    the caches hold this rank's block of their ``seq_len`` positions;
+    the softmax is reduced over the model ranks and so is the context
+    ``p @ c_kv`` (B, H, rank) before ``w_uv``.  Returns (y, the prompt's
+    MLACache in prefill, the written cache in decode, None in train)."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -349,22 +413,29 @@ def mla_attention(params, x, cfg, *, positions, mode: str,
     if mode == "decode":
         if cache is None:
             raise ValueError("mla_attention: decode needs a cache")
-        cc = _masked_cache_write(cache.c_kv, c_kv, cache_pos)
-        cr = _masked_cache_write(cache.k_rope, k_rope[:, :, 0], cache_pos)
+        part = _seq_part(seq_len, cache.c_kv.shape[1])
+        ax, lo = part if part is not None else (None, 0)
+        cc = _block_write(cache.c_kv, c_kv, cache_pos, part)
+        cr = _block_write(cache.k_rope, k_rope[:, :, 0], cache_pos, part)
         s_max = cc.shape[1]
-        ccf = cc.float()
+        ccf = wide(cc)
         # absorbed: q_abs[b, 1, h, r] = q_nope . W_uk(r, h, dn)
-        w_uk = params["w_uk"].reshape(m.kv_lora_rank, h, dn).float()
-        q_abs = torch.einsum("bshd,rhd->bshr", q_nope.float(), w_uk)
+        w_uk = wide(params["w_uk"].reshape(m.kv_lora_rank, h, dn))
+        q_abs = torch.einsum("bshd,rhd->bshr", wide(q_nope), w_uk)
         scores = torch.einsum("bshr,btr->bhst", q_abs, ccf)
-        scores = scores + torch.einsum("bshd,btd->bhst", q_rope.float(),
-                                       cr.float())
+        scores = scores + torch.einsum("bshd,btd->bhst", wide(q_rope),
+                                       wide(cr))
         scores = scores * (dn + dr) ** -0.5
-        valid = (torch.arange(s_max, device=x.device)
+        valid = (lo + torch.arange(s_max, device=x.device)
                  <= cache_pos)[None, None, None]
-        p = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
-        ctx = torch.einsum("bhst,btr->bshr", p, ccf)
-        w_uv = params["w_uv"].reshape(m.kv_lora_rank, h, dv).float()
+        scores = torch.where(valid, scores, NEG_INF)
+        if ax is None:
+            p = torch.softmax(scores, dim=-1)
+            ctx = torch.einsum("bhst,btr->bshr", p, ccf)
+        else:
+            p = _split_softmax(scores, ax)
+            ctx = all_reduce(torch.einsum("bhst,btr->bshr", p, ccf), ax)
+        w_uv = wide(params["w_uv"].reshape(m.kv_lora_rank, h, dv))
         y = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
         y = y.reshape(b, s, h * dv).to(x.dtype)
         return y @ params["w_o"], MLACache(cc, cr)
@@ -403,6 +474,40 @@ def _plain_decode_attn(q, k, v, mask):
     return o.reshape(b, 1, hq, -1).to(q.dtype)
 
 
+def _split_softmax(s, ax):
+    """The softmax over the last dim of scores ``s`` whose dim is cut
+    over the model ranks ``ax`` (masked entries ``NEG_INF``): the
+    block's maximum, then the maximum over the ranks (exact, so
+    ``exp(s - M)`` has one process's bits), the block's sum of the
+    exponentials summed over the ranks in rank order.  A rank whose
+    block is wholly masked adds zeros."""
+    m = max_over_model(s.amax(dim=-1, keepdim=True), ax)
+    e = torch.exp(s - m)
+    return e / all_reduce(e.sum(dim=-1, keepdim=True), ax)
+
+
+def _split_decode_attn(q, k, v, mask, ax, heads_ax):
+    """:func:`_plain_decode_attn` of every query head ``q`` (B,1,Hq,D)
+    over this rank's block of the sequence ``k`` / ``v`` (B,S_r,Hkv,D),
+    every KV head, ``mask`` (.., S_r): :func:`_split_softmax`, the
+    probabilities cast to the cache dtype as there, their product with
+    the block of V summed over the model ranks ``ax``.  Returns every
+    head (B,1,Hq,Dv), or, where the query heads split over
+    ``heads_ax``, this rank's heads (a reduce-scatter in rank order),
+    in q.dtype."""
+    b, _, hq, dq = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, 1, hkv, hq // hkv, dq).to(k.dtype)
+    s = torch.einsum("bqhgd,bshd->bhgqs", wide(qg),
+                     wide(k)) * dq ** -0.5
+    p = _split_softmax(torch.where(mask[:, :, None], s, NEG_INF), ax)
+    o = torch.einsum("bhgqs,bshd->bqhgd", wide(p.to(v.dtype)), wide(v))
+    o = o.reshape(b, 1, hq, -1)
+    o = (reduce_scatter(o, ax, 2) if heads_ax is not None
+         else all_reduce(o, ax))
+    return o.to(q.dtype)
+
+
 def _masked_cache_write(cache_arr, new, cache_pos: int, seq_axis: int = 1):
     """Write ``new`` (a length-1 sequence) at ``cache_pos`` of
     ``cache_arr`` IN PLACE, cast to the cache's dtype, and return the
@@ -417,12 +522,65 @@ def _masked_cache_write(cache_arr, new, cache_pos: int, seq_axis: int = 1):
     return cache_arr
 
 
+def _seq_part(seq_len: Optional[int], length: int):
+    """(the model axis, the first position of this rank's block) of a
+    cache of ``length`` slots that holds this rank's block of a
+    sequence dim of ``seq_len`` cut over the model ranks, or None for a
+    cache that holds its sequence whole (``seq_len`` None)."""
+    if seq_len is None:
+        return None
+    ax = model_ranks()
+    if ax is None or length * ax.ranks != seq_len:
+        raise ValueError(f"a cache of {length} of {seq_len} positions cut "
+                         f"over the model ranks decodes under their mesh "
+                         f"(layers.use_mesh)")
+    return ax, ax.index * length
+
+
+def _block_write(cache_arr, new, at: int, part):
+    """:func:`_masked_cache_write` at the whole sequence's position
+    ``at``: under ``part`` (:func:`_seq_part`) by the rank whose block
+    holds it, the other ranks writing nothing."""
+    if part is None:
+        return _masked_cache_write(cache_arr, new, at)
+    ax, lo = part
+    n = cache_arr.shape[1]
+    if not 0 <= at < n * ax.ranks:
+        raise IndexError(f"cache position {at} outside a cache of "
+                         f"{n * ax.ranks} over {ax.ranks} ranks")
+    if lo <= at < lo + n:
+        _masked_cache_write(cache_arr, new, at - lo)
+    return cache_arr
+
+
+def _split_gqa(params, x, cfg, positions, sp: HeadSplit):
+    """Every query head's q (B,1,Hq,Dh), gathered over the model ranks
+    where the heads split, and the new token's k and v of every KV
+    head (:func:`_every_kv_head`)."""
+    q, k, v = _qkv(params, x, cfg, positions, sp)
+    k, v = _every_kv_head(params, x, cfg, positions, sp, k, v)
+    return gather_from_model(q, sp.ax, 2), k, v
+
+
 def gqa_decode(params, x, cfg, *, cache: KVCache, cache_pos: int,
-               positions):
+               positions, seq_len: Optional[int] = None):
     """Single-token decode against a full-length cache (written in
-    place).  Returns (y (B, 1, D), the cache)."""
+    place); ``seq_len`` (S_max): the cache holds this rank's block of it
+    for every KV head, slot ``pos`` on rank ``pos // (S_max / m)``.
+    Returns (y (B, 1, D), the cache)."""
     b = x.shape[0]
     sp = head_split(cfg)
+    part = _seq_part(seq_len, cache.k.shape[1])
+    if part is not None:
+        ax, lo = part
+        q, k, v = _split_gqa(params, x, cfg, positions, sp)
+        ck = _block_write(cache.k, k, cache_pos, part)
+        cv = _block_write(cache.v, v, cache_pos, part)
+        mask = (lo + torch.arange(ck.shape[1], device=x.device)
+                <= cache_pos)[None, None, None]
+        y = _split_decode_attn(q, ck, cv, mask, ax, sp.ax)
+        y = y.reshape(b, 1, sp.nq * cfg.resolved_head_dim)
+        return _out(params, y, sp), KVCache(ck, cv)
     q, k, v = _qkv(params, x, cfg, positions, sp)
     ck = _masked_cache_write(cache.k, k, cache_pos)
     cv = _masked_cache_write(cache.v, v, cache_pos)
@@ -444,37 +602,63 @@ class WindowKVCache(NamedTuple):
 
 
 def gqa_decode_window(params, x, cfg, *, cache: WindowKVCache,
-                      cache_pos: int, positions):
+                      cache_pos: int, positions,
+                      seq_len: Optional[int] = None):
     """Single-token decode against a ring-buffer window cache: k, v and
     the position written at slot ``cache_pos % W`` in place; the token
     attends to every slot written, not in its future and within W of
-    it.  Returns (y (B, 1, D), the cache)."""
+    it.  ``seq_len`` (W): the cache holds this rank's block of the W
+    slots (and of ``pos_slots``) for every KV head, slot ``s`` on rank
+    ``s // (W / m)``.  Returns (y (B, 1, D), the cache)."""
     b = x.shape[0]
-    w = cache.k.shape[1]
     sp = head_split(cfg)
+    n = cache.k.shape[1]
+    part = _seq_part(seq_len, n)
+    if part is not None:
+        ax, lo = part
+        w = n * ax.ranks
+        q, k, v = _split_gqa(params, x, cfg, positions, sp)
+        slot = cache_pos % w
+        ck = _block_write(cache.k, k, slot, part)
+        cv = _block_write(cache.v, v, slot, part)
+        ps = cache.pos_slots
+        if lo <= slot < lo + n:
+            ps[slot - lo] = cache_pos
+        valid = (ps >= 0) & (ps <= cache_pos) & (cache_pos - ps < w)
+        y = _split_decode_attn(q, ck, cv, valid[None, None, None], ax,
+                               sp.ax)
+        y = y.reshape(b, 1, sp.nq * cfg.resolved_head_dim)
+        return _out(params, y, sp), WindowKVCache(ck, cv, ps)
     q, k, v = _qkv(params, x, cfg, positions, sp)
-    slot = cache_pos % w
+    slot = cache_pos % n
     ck = _masked_cache_write(cache.k, k, slot)
     cv = _masked_cache_write(cache.v, v, slot)
     ps = cache.pos_slots
     ps[slot] = cache_pos
-    valid = (ps >= 0) & (ps <= cache_pos) & (cache_pos - ps < w)
+    valid = (ps >= 0) & (ps <= cache_pos) & (cache_pos - ps < n)
     y = _plain_decode_attn(q, _expand_kv(ck, sp), _expand_kv(cv, sp),
                            valid[None, None, None])
     y = y.reshape(b, 1, sp.nq * cfg.resolved_head_dim)
     return _out(params, y, sp), WindowKVCache(ck, cv, ps)
 
 
-def cross_decode(params, x, cfg, *, cache: KVCache):
+def cross_decode(params, x, cfg, *, cache: KVCache,
+                 seq_len: Optional[int] = None):
     """Cross-attention decode: the encoder's KV from prefill, static and
-    unmasked.  Returns (y (B, 1, D), the cache)."""
+    unmasked; ``seq_len`` (the frames): the cache holds this rank's
+    block of them for every KV head.  Returns (y (B, 1, D), the cache)."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     sp = head_split(cfg)
     q = _proj(params, copy_to_model(x, sp.ax), "q", sp.nq, hd)
     mask = torch.ones((1, 1, 1, cache.k.shape[1]), dtype=torch.bool,
                       device=x.device)
-    y = _plain_decode_attn(q, _expand_kv(cache.k, sp),
-                           _expand_kv(cache.v, sp), mask)
+    part = _seq_part(seq_len, cache.k.shape[1])
+    if part is not None:
+        y = _split_decode_attn(gather_from_model(q, sp.ax, 2), cache.k,
+                               cache.v, mask, part[0], sp.ax)
+    else:
+        y = _plain_decode_attn(q, _expand_kv(cache.k, sp),
+                               _expand_kv(cache.v, sp), mask)
     y = y.reshape(b, 1, sp.nq * hd)
     return _out(params, y, sp), cache

@@ -9,8 +9,9 @@ The mesh helpers read the mesh that :func:`use_mesh` makes current, as
 the reference's read the ambient JAX mesh: ``batch_spec``,
 ``model_size``, ``head_axis``, ``_mesh_axis_names``,
 ``local_batch_shards`` (the data peers this process holds, which MoE
-dispatches over), ``model_ranks`` (the model axis where it spans ranks)
-and ``split_axis`` (whether a leaf is a block on its model rank).
+dispatches over), ``model_ranks`` (the model axis where it spans ranks),
+``split_axis`` (whether a leaf is a block on its model rank) and
+``seq_block`` (this rank's block of an attention cache's sequence).
 
 Over model ranks, a leaf that the partition rules put over ``model``
 (``optim/sharding.py``) is this rank's block, and the products run on
@@ -98,6 +99,16 @@ def split_axis(kind: str, name: str, cfg, dim_size: int):
     from repro_torch.optim.sharding import splits_over_model
     return ax if splits_over_model(kind, name, cfg, ax.size,
                                    dim_size) else None
+
+
+def seq_block(dim: int):
+    """(the model axis, start, length) of this rank's block of an
+    attention cache's sequence dim of ``dim`` entries under the current
+    mesh (``optim/sharding.py::cache_seq_block``), or None where the
+    rank holds the dim whole."""
+    from repro_torch.optim.sharding import cache_seq_block
+    block = cache_seq_block(dim, _CURRENT[0])
+    return None if block is None else (model_ranks(),) + block
 
 
 def local_batch_shards() -> int:

@@ -388,17 +388,26 @@ class DecodeState(NamedTuple):
     ``{"self": KVCache | MLACache | WindowKVCache}`` and, in an
     encoder-decoder, ``"cross": KVCache``; ``{"state", "xp_t", "xp_c"}``
     for RWKV, ``{"h", "conv"}`` for the RG-LRU; ``pos``: the next write
-    position."""
+    position; ``seq_split``: ``{cache key: the whole length of its
+    sequence dim}`` of the caches (``"self"``, ``"cross"``) that hold
+    this rank's block of their sequence, laid out over the model ranks
+    by ``optim/sharding.py::cache_seq_block`` (empty: every cache holds
+    its whole sequence; never mutated)."""
     caches: list
     pos: int
+    seq_split: dict = {}
 
 
 def init_decode_state(cfg: ModelConfig, *, batch: int, s_max: int,
                       cache_dtype=torch.bfloat16,
                       device=None) -> DecodeState:
+    """Zero caches for ``batch`` rows and ``s_max`` positions, laid out
+    over the current mesh's model ranks (``layers.use_mesh``;
+    ``transformer.init_block_cache``)."""
     device = resolve_device(device, "init_decode_state")
     return DecodeState(T.stack_caches(cfg, batch=batch, s_max=s_max,
-                                      dtype=cache_dtype, device=device), 0)
+                                      dtype=cache_dtype, device=device), 0,
+                       T.seq_split(cfg, s_max))
 
 
 @torch.no_grad()
@@ -424,8 +433,10 @@ def decode_step(params: LM, cfg: ModelConfig, state: DecodeState, tokens):
     x = embed_tokens(params, cfg, tokens, pos_offset=state.pos)
     x, caches, _ = T.stack_apply(params.layers, cfg, x, mode="decode",
                                  positions=positions, caches=state.caches,
-                                 cache_pos=state.pos)
-    return logits_fn(params, cfg, x), DecodeState(caches, state.pos + 1)
+                                 cache_pos=state.pos,
+                                 seq_split=state.seq_split)
+    return logits_fn(params, cfg, x), DecodeState(caches, state.pos + 1,
+                                                  state.seq_split)
 
 
 def count_params(params: LM) -> int:

@@ -71,31 +71,57 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
     return Block(kind, parts)
 
 
+def seq_split(cfg: ModelConfig, s_max: int) -> dict:
+    """``{cache key: the whole length of its sequence dim}`` of the
+    attention caches of :func:`init_block_cache` (``"self"``: S_max, or
+    a window's min(W, S_max) slots; ``"cross"``: the encoder's frames)
+    that the current mesh cuts over the model ranks
+    (``layers.seq_block``): ``DecodeState.seq_split``."""
+    lengths = {}
+    if "attn" in cfg.layer_kinds():
+        lengths["self"] = (min(cfg.local_window, s_max) if cfg.local_window
+                           else s_max)
+    if cfg.is_encoder_decoder:
+        lengths["cross"] = cfg.encoder_seq
+    return {k: n for k, n in lengths.items() if L.seq_block(n) is not None}
+
+
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                      dtype, device, with_cross: bool = False,
                      enc_seq: int = 0) -> dict:
     """Zero caches for decode; the recurrent states in f32, a window
     cache of min(window, s_max) empty slots.  Over model ranks (the
-    current mesh, ``layers.use_mesh``) they hold this rank's KV heads
-    and RG-LRU width."""
+    current mesh, ``layers.use_mesh``) they hold this rank's RG-LRU
+    width, and each attention cache this rank's block of its sequence
+    dim for every KV head where ``layers.seq_block`` cuts it, else
+    this rank's KV heads over the whole sequence."""
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
+    def seq(n):
+        """(this rank's length of a sequence dim of n, its KV heads)"""
+        block = L.seq_block(n)
+        if block is None:
+            return n, attn.head_split(cfg).nk
+        return block[2], cfg.n_kv_heads
+
     f32 = torch.float32
-    hd, nkv = cfg.resolved_head_dim, attn.head_split(cfg).nk
+    hd = cfg.resolved_head_dim
     if kind == "attn":
         if cfg.attn_kind == "mla":
             m = cfg.mla
-            c = {"self": attn.MLACache(zeros(batch, s_max, m.kv_lora_rank),
-                                       zeros(batch, s_max, m.qk_rope_dim))}
+            n, _ = seq(s_max)
+            c = {"self": attn.MLACache(zeros(batch, n, m.kv_lora_rank),
+                                       zeros(batch, n, m.qk_rope_dim))}
         elif cfg.local_window:
-            w = min(cfg.local_window, s_max)
+            w, nkv = seq(min(cfg.local_window, s_max))
             c = {"self": attn.WindowKVCache(
                 zeros(batch, w, nkv, hd), zeros(batch, w, nkv, hd),
                 torch.full((w,), -1, dtype=torch.int32, device=device))}
         else:
-            c = {"self": attn.KVCache(zeros(batch, s_max, nkv, hd),
-                                      zeros(batch, s_max, nkv, hd))}
+            n, nkv = seq(s_max)
+            c = {"self": attn.KVCache(zeros(batch, n, nkv, hd),
+                                      zeros(batch, n, nkv, hd))}
     elif kind == "rwkv":
         kd = cfg.recurrent.rwkv_head_dim
         h = cfg.d_model // kd
@@ -109,24 +135,29 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
     else:
         raise ValueError(f"unknown mixer kind {kind!r}")
     if with_cross:
-        c["cross"] = attn.KVCache(zeros(batch, enc_seq, nkv, hd),
-                                  zeros(batch, enc_seq, nkv, hd))
+        n, nkv = seq(enc_seq)
+        c["cross"] = attn.KVCache(zeros(batch, n, nkv, hd),
+                                  zeros(batch, n, nkv, hd))
     return c
 
 
 def _attn_mixer(block: Block, cfg: ModelConfig, h, *, positions, mode,
-                cache, cache_pos, q_block, kv_block):
-    """The attention mixer: (y, its "self" cache or None)."""
+                cache, cache_pos, q_block, kv_block, seq_len):
+    """The attention mixer: (y, its "self" cache or None); ``seq_len``:
+    the whole length of the decode cache's sequence where it holds this
+    rank's block of it, else None."""
     if cfg.attn_kind == "mla":
         return attn.mla_attention(
             block.mixer, h, cfg, positions=positions, mode=mode,
             cache=None if cache is None else cache["self"],
-            cache_pos=cache_pos, q_block=q_block, kv_block=kv_block)
+            cache_pos=cache_pos, q_block=q_block, kv_block=kv_block,
+            seq_len=seq_len)
     if mode == "decode":
         decode = (attn.gqa_decode_window if cfg.local_window
                   else attn.gqa_decode)
         return decode(block.mixer, h, cfg, cache=cache["self"],
-                      cache_pos=cache_pos, positions=positions)
+                      cache_pos=cache_pos, positions=positions,
+                      seq_len=seq_len)
     return attn.gqa_attention(block.mixer, h, cfg, positions=positions,
                               mode=mode, window=cfg.local_window,
                               q_block=q_block, kv_block=kv_block)
@@ -134,12 +165,16 @@ def _attn_mixer(block: Block, cfg: ModelConfig, h, *, positions, mode,
 
 def block_apply(block: Block, cfg: ModelConfig, x, *, positions, mode: str,
                 cache: Optional[dict] = None, cache_pos=None, enc_out=None,
-                q_block: int = 1024, kv_block: int = 1024):
+                q_block: int = 1024, kv_block: int = 1024,
+                seq_split: Optional[dict] = None):
     """Apply one block.  Returns (x', cache', aux_loss): the prompt's
     caches in prefill (the recurrent ones run from zero states), the
     caches in decode (attention's written in place, the recurrent states
     new tensors), None in train and encode; ``aux_loss`` is MoE's
-    load-balance loss (f32), None for any other FFN."""
+    load-balance loss (f32), None for any other FFN.  ``seq_split``:
+    ``{cache key: whole length}`` of the decode caches that hold this
+    rank's block of their sequence (``DecodeState.seq_split``)."""
+    seq_split = seq_split or {}
     keep = mode in ("prefill", "decode")
     aux = None
     new_cache = {} if keep else None
@@ -148,7 +183,8 @@ def block_apply(block: Block, cfg: ModelConfig, x, *, positions, mode: str,
     if block.kind == "attn":
         y, c = _attn_mixer(block, cfg, h, positions=positions, mode=mode,
                            cache=cache, cache_pos=cache_pos,
-                           q_block=q_block, kv_block=kv_block)
+                           q_block=q_block, kv_block=kv_block,
+                           seq_len=seq_split.get("self"))
         if keep and c is not None:
             new_cache["self"] = c
     elif block.kind == "rwkv":
@@ -172,7 +208,8 @@ def block_apply(block: Block, cfg: ModelConfig, x, *, positions, mode: str,
         hc = L.apply_norm(block.norm_c, x, cfg.norm)
         if mode == "decode":
             yc, cc = attn.cross_decode(block.cross, hc, cfg,
-                                       cache=cache["cross"])
+                                       cache=cache["cross"],
+                                       seq_len=seq_split.get("cross"))
         else:
             yc, cc = attn.gqa_attention(block.cross, hc, cfg,
                                         positions=positions, mode=mode,
@@ -236,7 +273,7 @@ def _remat(fn, remat: str):
 def stack_apply(layers: nn.ModuleList, cfg: ModelConfig, x, *, mode: str,
                 positions, caches=None, cache_pos=None, enc_out=None,
                 remat: str = "none", q_block: int = 1024,
-                kv_block: int = 1024):
+                kv_block: int = 1024, seq_split: Optional[dict] = None):
     """Run the stack.  Returns (x, caches', aux_sum): a list of
     per-layer caches in prefill and decode, None in train and encode;
     the auxiliary losses summed as the reference sums them (within a
@@ -249,7 +286,7 @@ def stack_apply(layers: nn.ModuleList, cfg: ModelConfig, x, *, mode: str,
     each group as the reference's ``group_body``, never a remainder
     layer.  (The reference groups an encoder by ``("attn",)``; the
     encoder runs without remat and drops its aux, so its grouping
-    changes no value.)
+    changes no value.)  ``seq_split`` is :func:`block_apply`'s.
     """
     glen = len(cfg.mixer_pattern)
     n_grouped = len(layers) // glen * glen
@@ -265,7 +302,8 @@ def stack_apply(layers: nn.ModuleList, cfg: ModelConfig, x, *, mode: str,
                            mode=mode,
                            cache=None if caches is None else caches[i],
                            cache_pos=cache_pos, enc_out=enc_out,
-                           q_block=q_block, kv_block=kv_block)
+                           q_block=q_block, kv_block=kv_block,
+                           seq_split=seq_split)
 
     def group_body(g, x):
         aux, new = None, []

@@ -28,7 +28,11 @@ dimension into equal blocks in rank-coordinate order, which is
 ``NamedSharding``'s layout where each rank holds one peer of an axis;
 an axis held as virtual peers inside one rank leaves the dimension
 whole, so on a one-process mesh every leaf is whole and placement
-changes nothing.
+changes nothing.  The decode state's layout is
+:func:`cache_seq_block`'s: each attention cache's sequence dim over
+the model ranks where it cuts it.  That is :func:`decode_state_specs`'
+placement but for a stacked window cache's ``pos_slots`` (reference
+fault 10), which the port cuts as its ``k``'s window dim.
 """
 from __future__ import annotations
 
@@ -325,6 +329,22 @@ def decode_state_specs(state, cfg, mesh, *, s_max: int):
     if hasattr(state, "caches"):
         return type(state)(out, ())
     return out
+
+
+def cache_seq_block(dim: int, mesh) -> Optional[Tuple[int, int]]:
+    """(start, length) of this rank's block of an attention cache's
+    sequence dim of ``dim`` entries (S_max, a window's W slots, or the
+    encoder's frames), or None where the rank holds it whole: the port's
+    decode layout.  :func:`decode_state_specs`'s rule puts ``model`` on
+    that dim where ``dim`` divides the model axis's size; the dim is then
+    cut into one block a model rank (:func:`_block_range`), so it stays
+    whole on one process and over an axis of virtual peers within a
+    rank.  ``models/transformer.py::init_block_cache``,
+    ``launch/serve.py::state_from_prefill`` and, through them, the dry
+    run read this rule."""
+    if mesh is None or MODEL not in mesh.shape or dim % mesh.shape[MODEL]:
+        return None
+    return _block_range(MODEL, mesh, dim)
 
 
 # --------------------------------------------------------------------------

@@ -5,8 +5,9 @@ The reference's ``roofline/report.py`` on the port's records
 trace's (``t_trace_s``) where a record has one, then a table of what
 only the port's records hold (where the fake tensors lived, whether the
 rank fits the card, what the reference's specs would place, the bytes
-sent, the kernel calls), the collectives by mesh axis where the
-records hold them, and one of both meshes side by side.
+sent, the kernel calls), the collectives by mesh axis and the decode
+state's bytes where the records hold them, and one of both meshes side
+by side.
 
   PYTHONPATH=src python -m repro_torch.roofline.report artifacts/dryrun_torch
 """
@@ -116,6 +117,24 @@ def axis_table(recs, mesh: str):
     return "\n".join(rows)
 
 
+def cache_table(recs, mesh: str):
+    """Each decode cell's GiB a rank beside what the reference's specs
+    place, and its decode state's GiB beside what
+    ``decode_state_specs`` places (records of the caches laid out over
+    the model ranks; older records have neither cache column)."""
+    rows = ["| arch | shape | GiB/dev | specs GiB | cache GiB | "
+            "specs cache GiB |", "|---|---|---|---|---|---|"]
+    for r in recs:
+        mem = r.get("memory", {})
+        if r.get("mesh") != mesh or "cache_gib" not in mem:
+            continue
+        rows.append(f"| {r['arch']} | {r['shape']} "
+                    f"| {mem['per_device_total_gib']} "
+                    f"| {mem['specs_argument_gib']} | {mem['cache_gib']} "
+                    f"| {mem['specs_cache_gib']} |")
+    return "\n".join(rows)
+
+
 def brief_table(recs):
     """One row a cell, each column single pod / multi-pod: the rank's
     GiB, whether it fits, its collective GB, the dominant term and the
@@ -168,6 +187,9 @@ def main():
             if any("by_axis" in r.get("collective", {}) for r in recs):
                 print(f"\n## Collectives by axis — mesh {mesh}\n")
                 print(axis_table(recs, mesh))
+            if any("cache_gib" in r.get("memory", {}) for r in recs):
+                print(f"\n## Decode state — mesh {mesh}\n")
+                print(cache_table(recs, mesh))
     if _traced(recs):
         print("\n## Both meshes (16x16 / 2x16x16)\n")
         print(brief_table(recs))

@@ -82,7 +82,9 @@ _C10D = {
     "_reduce_scatter_base_": ("reduce-scatter", 1),
     "reduce_scatter_tensor_coalesced_": ("reduce-scatter", 1),
     "alltoall_": ("all-to-all", 1),
-    # the port's one all-to-all carries core/mesh.py::reduce_scatter
+    # the port's all-to-all carries core/mesh.py::reduce_scatter (and
+    # core/mesh.py::all_to_all, which lays a prefill's caches out for
+    # decode and is in no traced step)
     "alltoall_base_": ("reduce-scatter", 1),
     "send": ("collective-permute", 0),
 }

@@ -33,10 +33,15 @@ this module there at a small ``conf``.
     so the norm is what holds the reduce's sum over data ranks) and each
     parameter's relative L2 error after the update;
 (c) ``serve decode`` (``launch.serve.decode_run``) over the group for
-    each arch of ``conf["decode"]``, in the config's dtype and in f32
-    with TF32 off: its tokens, seconds, launches and delivered bytes;
-    in the config's dtype also this rank's blocks of the logits it
-    samples from (:func:`decode_logits`).
+    each (arch, layout) of ``conf["decode"]``: at (2, 2) in the
+    config's dtype and in f32 with TF32 off, at (1, 4) in f32; then
+    each arch of ``conf["decode_wide"]`` over (1, 4) in f32 at full
+    width and the depth its changes give: its tokens, seconds, launches
+    and delivered bytes, its caches' bytes against the layout
+    (:func:`cache_layout`) and one more decode step's bytes by axis
+    against :func:`model_axis_events`; in the config's dtype, and for MoE
+    at (1, 4) in f32 with its routers' choices, also this rank's blocks
+    of the logits it samples from (:func:`decode_logits`).
 """
 import dataclasses
 import math
@@ -117,13 +122,26 @@ def model_axis_events(cfg, mode, rows, seq, msize, ranks,
     """The model-axis collectives of one step's products, reckoned from
     the config and the partition rules (``optim/sharding.py``'s
     predicates), as ``(kind, elements, itemsize)``: ``"all-reduce"`` a
-    sum in rank order of a tensor every model rank holds
+    sum in rank order (or a maximum) of a tensor every model rank holds
     (``core/mesh.py::all_reduce``), ``"all-gather"`` the concatenation
-    of a block of that many elements.  ``mode``: ``"train"`` (forward
+    of a block of that many elements, ``"reduce-scatter"`` a sum in
+    rank order of which each rank keeps its block
+    (``core/mesh.py::reduce_scatter``).  ``mode``: ``"train"`` (forward
     and backward of ``loss_fn`` on each microbatch of ``rows`` /
-    ``microbatches`` rows), ``"decode"`` (one token) or ``"prefill"``;
-    ``msize`` model peers over ``ranks`` model ranks.  Empty over one
-    rank.
+    ``microbatches`` rows), ``"decode"`` (one token; ``seq`` is S_max)
+    or ``"prefill"``; ``msize`` model peers over ``ranks`` model ranks.
+    Empty over one rank.
+
+    In decode, an attention cache whose sequence dim (S_max, a window's
+    min(W, S_max) slots, the encoder's frames) divides ``msize`` holds
+    each rank's block of it (``optim/sharding.py::cache_seq_block``),
+    and its attention adds (``models/attention.py``): where the query
+    heads split, the all-gather of the rank's query heads; where the KV
+    heads split, the all-gather of the new token's k and v (one block of
+    both); the scores' maximum and the sum of their exponentials
+    (``(B, H)``, f32, f64 in f64); the product with V summed, a
+    reduce-scatter over the heads where the query heads split, else an
+    all-reduce (MLA: the context ``(B, H, kv_lora_rank)``).
 
     Under ``remat`` ``"full"`` or ``"dots"`` the backward recomputes
     each group of ``len(cfg.mixer_pattern)`` decoder layers
@@ -165,6 +183,32 @@ def model_axis_events(cfg, mode, rows, seq, msize, ranks,
     def split(kind, name, n):
         return S.splits_over_model(kind, name, cfg, m, n)
 
+    def rs(n, size):
+        ev.append(("reduce-scatter", n, size))
+
+    def seq_attn(t, n_ctx, cross=False):
+        """The decode's reductions over a cache of ``n_ctx`` positions
+        cut over the model ranks."""
+        if mode != "decode" or n_ctx % m:
+            return
+        wide = max(e, 4)
+        hq = cfg.n_heads
+        if cfg.attn_kind == "mla":
+            for n in (t * hq, t * hq, t * hq * cfg.mla.kv_lora_rank):
+                ar(n, wide)
+            return
+        heads = S.heads_split(cfg, m)
+        if heads:
+            ag(t * hq // ranks * hd)                  # q
+        if not cross and S.kv_split(cfg, m):
+            ag(2 * t * cfg.n_kv_heads // ranks * hd)  # the new k and v
+        ar(t * hq, wide)                              # the maximum
+        ar(t * hq, wide)                              # the sum of exp
+        if heads:
+            rs(t * hq * hd, wide)                     # p @ v, its heads
+        else:
+            ar(t * hq * hd, wide)
+
     def attn(t, src=None):
         if not S.heads_split(cfg, m):
             return
@@ -202,6 +246,9 @@ def model_axis_events(cfg, mode, rows, seq, msize, ranks,
             ar(t * d, back=True)
 
     def mixer(kind, t):
+        if kind == "attn":
+            seq_attn(t, min(cfg.local_window, seq) if cfg.local_window
+                     else seq)
         if kind == "attn" and cfg.attn_kind != "mla":
             attn(t)
         elif kind == "rglru" and split("rglru", "w_x",
@@ -231,6 +278,7 @@ def model_axis_events(cfg, mode, rows, seq, msize, ranks,
             mixer(kind, t)
             if cfg.is_encoder_decoder:
                 if mode == "decode":
+                    seq_attn(t, cfg.encoder_seq, cross=True)
                     if S.heads_split(cfg, m):
                         ar(t * d)
                 else:
@@ -260,6 +308,9 @@ def model_axis_bytes(events, ranks) -> dict:
             sent += 2 * chunk * (n - 1) * size
             ops["reduce-scatter"] += chunk * n * size
             ops["all-gather"] += chunk * size
+        elif kind == "reduce-scatter":
+            sent += numel * size * (n - 1) // n
+            ops["reduce-scatter"] += numel * size
         else:
             sent += numel * (n - 1) * size
             ops["all-gather"] += numel * size
@@ -488,38 +539,196 @@ def restore_onto(rank, world, conf):
             "step": int(opt.step)}
 
 
-def _decode(rank, argv, dev, dtype=None):
+def decode_state_layout(state, cfg, mesh, *, s_max: int):
+    """The specs of the port's decode state, to check its caches by:
+    ``optim/sharding.py::decode_state_specs``' (the reference's rule),
+    but for a window cache's ``pos_slots``, which takes the entry of its
+    own ``k``'s window dim, so that a rank holds the positions of the
+    slots it holds.  The reference's spec gives a stacked window cache's
+    ``pos_slots`` the batch axes (reference fault 10), which place no
+    slot by its ``k``.  The program's own rule is
+    ``optim/sharding.py::cache_seq_block``; where the spec cuts no
+    sequence dim, a rank holds its heads of the cache
+    (``models/attention.py``), which no spec names."""
+    from repro_torch.models.attention import WindowKVCache
+    from repro_torch.optim.sharding import decode_state_specs
+    specs = decode_state_specs(state, cfg, mesh, s_max=s_max)
+    caches = state.caches if hasattr(state, "caches") else state
+    out = specs.caches if hasattr(specs, "caches") else specs
+    fixed = []
+    for c, sp in zip(caches, out):
+        sp = dict(sp)
+        if isinstance(c.get("self"), WindowKVCache):
+            sp["self"] = sp["self"]._replace(
+                pos_slots=(sp["self"].k[1],))
+        fixed.append(sp)
+    if hasattr(specs, "caches"):
+        return specs._replace(caches=fixed)
+    return fixed
+
+
+def _attn_leaves(caches, keys, specs=None):
+    """(tensor, spec) of every leaf of the attention caches of ``keys``
+    ("self", "cross") of a decode state's caches (``specs``: a spec
+    structure alike)."""
+    out = []
+    for i, layer in enumerate(caches):
+        for key in keys:
+            if key in layer:
+                sp = specs[i][key] if specs is not None else layer[key]
+                out += list(zip(layer[key], sp))
+    return out
+
+
+def cache_layout(cfg, mesh, state, batch, s_max) -> dict:
+    """The caches the state cuts over the model ranks (``"split"``)
+    against those the rule cuts (``"want_split"``: each whole length
+    that divides the model size, the model axis spanning ranks), and
+    this rank's bytes of the caches the rule cuts (``"bytes"``) against
+    the bytes of :func:`decode_state_layout`'s block of
+    the whole batch's f32 state (``"layout_bytes"``).  (A cache it does
+    not cut holds the rank's KV heads, which no spec names.)"""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import sharding as S
+    whole = M.init_decode_state(cfg, batch=batch, s_max=s_max,
+                                cache_dtype=torch.float32, device="meta")
+    specs = decode_state_layout(whole, cfg, mesh, s_max=s_max)
+
+    def block(t, spec):
+        return t.element_size() * math.prod(
+            n // math.prod(mesh.axis(a).ranks for a in S._names(e)
+                           if a in mesh.shape)
+            for n, e in zip(t.shape, tuple(spec) + (None,) * t.dim()))
+    with L.use_mesh(mesh):
+        want = T.seq_split(cfg, s_max)
+    return {"bytes": sum(t.numel() * t.element_size()
+                         for t, _ in _attn_leaves(state.caches, want)),
+            "layout_bytes": sum(block(t, sp) for t, sp in _attn_leaves(
+                whole.caches, want, specs.caches)),
+            "split": dict(state.seq_split), "want_split": want}
+
+
+def _step_bytes(cfg, mesh, params, state, rows, s_max, dev):
+    """The bytes one more decode step (``model.decode_step`` of this
+    rank's ``rows``, no sampling) delivers by axis, beside
+    :func:`model_axis_events`' reckoning of the model axis."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    tok = torch.zeros((rows, 1), dtype=torch.int32, device=dev)
+    before = dict(mesh.sent_by_axis)
+    with L.use_mesh(mesh):
+        M.decode_step(params, cfg, state, tok)
+    _sync(dev)
+    ax = mesh.axis("model")
+    return {"sent": {a: mesh.sent_by_axis[a] - before[a] for a in before},
+            "reckoned_model": model_axis_bytes(model_axis_events(
+                cfg, "decode", rows, s_max, ax.size, ax.ranks),
+                ax.ranks)["sent"]}
+
+
+def _decode(rank, argv, dev, dtype=None, changes=None):
     from repro_torch.kernels import _build
-    from repro_torch.launch.serve import decode_run
+    from repro_torch.launch.serve import _decode_args, decode_run
     _sync(dev)
     dist.barrier()
     _build.reset_launches()
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = dtype is None and tf32
     try:
-        out = decode_run(argv, group=dist.group.WORLD, dtype=dtype)
+        out = decode_run(argv, group=dist.group.WORLD, dtype=dtype,
+                         changes=changes)
+        _sync(dev)
+        launches = dict(_build.LAUNCHES)
+        args = _decode_args(argv)
+        s_max = args.prompt_len + args.gen
+        mesh, state = out["mesh"], out["state"]
+        layout = cache_layout(out["cfg"], mesh, state, args.batch, s_max)
+        sent = dict(mesh.sent_by_axis)
+        step = _step_bytes(out["cfg"], mesh, out["params"], state,
+                           args.batch // mesh.ranks["data"], s_max, dev)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    _sync(dev)
     return {"tokens": out["tokens"], "t_prefill": out["t_prefill"],
             "t_decode": out["t_decode"],
-            "sent_bytes": out["mesh"].sent_bytes,
-            "sent_by_axis": dict(out["mesh"].sent_by_axis),
-            "launches": dict(_build.LAUNCHES)}
+            "sent_bytes": sum(sent.values()), "sent_by_axis": sent,
+            "launches": launches, "layout": layout, "step": step}
 
 
-def decode_logits(argv, dev, group=None, blocks=1):
+class record_routes:
+    """Records every MoE router's choice while it is entered (nothing
+    when ``on`` is false): ``self.log`` gets, a router call at a time,
+    the (T, E) probabilities the top-k reads (numpy f64) and the (T, k)
+    expert ids it picked.  With ``replay`` (another run's log of the
+    same calls) the router takes that run's experts, gated by its own
+    probabilities, in place of its own choice, which the log still
+    records."""
+
+    def __init__(self, on=True, replay=None):
+        self.on, self.log, self.replay = on, [], replay
+
+    def __enter__(self):
+        if self.on:
+            from repro_torch.models import moe
+            self._orig = moe.topk_with_grad
+
+            def rec(probs, k):
+                vals, ids = self._orig(probs, k)
+                self.log.append((probs.detach().double().cpu().numpy(),
+                                 ids.cpu().numpy()))
+                if self.replay is not None:
+                    ids = torch.as_tensor(self.replay[len(self.log) - 1][1],
+                                          dtype=ids.dtype, device=ids.device)
+                    vals = probs.gather(-1, ids.long()).to(vals.dtype)
+                return vals, ids
+            moe.topk_with_grad = rec
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            from repro_torch.models import moe
+            moe.topk_with_grad = self._orig
+
+
+def route_flips(a, b):
+    """Two runs' router logs (:class:`record_routes`, the same calls on
+    the same tokens): the (call, token) pairs whose expert sets differ."""
+    return [(c, t) for c, ((_, ia), (_, ib)) in enumerate(zip(a, b))
+            for t in range(ia.shape[0])
+            if set(ia[t].tolist()) != set(ib[t].tolist())]
+
+
+def route_margins(log):
+    """Each (call, token)'s margin in a router log: the gap between the
+    k-th and the (k+1)-th largest probability, over the k-th (so a
+    relative gap; 0 is a tie), k the experts it picks.  A list of (T,)
+    arrays, a call each."""
+    import numpy as np
+    out = []
+    for probs, ids in log:
+        k = ids.shape[-1]
+        top = -np.sort(-probs, axis=-1)
+        out.append((top[:, k - 1] - top[:, k]) / top[:, k - 1])
+    return out
+
+
+def decode_logits(argv, dev, group=None, blocks=1, dtype=None,
+                  routes=False, replay=None):
     """The logits ``serve decode`` of ``argv`` computes before it
-    samples, in the config's dtype, on ``decode_run``'s weights and
-    prompt: the prompt's last logits and the first step's logits (the
-    step fed the prompt's first token, so every side feeds the same
-    one).  Over a group, this rank's rows and vocabulary block on its
-    model blocks; else, without ``group``, the whole batch and
-    vocabulary on the whole weights, ``blocks`` data blocks of rows one
-    at a time (MoE dispatches per data shard, as over the data ranks),
-    in the config's dtype and, as ``"wide"``, on the same weights in
-    the next wider dtype (f32 with TF32 off for bf16, f64 for f32).
-    Numpy f32."""
+    samples, in the config's dtype (or ``dtype``; TF32 off for f32), on
+    ``decode_run``'s weights and prompt: the prompt's last logits and
+    the first step's logits (the step fed the prompt's first token, so
+    every side feeds the same one).  Over a group, this rank's rows and
+    vocabulary block on its model blocks; else, without ``group``, the
+    whole batch and vocabulary on the whole weights, ``blocks`` data
+    blocks of rows one at a time (MoE dispatches per data shard, as
+    over the data ranks), in that dtype and, as ``"wide"``, on the same
+    weights in the next wider dtype (f32 with TF32 off for bf16, f64
+    for ``f32``).  With ``routes``, ``"routes"`` holds each block's router
+    log (:class:`record_routes`) of the prefill and the step; with
+    ``replay`` (such logs, a block each) the routers take the logged
+    experts.  Numpy f32."""
     import numpy as np
     from repro_torch.configs.base import get_config, smoke_config
     from repro_torch.launch.mesh import make_host_mesh
@@ -532,6 +741,9 @@ def decode_logits(argv, dev, group=None, blocks=1):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype,
+                                  compute_dtype=dtype)
     s_max = args.prompt_len + args.gen
     params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
                            max_seq=s_max, device=dev)
@@ -546,21 +758,34 @@ def decode_logits(argv, dev, group=None, blocks=1):
 
     def logits(params, cfg):
         out = {"last": [], "first": []}
-        for part in rows.chunk(blocks):
+        logs = []
+        for i, part in enumerate(rows.chunk(blocks)):
             batch = {"tokens": tokens[part].to(dev)}
-            with L.use_mesh(mesh):
+            with L.use_mesh(mesh), record_routes(
+                    routes, None if replay is None else replay[i]) as rec:
                 last, pst = M.prefill(params, cfg, batch)
                 state = state_from_prefill(cfg, pst, s_max)
                 first, _ = M.decode_step(params, cfg, state,
                                          batch["tokens"][:, :1])
+            logs.append(rec.log)
             out["last"].append(last.float().cpu().numpy())
             out["first"].append(first[:, 0].float().cpu().numpy())
-        return {k: np.concatenate(v) for k, v in out.items()}
+        out = {k: np.concatenate(v) for k, v in out.items()}
+        if routes:
+            out["routes"] = logs
+        return out
 
-    out = logits(params, cfg)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    if dtype == "float32":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = logits(params, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     out["rows"] = rows.numpy()
     if mesh is not None:
         out["model_index"] = mesh.axis("model").index
+        out["data_index"] = mesh.axis("data").index
         return out
     wide = "float64" if cfg.compute_dtype == "float32" else "float32"
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -572,6 +797,12 @@ def decode_logits(argv, dev, group=None, blocks=1):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     return out
+
+
+def _moe(argv):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import _decode_args
+    return get_config(_decode_args(argv).arch).moe is not None
 
 
 def _device(conf):
@@ -593,26 +824,45 @@ def _free(dev):
 
 def run(rank: int, world: int, conf: dict) -> dict:
     """Phase 16 on this rank: (a) and (b) at each layout of
-    ``conf["layouts"]``, then (c), each decode in the config's dtype and
-    in f32 (TF32 off)."""
+    ``conf["layouts"]``, then (c)."""
     dev = _device(conf)
     t0 = time.perf_counter()
-    out = {"train": {}, "xcheck": {}, "decode": {}, "decode_f32": {}}
+    out = {"train": {}, "xcheck": {}, "decode": {}, "decode_f32": {},
+           "seconds_by_part": {}}
+    took = out["seconds_by_part"]
     for lay in conf["layouts"]:
+        t1 = time.perf_counter()
         out["train"][lay] = _train(rank, conf, dev, lay)
         if out["train"][lay]["trace"] is not None:
             out["trace"] = out["train"][lay]["trace"]
         _free(dev)
+        took[f"train {lay}"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
         out["xcheck"][lay] = _xcheck(rank, conf, dev, lay)
         _free(dev)
-    for arch, argv in conf["decode"].items():
-        out["decode"][arch] = _decode(rank, argv, dev)
+        took[f"f32 check {lay}"] = time.perf_counter() - t1
+    for (arch, lay), argv in conf["decode"].items():
+        t1 = time.perf_counter()
+        if lay == (2, 2):
+            out["decode"][arch] = _decode(rank, argv, dev)
+            _free(dev)
+            out["decode"][arch]["logits"] = decode_logits(
+                argv, dev, group=dist.group.WORLD)
+            _free(dev)
+        out["decode_f32"][(arch, lay)] = _decode(rank, argv, dev, "float32")
         _free(dev)
-        out["decode"][arch]["logits"] = decode_logits(
-            argv, dev, group=dist.group.WORLD)
+        if lay == (1, 4) and _moe(argv):
+            out["decode_f32"][(arch, lay)]["logits"] = decode_logits(
+                argv, dev, group=dist.group.WORLD, dtype="float32",
+                routes=True)
+            _free(dev)
+        took[f"decode {arch} {lay}"] = time.perf_counter() - t1
+    for arch, (argv, changes) in conf.get("decode_wide", {}).items():
+        t1 = time.perf_counter()
+        out["decode_f32"][(arch, "wide")] = _decode(rank, argv, dev,
+                                                    "float32", changes)
         _free(dev)
-        out["decode_f32"][arch] = _decode(rank, argv, dev, "float32")
-        _free(dev)
+        took[f"decode {arch} wide"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
