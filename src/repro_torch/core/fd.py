@@ -39,6 +39,10 @@ Under doubling and ring, rank r's indices are the one-process
 the order of tied scores, as the reference's devices' do.  The halving
 broadcast is sent as peer 0's list plus +0.0 (the psum's bits: every
 other term is +0.0), moving the bytes ``comm_bytes`` counts.
+
+Spans (``runtime/spans.py``): ``fd.local`` (phase 2), ``fd.round`` a
+merge round (``round=i``), ``fd.broadcast`` (halving's root broadcast),
+``fd.cn`` and ``fd.cn_star`` (the baselines).
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from repro_torch.core import mesh as M
 from repro_torch.core import topology
 from repro_torch.kernels.merge import merge_scorelists
 from repro_torch.kernels.topk import local_topk
+from repro_torch.runtime.spans import span
 
 _ALGORITHMS = ("fd", "cn", "cn_star")
 
@@ -92,10 +97,11 @@ def _over_ranks(axis: Optional[M.Axis]) -> bool:
 def _local_lists(local_scores: torch.Tensor, k: int,
                  axis: Optional[M.Axis] = None) -> tuple:
     """Phase 2 on every peer: its k-list with global indices."""
-    L, n_local = local_scores.shape[-2:]
-    ax = M.axis_index(L, local_scores.device, axis)
-    vals, idx = local_topk(local_scores, k)
-    return vals, idx + (ax * n_local)[:, None]
+    with span("fd.local"):
+        L, n_local = local_scores.shape[-2:]
+        ax = M.axis_index(L, local_scores.device, axis)
+        vals, idx = local_topk(local_scores, k)
+        return vals, idx + (ax * n_local)[:, None]
 
 
 def _peer_lists(local_scores: torch.Tensor, k: int, schedule: str,
@@ -114,27 +120,31 @@ def _peer_lists(local_scores: torch.Tensor, k: int, schedule: str,
     vals, idx = _local_lists(local_scores, k, axis)
 
     if schedule == "doubling":
-        for perm, _ in rounds:
-            pv, pi = M.ppermute_all((vals, idx), perm, axis)
-            vals, idx = merge_scorelists(vals, idx, pv, pi)
+        for i, (perm, _) in enumerate(rounds):
+            with span("fd.round", round=i):
+                pv, pi = M.ppermute_all((vals, idx), perm, axis)
+                vals, idx = merge_scorelists(vals, idx, pv, pi)
         return vals, idx
 
     if schedule == "halving":
-        for perm, recv in rounds:
-            pv, pi = M.ppermute_all((vals, idx), perm, axis)
-            # non-receivers got zeros; mask them to -inf so merge is a no-op
-            pv = torch.where(recv[:, None], pv, float("-inf"))
-            pi = torch.where(recv[:, None], pi, -1)
-            vals, idx = merge_scorelists(vals, idx, pv, pi)
+        for i, (perm, recv) in enumerate(rounds):
+            with span("fd.round", round=i):
+                pv, pi = M.ppermute_all((vals, idx), perm, axis)
+                # non-receivers got zeros; mask them to -inf so merge is
+                # a no-op
+                pv = torch.where(recv[:, None], pv, float("-inf"))
+                pi = torch.where(recv[:, None], pi, -1)
+                vals, idx = merge_scorelists(vals, idx, pv, pi)
         # peer 0 (query originator) holds the final score-list; broadcast
         # it (the retrieval-phase "ask" fan-out)
-        if _over_ranks(axis):
-            vals, idx = M.broadcast_all(
-                (vals[..., 0, :] + 0.0, idx[..., 0, :]), axis)
-        else:
-            root = (M.axis_index(L, dev) == 0)[:, None]
-            vals = M.psum(torch.where(root, vals, 0.0))
-            idx = M.psum(torch.where(root, idx, 0))
+        with span("fd.broadcast"):
+            if _over_ranks(axis):
+                vals, idx = M.broadcast_all(
+                    (vals[..., 0, :] + 0.0, idx[..., 0, :]), axis)
+            else:
+                root = (M.axis_index(L, dev) == 0)[:, None]
+                vals = M.psum(torch.where(root, vals, 0.0))
+                idx = M.psum(torch.where(root, idx, 0))
         shape = vals.shape[:-1] + (L, k)
         return (vals.unsqueeze(-2).expand(shape),
                 idx.unsqueeze(-2).expand(shape))
@@ -144,10 +154,11 @@ def _peer_lists(local_scores: torch.Tensor, k: int, schedule: str,
         # accumulator would re-introduce duplicates of already-seen
         # lists.  Peer 0 merges peer P-1's list first, then P-2's, ...
         relay_v, relay_i = vals, idx
-        for perm, _ in rounds:
-            relay_v, relay_i = M.ppermute_all((relay_v, relay_i), perm,
-                                              axis)
-            vals, idx = merge_scorelists(vals, idx, relay_v, relay_i)
+        for i, (perm, _) in enumerate(rounds):
+            with span("fd.round", round=i):
+                relay_v, relay_i = M.ppermute_all((relay_v, relay_i),
+                                                  perm, axis)
+                vals, idx = merge_scorelists(vals, idx, relay_v, relay_i)
         return vals, idx
 
     raise ValueError(f"unknown schedule {schedule!r}")
@@ -173,17 +184,19 @@ def cn_topk_shard(local_scores: torch.Tensor, k: int,
                   axis: Optional[M.Axis] = None) -> tuple:
     """CN baseline: all-gather the full scores, top-k locally (every
     peer computes the same list, so it is computed once a rank)."""
-    return local_topk(M.all_gather(local_scores, axis), k)
+    with span("fd.cn"):
+        return local_topk(M.all_gather(local_scores, axis), k)
 
 
 def cn_star_topk_shard(local_scores: torch.Tensor, k: int,
                        axis: Optional[M.Axis] = None) -> tuple:
     """CN* baseline: all-gather only the k-lists, merge locally."""
-    vals, idx = _local_lists(local_scores, k, axis)
-    all_v = M.all_gather(vals, axis)                        # (..., k*P)
-    all_i = M.all_gather(idx, axis)
-    mv, pos = local_topk(all_v, k)
-    return mv, torch.take_along_dim(all_i, pos.long(), dim=-1)
+    with span("fd.cn_star"):
+        vals, idx = _local_lists(local_scores, k, axis)
+        all_v = M.all_gather(vals, axis)                    # (..., k*P)
+        all_i = M.all_gather(idx, axis)
+        mv, pos = local_topk(all_v, k)
+        return mv, torch.take_along_dim(all_i, pos.long(), dim=-1)
 
 
 def fd_topk_gather_shard(local_scores: torch.Tensor,

@@ -21,6 +21,12 @@ strategies and §4 churn handling moot on a reliable fabric);
 ``cn`` / ``cn-star`` lower to the paper's baselines; ``fd-stats`` has
 no device backend.
 
+Spans (``runtime/spans.py``): ``run_many``, and within it
+``run_many.inputs`` (casts and grouping), ``run_many.stack``,
+``run_many.sync``, ``run_many.results`` (a ``TopKResult`` a query) and
+``run_many.unfused`` (a call that is not stacked); the counter
+``engine.plan_builds`` counts the plans built (misses of the cache).
+
 A port of the reference's ``repro/engine/device.py``.
 """
 from __future__ import annotations
@@ -36,6 +42,7 @@ from repro_torch.engine.api import (PRECISIONS, Engine, Policy, QuerySpec,
                                     TopKResult)
 from repro_torch.engine.precision import torch_dtype
 from repro_torch.kernels import _build
+from repro_torch.runtime.spans import count, span
 
 _DEVICE_ALGOS = ("fd", "cn", "cn_star")
 _REPORTED = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -108,6 +115,7 @@ class DeviceEngine(Engine):
         fn = self._compiled.get(key)
         if fn is not None:
             return fn, 0.0
+        count("engine.plan_builds")
         t0 = time.perf_counter()
         if self.mesh.device.type == "cuda":
             _build.ensure_built()
@@ -167,66 +175,80 @@ class DeviceEngine(Engine):
         """
         if self.mesh is None:
             raise RuntimeError("call DeviceEngine.prepare(mesh) first")
-        pols = self._zip_policies(specs, policies)
-        scores = [self._cast(s) for s in scores]
-        row_seq = list(rows) if rows is not None else [None] * len(specs)
-        if len(scores) != len(specs) or len(row_seq) != len(specs):
-            raise ValueError(
-                f"need one scores (and rows) entry per spec: "
-                f"{len(specs)} specs, {len(scores)} scores, "
-                f"{len(row_seq)} rows")
-        results: List[Optional[TopKResult]] = [None] * len(specs)
-        groups: dict = {}               # exec signature -> [index]
-        for i, (spec, pol) in enumerate(zip(specs, pols)):
-            if pol.algorithm not in _DEVICE_ALGOS:
+        with span("run_many"):
+            return self._run_many(specs, policies, scores, rows)
+
+    def _run_many(self, specs, policies, scores, rows):
+        with span("run_many.inputs"):
+            pols = self._zip_policies(specs, policies)
+            scores = [self._cast(s) for s in scores]
+            row_seq = (list(rows) if rows is not None
+                       else [None] * len(specs))
+            if len(scores) != len(specs) or len(row_seq) != len(specs):
                 raise ValueError(
-                    f"policy {pol.name!r} (algorithm {pol.algorithm!r}) "
-                    f"has no device backend; use one of {_DEVICE_ALGOS}")
-            k = spec.k if spec.k is not None else 20
-            s = scores[i]
-            if row_seq[i] is not None or s.dim() != 1:
-                results[i] = self._run_one(pol, k, s, row_seq[i])
-                continue
-            key = (pol.algorithm, k, tuple(s.shape), s.dtype)
-            groups.setdefault(key, []).append(i)
+                    f"need one scores (and rows) entry per spec: "
+                    f"{len(specs)} specs, {len(scores)} scores, "
+                    f"{len(row_seq)} rows")
+            results: List[Optional[TopKResult]] = [None] * len(specs)
+            groups: dict = {}           # exec signature -> [index]
+            unfused = []                # (index, k) of the unstacked
+            for i, (spec, pol) in enumerate(zip(specs, pols)):
+                if pol.algorithm not in _DEVICE_ALGOS:
+                    raise ValueError(
+                        f"policy {pol.name!r} (algorithm "
+                        f"{pol.algorithm!r}) has no device backend; use "
+                        f"one of {_DEVICE_ALGOS}")
+                k = spec.k if spec.k is not None else 20
+                s = scores[i]
+                if row_seq[i] is not None or s.dim() != 1:
+                    unfused.append((i, k))
+                    continue
+                key = (pol.algorithm, k, tuple(s.shape), s.dtype)
+                groups.setdefault(key, []).append(i)
+        for i, k in unfused:
+            results[i] = self._run_one(pols[i], k, scores[i], row_seq[i])
         for (algorithm, k, _, _), idxs in groups.items():
             if len(idxs) == 1:
                 i = idxs[0]
                 results[i] = self._run_one(pols[i], k, scores[i], None)
                 continue
-            stacked = torch.stack([scores[i] for i in idxs])
+            with span("run_many.stack"):
+                stacked = torch.stack([scores[i] for i in idxs])
             fn, compile_s = self._fn("topk", k, algorithm)
             t0, sent0 = time.perf_counter(), self.mesh.sent_bytes
             vals, idx = fn(stacked)
-            self._sync()
+            with span("run_many.sync"):
+                self._sync()
             run_s = time.perf_counter() - t0
-            for b, i in enumerate(idxs):
-                res = self._result(pols[i], k, scores[i], vals[b], idx[b],
-                                   None, sent0)
-                res.compile_s, res.run_s = compile_s, run_s
-                res.batch_size = len(idxs)
-                results[i] = res
+            with span("run_many.results"):
+                for b, i in enumerate(idxs):
+                    res = self._result(pols[i], k, scores[i], vals[b],
+                                       idx[b], None, sent0)
+                    res.compile_s, res.run_s = compile_s, run_s
+                    res.batch_size = len(idxs)
+                    results[i] = res
         return results
 
     def _run_one(self, pol: Policy, k: int, scores, rows) -> TopKResult:
         """One unfused collective call (gather / pre-batched / solo)."""
-        if rows is not None:
-            if pol.algorithm != "fd":
-                raise ValueError(
-                    "the data-retrieval gather path is FD-only "
-                    "(CN ships whole shards, not k rows)")
-            fn, compile_s = self._fn("gather", k, pol.algorithm)
-            rows = self._tensor(rows)
-            t0, sent0 = time.perf_counter(), self.mesh.sent_bytes
-            vals, idx, got = fn(scores, rows)
-        else:
-            fn, compile_s = self._fn("topk", k, pol.algorithm)
-            t0, sent0 = time.perf_counter(), self.mesh.sent_bytes
-            (vals, idx), got = fn(scores), None
-        self._sync()
-        res = self._result(pol, k, scores, vals, idx, got, sent0)
-        res.compile_s, res.run_s = compile_s, time.perf_counter() - t0
-        return res
+        with span("run_many.unfused"):
+            if rows is not None:
+                if pol.algorithm != "fd":
+                    raise ValueError(
+                        "the data-retrieval gather path is FD-only "
+                        "(CN ships whole shards, not k rows)")
+                fn, compile_s = self._fn("gather", k, pol.algorithm)
+                rows = self._tensor(rows)
+                t0, sent0 = time.perf_counter(), self.mesh.sent_bytes
+                vals, idx, got = fn(scores, rows)
+            else:
+                fn, compile_s = self._fn("topk", k, pol.algorithm)
+                t0, sent0 = time.perf_counter(), self.mesh.sent_bytes
+                (vals, idx), got = fn(scores), None
+            self._sync()
+            res = self._result(pol, k, scores, vals, idx, got, sent0)
+            res.compile_s, res.run_s = compile_s, time.perf_counter() - t0
+            return res
 
     def _result(self, pol: Policy, k: int, scores, vals, idx,
                 got, sent0: int) -> TopKResult:

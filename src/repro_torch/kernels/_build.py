@@ -15,7 +15,9 @@ its CPU path.  The sources compile in parallel, one ``nvcc`` each.
 
 ``LAUNCHES`` holds one launch counter per kernel; each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
-its path went through the kernels.
+its path went through the kernels.  Under ``runtime/spans.py``'s
+``recording()``, the counter ``kernels.library_builds`` counts the
+libraries ``nvcc`` compiled (none where the build directory holds them).
 """
 from __future__ import annotations
 
@@ -114,6 +116,9 @@ def ensure_built() -> float:
                 #                         a whole library or none
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        if procs:
+            from repro_torch.runtime.spans import count
+            count("kernels.library_builds", len(procs))
         _libs = {cu.stem: ctypes.CDLL(str(out / f"lib{cu.stem}.so"))
                  for cu in _sources()}
         return time.perf_counter() - t0

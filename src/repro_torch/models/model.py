@@ -55,6 +55,7 @@ from repro_torch.core.mesh import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.rope import sinusoidal_embedding
+from repro_torch.runtime.spans import span
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16, "float64": torch.float64}
@@ -299,6 +300,15 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
     the encoder's cross KV), None in train; ``aux`` the decoder's MoE
     auxiliary loss (f32, zero without MoE; the encoder's is dropped, as
     in the reference).  ``remat`` is :func:`transformer.stack_apply`'s."""
+    x, caches, aux = _stack_out(params, cfg, batch, mode=mode, remat=remat,
+                                q_block=q_block, kv_block=kv_block)
+    return logits_fn(params, cfg, x), caches, aux
+
+
+def _stack_out(params: LM, cfg: ModelConfig, batch: dict, *, mode: str,
+               remat: str, q_block: int, kv_block: int):
+    """:func:`forward` up to the head: (the stack's output, caches,
+    aux); the embedding in the span ``embed``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = batch.get("positions")
@@ -308,13 +318,12 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
     if cfg.is_encoder_decoder:
         enc_out = encode(params, cfg, batch["frames"], q_block=q_block,
                          kv_block=kv_block)
-    x = embed_tokens(params, cfg, tokens,
-                     vision_embeds=batch.get("vision_embeds"))
-    x, caches, aux = T.stack_apply(params.layers, cfg, x, mode=mode,
-                                   positions=positions, enc_out=enc_out,
-                                   remat=remat, q_block=q_block,
-                                   kv_block=kv_block)
-    return logits_fn(params, cfg, x), caches, aux
+    with span("embed"):
+        x = embed_tokens(params, cfg, tokens,
+                         vision_embeds=batch.get("vision_embeds"))
+    return T.stack_apply(params.layers, cfg, x, mode=mode,
+                         positions=positions, enc_out=enc_out, remat=remat,
+                         q_block=q_block, kv_block=kv_block)
 
 
 def loss_fn(params: LM, cfg: ModelConfig, batch: dict, *,
@@ -331,17 +340,20 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: dict, *,
     label's logit picked with ``take_along_dim`` on the labels clamped
     to 0, then masked: the reference's (B, S, V) one-hot sums one logit
     and zeros, so the pick is the same value, without a (B, S, V) mask
-    (157 MB a step at qwen2-0.5b's 153,600 columns).
+    (157 MB a step at qwen2-0.5b's 153,600 columns).  The head and the
+    cross-entropy are the span ``loss`` (``runtime/spans.py``).
     """
-    logits, _, aux = forward(params, cfg, batch, mode="train", remat=remat,
-                             q_block=q_block, kv_block=kv_block)
-    labels = batch["labels"]
-    lse, picked = ce_terms(logits, labels, cfg)
-    mask = (labels >= 0).to(lse.dtype)
-    if n_tok is None:
-        n_tok = torch.clamp_min(mask.sum(), 1.0)
-    ce = ((lse - picked) * mask).sum() / n_tok
-    loss = ce + aux
+    x, _, aux = _stack_out(params, cfg, batch, mode="train", remat=remat,
+                           q_block=q_block, kv_block=kv_block)
+    with span("loss"):
+        logits = logits_fn(params, cfg, x)
+        labels = batch["labels"]
+        lse, picked = ce_terms(logits, labels, cfg)
+        mask = (labels >= 0).to(lse.dtype)
+        if n_tok is None:
+            n_tok = torch.clamp_min(mask.sum(), 1.0)
+        ce = ((lse - picked) * mask).sum() / n_tok
+        loss = ce + aux
     return loss, {"ce": ce, "aux": aux, "n_tok": n_tok}
 
 

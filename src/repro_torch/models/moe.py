@@ -32,6 +32,9 @@ and the ranks' outputs are all-gathered once a layer
 (``gather_from_model``) before the combine.  The shared experts are an
 FFN split over the model ranks (``layers.apply_ffn``).  Experts that do
 not divide stay whole on every rank, as the rules leave them.
+
+The capacity route's four parts are spans (``runtime/spans.py``):
+``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from repro_torch.core.mesh import gather_from_model, slice_to_model
 from repro_torch.kernels.topk import topk_with_grad
 from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init, wide
+from repro_torch.runtime.spans import span
 
 
 def moe_init(gen: torch.Generator, cfg, dtype) -> dict:
@@ -154,40 +158,44 @@ def _moe_dispatch_outside(params, x, cfg, shards: int = 1):
     cap = int(math.ceil(t_l * k / n_e * e.capacity_factor))
     xf = x.reshape(t, d)
     dev = x.device
-    gate_vals, expert_ids, aux = _route(params, xf, cfg, shards)
+    with span("moe.route"):
+        gate_vals, expert_ids, aux = _route(params, xf, cfg, shards)
 
-    flat_exp = expert_ids.view(shards, t_l * k)
-    order = torch.argsort(flat_exp, dim=1, stable=True)
-    pos = torch.arange(t_l * k, device=dev).expand(shards, -1)
-    inv_order = torch.empty_like(order).scatter_(1, order, pos)
-    first = torch.arange(shards, device=dev)[:, None]
-    tok_idx = order // k + first * t_l
-    # jnp.bincount(length=E); torch.bincount on the card reads the
-    # largest id back to the host first, a sync in every layer
-    counts = torch.zeros((shards, n_e), dtype=torch.long,
-                         device=dev).scatter_add_(
-        1, flat_exp, torch.ones_like(flat_exp))
-    sorted_exp = torch.gather(flat_exp, 1, order)
-    starts = torch.cumsum(counts, 1) - counts
-    rank = pos - torch.gather(starts, 1, sorted_exp)
-    rows = n_e * shards * cap
-    slot = torch.where(rank < cap,
-                       sorted_exp * (shards * cap) + first * cap + rank,
-                       rows)
-    buf = torch.zeros((rows + 1, d), dtype=xf.dtype, device=dev)
-    buf[slot.reshape(-1)] = xf[tok_idx.reshape(-1)]
-    bufe = buf[:rows].view(n_e, shards * cap, d)
-    ax = L.split_axis("moe", "w_up", cfg, n_e)
-    bufe = slice_to_model(bufe, ax, 0)             # this rank's experts
-    h = F.silu(torch.bmm(bufe, params["w_gate"])) * torch.bmm(
-        bufe, params["w_up"])
-    y_buf = gather_from_model(torch.bmm(h, params["w_down"]), ax,
-                              0).reshape(rows, d)
-    slot_of_flat = torch.gather(slot, 1, inv_order).reshape(-1)
-    kept = (slot_of_flat < rows)[:, None]
-    y_flat = y_buf[torch.clamp_max(slot_of_flat, rows - 1)]
-    yo = torch.where(kept, y_flat, 0).reshape(t, k, d)
-    return _combine(params, xf, yo, gate_vals, cfg, x), aux
+    with span("moe.dispatch"):
+        flat_exp = expert_ids.view(shards, t_l * k)
+        order = torch.argsort(flat_exp, dim=1, stable=True)
+        pos = torch.arange(t_l * k, device=dev).expand(shards, -1)
+        inv_order = torch.empty_like(order).scatter_(1, order, pos)
+        first = torch.arange(shards, device=dev)[:, None]
+        tok_idx = order // k + first * t_l
+        # jnp.bincount(length=E); torch.bincount on the card reads the
+        # largest id back to the host first, a sync in every layer
+        counts = torch.zeros((shards, n_e), dtype=torch.long,
+                             device=dev).scatter_add_(
+            1, flat_exp, torch.ones_like(flat_exp))
+        sorted_exp = torch.gather(flat_exp, 1, order)
+        starts = torch.cumsum(counts, 1) - counts
+        rank = pos - torch.gather(starts, 1, sorted_exp)
+        rows = n_e * shards * cap
+        slot = torch.where(rank < cap,
+                           sorted_exp * (shards * cap) + first * cap + rank,
+                           rows)
+        buf = torch.zeros((rows + 1, d), dtype=xf.dtype, device=dev)
+        buf[slot.reshape(-1)] = xf[tok_idx.reshape(-1)]
+        bufe = buf[:rows].view(n_e, shards * cap, d)
+    with span("moe.experts"):
+        ax = L.split_axis("moe", "w_up", cfg, n_e)
+        bufe = slice_to_model(bufe, ax, 0)         # this rank's experts
+        h = F.silu(torch.bmm(bufe, params["w_gate"])) * torch.bmm(
+            bufe, params["w_up"])
+        y_buf = gather_from_model(torch.bmm(h, params["w_down"]), ax,
+                                  0).reshape(rows, d)
+    with span("moe.combine"):
+        slot_of_flat = torch.gather(slot, 1, inv_order).reshape(-1)
+        kept = (slot_of_flat < rows)[:, None]
+        y_flat = y_buf[torch.clamp_max(slot_of_flat, rows - 1)]
+        yo = torch.where(kept, y_flat, 0).reshape(t, k, d)
+        return _combine(params, xf, yo, gate_vals, cfg, x), aux
 
 
 def _moe_local(params, x, cfg, *, impl: str = "capacity"):

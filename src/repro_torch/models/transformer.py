@@ -12,7 +12,9 @@ RWKV (``xp_c`` the channel mix's carry), ``{"h", "conv"}`` for Griffin's
 RG-LRU.  The mixer is GQA or MLA attention (``kind == "attn"``, with a
 sliding window where ``cfg.local_window`` is set), RWKV-6 (``"rwkv"``)
 or the RG-LRU (``"rglru"``); the FFN is dense, MoE or the RWKV channel
-mix.
+mix.  Spans (``runtime/spans.py``): ``block`` (``layer=i``) around each
+layer, ``attention`` around its attention (and cross attention), ``moe``
+around its MoE FFN; remat's replay opens them again in the backward.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import griffin, rwkv
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.runtime.spans import span
 
 
 class Block(nn.Module):
@@ -181,10 +184,11 @@ def block_apply(block: Block, cfg: ModelConfig, x, *, positions, mode: str,
     b, dev = x.shape[0], x.device
     h = L.apply_norm(block.norm1, x, cfg.norm)
     if block.kind == "attn":
-        y, c = _attn_mixer(block, cfg, h, positions=positions, mode=mode,
-                           cache=cache, cache_pos=cache_pos,
-                           q_block=q_block, kv_block=kv_block,
-                           seq_len=seq_split.get("self"))
+        with span("attention"):
+            y, c = _attn_mixer(block, cfg, h, positions=positions,
+                               mode=mode, cache=cache, cache_pos=cache_pos,
+                               q_block=q_block, kv_block=kv_block,
+                               seq_len=seq_split.get("self"))
         if keep and c is not None:
             new_cache["self"] = c
     elif block.kind == "rwkv":
@@ -206,22 +210,23 @@ def block_apply(block: Block, cfg: ModelConfig, x, *, positions, mode: str,
 
     if block.has_cross:
         hc = L.apply_norm(block.norm_c, x, cfg.norm)
-        if mode == "decode":
-            yc, cc = attn.cross_decode(block.cross, hc, cfg,
-                                       cache=cache["cross"],
-                                       seq_len=seq_split.get("cross"))
-        else:
-            yc, cc = attn.gqa_attention(block.cross, hc, cfg,
-                                        positions=positions, mode=mode,
-                                        kv_source=enc_out, q_block=q_block,
-                                        kv_block=kv_block)
+        with span("attention"):
+            if mode == "decode":
+                yc, cc = attn.cross_decode(block.cross, hc, cfg,
+                                           cache=cache["cross"],
+                                           seq_len=seq_split.get("cross"))
+            else:
+                yc, cc = attn.gqa_attention(
+                    block.cross, hc, cfg, positions=positions, mode=mode,
+                    kv_source=enc_out, q_block=q_block, kv_block=kv_block)
         if keep:
             new_cache["cross"] = cc
         x = x + yc
 
     h = L.apply_norm(block.norm2, x, cfg.norm)
     if cfg.moe is not None:
-        y, aux = moe_mod.apply_moe(block.ffn, h, cfg)
+        with span("moe"):
+            y, aux = moe_mod.apply_moe(block.ffn, h, cfg)
     elif cfg.act == "rwkv_channel_mix":
         xp = (cache["xp_c"] if cache is not None
               else torch.zeros((b, 1, cfg.d_model), dtype=torch.float32,
@@ -298,12 +303,13 @@ def stack_apply(layers: nn.ModuleList, cfg: ModelConfig, x, *, mode: str,
         return a if total is None else total + a
 
     def run(i, x):
-        return block_apply(layers[i], cfg, x, positions=positions,
-                           mode=mode,
-                           cache=None if caches is None else caches[i],
-                           cache_pos=cache_pos, enc_out=enc_out,
-                           q_block=q_block, kv_block=kv_block,
-                           seq_split=seq_split)
+        with span("block", layer=i):
+            return block_apply(layers[i], cfg, x, positions=positions,
+                               mode=mode,
+                               cache=None if caches is None else caches[i],
+                               cache_pos=cache_pos, enc_out=enc_out,
+                               q_block=q_block, kv_block=kv_block,
+                               seq_split=seq_split)
 
     def group_body(g, x):
         aux, new = None, []

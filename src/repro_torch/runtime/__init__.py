@@ -1,2 +1,3 @@
-"""Step builders of the port's LM paths (``steps``) and the training
-driver's fault tolerance (``ft``)."""
+"""Step builders of the port's LM paths (``steps``), the training
+driver's fault tolerance (``ft``), and the spans and counters the port
+records when asked (``spans``)."""

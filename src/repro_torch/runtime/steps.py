@@ -23,6 +23,7 @@ from repro_torch.core import fd
 from repro_torch.kernels.topk import local_topk
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, decayed
+from repro_torch.runtime.spans import span
 
 
 # --------------------------------------------------------------------------
@@ -80,6 +81,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     gets partial gradients, summed over the model ranks in the
     backward).  The loss is the sum over data ranks, the same bits on
     every rank.
+
+    Spans (``runtime/spans.py``): ``train_step`` around the whole step,
+    ``forward`` (each microbatch's loss), ``backward`` (its
+    ``autograd.grad``) and ``optimizer`` (AdamW, clipping included).
     """
     from repro_torch.models import layers as L
     over_ranks = mesh is not None and mesh.multi_rank
@@ -92,11 +97,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
             mesh, S.FSDP_AXES))
 
     def loss_of(params, mb, n_tok=None):
-        return M.loss_fn(params, cfg, mb, remat=remat, q_block=q_block,
-                         kv_block=kv_block, n_tok=n_tok)
+        with span("forward"):
+            return M.loss_fn(params, cfg, mb, remat=remat, q_block=q_block,
+                             kv_block=kv_block, n_tok=n_tok)
 
     def grads_of(leaves, loss):
-        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("backward"):
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
         return [torch.zeros_like(p) if g is None else g
                 for p, g in zip(leaves, gs)]
 
@@ -116,6 +123,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         return list(torch.clamp_min(S.psum_axes(counts, mesh), 1.0))
 
     def train_step(params, opt_state, batch):
+        with span("train_step"):
+            return step(params, opt_state, batch)
+
+    def step(params, opt_state, batch):
         names, leaves = zip(*params.named_parameters())
         blocks = [p.data for p in leaves]
         if over_ranks:
@@ -157,10 +168,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
             grads = [S.reduce_leaf(g, specs[n], mesh)
                      for n, g in zip(names, grads)]
             loss = S.psum_axes(loss, mesh)
-        params, opt_state, om = adamw_update(
-            dict(zip(names, grads)), opt_state, params, opt_cfg,
-            decayed(params, cfg), mesh=mesh if over_ranks else None,
-            specs=specs)
+        with span("optimizer"):
+            params, opt_state, om = adamw_update(
+                dict(zip(names, grads)), opt_state, params, opt_cfg,
+                decayed(params, cfg), mesh=mesh if over_ranks else None,
+                specs=specs)
         return params, opt_state, {"loss": loss, **om}
 
     return train_step
